@@ -1,0 +1,109 @@
+"""Shared layers: reflect-padded conv, InstanceNorm, masked BatchNorm (eval),
+and the Linear stacks of the heads.
+
+Counterparts of gpnerf_tpu/models/layers.py, written as torch modules whose
+parameter names follow the reference checkpoint (`weight`, `bias`,
+`running_mean`, `running_var`), so `load_state_dict(strict=True)` on
+artifacts/bench_ckpt.pth fills them directly.
+
+`compute_dtype` reproduces the JAX package's reduced-precision casts
+(cfg.tpu.matmul_dtype "bfloat16"): operands are rounded to that dtype and
+the arithmetic runs in float32 on the rounded values, which is what XLA does
+for a bf16 convolution with float32 accumulation.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def rounded(x, dtype):
+    """`x` rounded to `dtype` and returned as float32 (None: unchanged)."""
+    return x if dtype is None else x.to(dtype).float()
+
+
+class ReflectConv(nn.Conv2d):
+    """Conv2d with reflect padding, NCHW (the reference's
+    `padding_mode='reflect'` convs, UNet.py:6-14,160-161)."""
+
+    def __init__(self, cin, cout, kernel_size=3, stride=1, bias=False,
+                 compute_dtype=None):
+        super().__init__(
+            cin, cout, kernel_size, stride, padding=(kernel_size - 1) // 2,
+            padding_mode="reflect", bias=bias,
+        )
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        p = self.padding[0]
+        if p:
+            x = F.pad(x, (p, p, p, p), mode="reflect")
+        dt = self.compute_dtype
+        y = F.conv2d(rounded(x, dt), rounded(self.weight, dt), None, self.stride)
+        y = rounded(y, dt)
+        if self.bias is not None:
+            y = rounded(y + rounded(self.bias, dt)[None, :, None, None], dt)
+        return y
+
+
+class InstanceNorm(nn.Module):
+    """InstanceNorm2d(affine=True, track_running_stats=False), NCHW,
+    statistics in float32 (layers.InstanceNorm)."""
+
+    def __init__(self, channels, eps=1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        x = x.float()
+        mean = x.mean(dim=(2, 3), keepdim=True)
+        var = ((x - mean) ** 2).mean(dim=(2, 3), keepdim=True)
+        y = (x - mean) * torch.rsqrt(var + self.eps)
+        return y * self.weight[None, :, None, None] + self.bias[None, :, None, None]
+
+
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm1d(eps=1e-3) over a padded (CAP, C) active-site matrix in
+    eval mode: the running statistics are applied as an affine map
+    (layers.MaskedBatchNorm with use_running_average=True). Rendering never
+    updates statistics, so the train-mode branch is not part of the port."""
+
+    def __init__(self, channels, eps=1e-3):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+        self.register_buffer(
+            "num_batches_tracked", torch.tensor(0, dtype=torch.long)
+        )
+
+    def forward(self, x):
+        y = (x - self.running_mean) / torch.sqrt(self.running_var + self.eps)
+        return y * self.weight + self.bias
+
+
+_ACTS = {"elu": nn.ELU, "relu": nn.ReLU}
+
+
+class MLP(nn.Sequential):
+    """Linear stack with per-layer activations, laid out as the reference's
+    nn.Sequential (Linear at even indices), so keys read `<name>.0.weight`,
+    `<name>.2.weight`, ..."""
+
+    def __init__(self, cin: int, features: Sequence[int],
+                 activations: Sequence[str]):
+        mods = []
+        for f, act in zip(features, activations):
+            mods.append(nn.Linear(cin, f))
+            if act != "none":
+                mods.append(_ACTS[act]())
+            cin = f
+        super().__init__(*mods)
