@@ -1,5 +1,5 @@
-"""Gather tables and samplers of the progressive renderer's fast path
-(the subset of gpnerf_tpu/ops/grid_sample.py the shipped "fast" mode runs).
+"""Gather tables and samplers of the progressive renderer (the subset of
+gpnerf_tpu/ops/grid_sample.py its fast and reference-semantics modes run).
 
 Semantics are torch `F.grid_sample(align_corners=True, padding_mode=
 'zeros')`, reached through packed tables: a quad table row holds the 4 taps
@@ -62,7 +62,8 @@ def grid_sample_2d_nhwc(img, grid):
 
 def build_quad_table_2d(img):
     """img (..., H, W, C) -> (..., H+1, W+1, 4C): row [y+1, x+1] packs
-    [img[y,x], img[y,x+1], img[y+1,x], img[y+1,x+1]] (zeros outside)."""
+    [img[y,x], img[y,x+1], img[y+1,x], img[y+1,x+1]] (zeros outside). Any
+    dtype: float fields, int8/int4-packed codes, raw uint8 pixels."""
     p = F.pad(img, (0, 0, 1, 1, 1, 1))
     return torch.cat(
         [p[..., :-1, :-1, :], p[..., :-1, 1:, :], p[..., 1:, :-1, :],
@@ -184,6 +185,21 @@ def quantize_image_i8(img, eps=1e-8):
     scale = (amax / 127.0).float()
     q = torch.round(img / scale).clamp(-127, 127).to(torch.int8)
     return q, scale
+
+
+def quantize_image_i4(img, eps=1e-8):
+    """Per-channel symmetric int4 split-pack of a feature image: channel c
+    quantizes to [-7, 7] and shares a byte with channel c + C/2 (low/high
+    nibble, two's complement). Returns (packed (..., C/2) uint8, scale (C,)
+    float32); unpack = sign-extended nibble * scale[c]."""
+    C = img.shape[-1]
+    if C % 2:
+        raise ValueError(f"int4 split-pack needs an even channel count, got {C}")
+    amax = img.reshape(-1, C).abs().amax(dim=0).clamp_min(eps)
+    scale = (amax / 7.0).float()
+    q = torch.round(img / scale).clamp(-7, 7).to(torch.int32)
+    h = C // 2
+    return ((q[..., :h] & 0xF) | ((q[..., h:] & 0xF) << 4)).to(torch.uint8), scale
 
 
 def octet_rows_and_weights(table: FlatOctetTable, pos, size):

@@ -37,14 +37,18 @@ def inbound_mask(pixel_xy, h, w):
     )
 
 
-def project_gather_rows_merged(xyz, KE, srcfeat_quad, h, w, *, neg_ray=False):
-    """Gather half of the merged [rgb|feat] quad-table projection: the raw
-    quad rows in view-major order, the 4 bilinear tap weights with the
-    in-bounds mask folded in, and the view mask. The weighted sum and
-    everything downstream happen in the point-stage kernel.
+def project_gather_rows_merged(xyz, KE, srcfeat_quad, h, w, *, neg_ray=False,
+                               batched=False):
+    """Gather half of a quad-table projection: the raw quad rows in
+    view-major order, the 4 bilinear tap weights with the in-bounds mask
+    folded in, and the view mask. The weighted sum and everything
+    downstream happen in the point-stage kernel.
 
-    srcfeat_quad: (V, Ht+1, Wt+1, 4C) from build_quad_table_2d; h/w are the
-    source image size (the pixel frame of K).
+    srcfeat_quad: (V, Ht+1, Wt+1, 4C) from build_quad_table_2d (the merged
+    [rgb|feat] table, or one table of the split pair; the gather uses the
+    table's own grid); h/w are the source image size (the pixel frame of
+    K). `batched` gathers view by view from the per-view table instead of
+    once from the flat (V*rows) table; both return the same rows.
     Returns rows (V*P, 4C), w4 (V, 4, P) f32, vmask (V, P) f32."""
     V = srcfeat_quad.shape[0]
     C4 = srcfeat_quad.shape[-1]
@@ -65,9 +69,13 @@ def project_gather_rows_merged(xyz, KE, srcfeat_quad, h, w, *, neg_ray=False):
     xc = xi.clamp(-1, wt - 1) + 1
     yc = yi.clamp(-1, ht - 1) + 1
     stride = (ht + 1) * (wt + 1)
-    voff = torch.arange(V, device=xyz.device)[:, None] * stride
-    idx_vp = yc * (wt + 1) + xc + voff  # (V, P)
-    rows = srcfeat_quad.reshape(V * stride, C4)[idx_vp.reshape(-1)]
+    idx_vp = yc * (wt + 1) + xc  # (V, P)
+    if batched:
+        tab = srcfeat_quad.reshape(V, stride, C4)
+        rows = torch.cat([tab[v][idx_vp[v]] for v in range(V)])
+    else:
+        voff = torch.arange(V, device=xyz.device)[:, None] * stride
+        rows = srcfeat_quad.reshape(V * stride, C4)[(idx_vp + voff).reshape(-1)]
 
     def tapw(xi_, yi_, wgt):
         inb = (xi_ >= 0) & (xi_ <= wt - 1) & (yi_ >= 0) & (yi_ <= ht - 1)

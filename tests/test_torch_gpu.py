@@ -63,10 +63,10 @@ def _inputs(P, seed, dev):
 def test_kernel_matches_plain(P):
     dev = _cuda()
     args = _inputs(P, P, dev)
-    before = ps.fused_point_stages.launches
+    before = ps.LAUNCHES["a"]
     a, rgb = ps.fused_point_stages(*args)
     torch.cuda.synchronize()
-    assert ps.fused_point_stages.launches == before + 1
+    assert ps.LAUNCHES["a"] == before + 1
     a_p, rgb_p = ps.point_stages_plain(*args)
     a, rgb, a_p, rgb_p = (t.cpu().numpy() for t in (a, rgb, a_p, rgb_p))
     assert np.isfinite(a).all() and np.isfinite(rgb).all()
@@ -92,8 +92,106 @@ def test_kernel_refuses_other_forms():
         ps.fused_point_stages(rows, w4, pscale, geom[:1], vmask, sig_ok, weights)
 
 
+def _form_inputs(form, P, seed, dev):
+    """Seeded inputs of one instantiation (a key of ps.FORMS) at the widths
+    the kernel is written for."""
+    proj, use_feats, occ = form
+    rs = np.random.RandomState(seed)
+    V, C, CS, CF, C0, C1 = ps.V, ps.C, ps.CS, ps.CF, ps.C0, ps.C1
+
+    def w4():
+        return (rs.rand(V, 4, P) * (rs.rand(V, 4, P) > 0.1)).astype(np.float32)
+
+    if proj == "merged_i8":
+        tabs = ((rs.randint(-127, 128, size=(V * P, 4 * C)).astype(np.int8), w4(),
+                 (0.02 + rs.rand(C) * 0.05).astype(np.float32)),)
+    else:
+        feat = (rs.randint(0, 256, size=(V * P, 2 * CF)).astype(np.uint8) if proj == "split_i4"
+                else rs.randint(-127, 128, size=(V * P, 4 * CF)).astype(np.int8))
+        tabs = ((rs.randint(0, 256, size=(V * P, 4 * CS)).astype(np.uint8), w4(),
+                 np.full((CS,), 1 / 255.0, np.float32)),
+                (feat, w4(), (0.02 + rs.rand(CF) * 0.05).astype(np.float32)))
+    feats, kw = None, {}
+    if use_feats:
+        feats = (rs.randn(P, C0 + C1) * 0.5).astype(np.float32)
+    else:
+        gw0 = rs.rand(8, P).astype(np.float32)
+        g0 = rs.randint(0, 256, size=(P, 8 * C0)).astype(np.uint8)
+        if occ:
+            g0[rs.rand(P) > 0.6] = 0  # empty cells, so the cull bites
+        kw["geom_tabs"] = (
+            (g0, gw0 / gw0.sum(0), (0.01 + rs.rand(C0) * 0.03).astype(np.float32)),
+            (rs.randint(-127, 128, size=(P, C1)).astype(np.int8),
+             (rs.rand(1, P) > 0.05).astype(np.float32),
+             (0.01 + rs.rand(C1) * 0.03).astype(np.float32)),
+        )
+    vmask = (rs.rand(V, P) > 0.15).astype(np.float32)
+    sig_ok = rs.rand(P) > 0.2
+
+    def to(x):
+        if isinstance(x, tuple):
+            return tuple(to(y) for y in x)
+        return None if x is None else torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    torch.manual_seed(seed)
+    head = NeRFHead(in_feat_ch=C - 3, n_smpl=8, code_dim=8).to(dev)
+    kw = {k: to(v) for k, v in kw.items()}
+    if occ:
+        kw["occ_geom"] = True
+    return (to(tabs), to(feats), to(vmask), to(sig_ok), ps.pack_head_weights(head, fold_nch=C0)), kw
+
+
 @pytest.mark.gpu
-def test_render_on_card_matches_cpu():
+@pytest.mark.parametrize("P", [1, 257, 70001])
+@pytest.mark.parametrize("name", ["a+b", "c", "c+e", "c+d", "b+c"])
+def test_form_kernel_matches_plain(name, P):
+    dev = _cuda()
+    form = {v: k for k, v in ps.FORMS.items()}[name]
+    args, kw = _form_inputs(form, P, P, dev)
+    before = ps.LAUNCHES[name]
+    out = ps.fused_point_stages_tabs(*args, **kw)
+    torch.cuda.synchronize()
+    assert ps.LAUNCHES[name] == before + 1
+    out_p = ps.point_stages_tabs_plain(*args, **kw)
+    assert len(out) == len(out_p) == (3 if form[2] else 2)
+    a, rgb, a_p, rgb_p = (t.cpu().numpy() for t in (*out[:2], *out_p[:2]))
+    assert np.isfinite(a).all() and np.isfinite(rgb).all()
+    # the tolerances of test_kernel_matches_plain
+    d = np.abs(a - a_p)
+    assert d.max() < 0.08 and (d > 1e-4).mean() <= 0.005
+    agree = (a > 1e-14) == (a_p > 1e-14)
+    assert (~agree).sum() <= max(1, 0.001 * P)
+    dr = np.abs(rgb - rgb_p)[agree]
+    assert dr.max() < 0.08 and (dr > 1e-4).mean() <= 0.005
+    if form[2]:
+        # a sum of non-negative terms compared with 0: exact
+        np.testing.assert_array_equal(out[2].cpu().numpy(), out_p[2].cpu().numpy())
+        if P > 1000:
+            assert 0.3 < float(out[2].mean()) < 0.9
+
+
+@pytest.mark.gpu
+def test_kernel_refuses_forms_without_instantiation():
+    dev = _cuda()
+    before = sum(ps.LAUNCHES.values())
+    args, kw = _form_inputs(("split_i4", False, True), 300, 0, dev)
+    with pytest.raises(NotImplementedError, match="no instantiation"):
+        ps.fused_point_stages_tabs(*args, **kw)
+    args, kw = _form_inputs(("split_i4", True, False), 300, 0, dev)
+    with pytest.raises(NotImplementedError, match="no instantiation"):
+        ps.fused_point_stages_tabs(*args, **kw)
+    (tabs, feats, vmask, sig_ok, weights), kw = _form_inputs(("split_i8", True, False), 300, 0, dev)
+    with pytest.raises(NotImplementedError, match="geometry features"):
+        ps.fused_point_stages_tabs(tabs, feats[:, :64].contiguous(), vmask, sig_ok, weights)
+    with pytest.raises(NotImplementedError, match="tap weights"):
+        ps.fused_point_stages_tabs(
+            ((tabs[0][0], tabs[0][1][:2].contiguous(), tabs[0][2]), tabs[1]), feats, vmask, sig_ok, weights)
+    assert sum(ps.LAUNCHES.values()) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["fast", "reference", "frame_mode"])
+def test_render_on_card_matches_cpu(mode):
     dev = _cuda()
     from gpnerf_tpu_torch.config import cfg as base
     from gpnerf_tpu_torch.registry import get
@@ -108,6 +206,13 @@ def test_render_on_card_matches_cpu():
     cfg.render.file = "demo_render"
     cfg.tpu.matmul_dtype = "float32"
     cfg.tpu.ray_cap = 16384
+    if mode != "fast":
+        cfg.tpu.tight_cull = False
+        cfg.tpu.samples_per_ray = 64
+        cfg.tpu.tap_window = 0
+        cfg.tpu.merge_lowres_src = False
+        cfg.tpu.ray_cap = 9216
+        cfg.tpu.frame_mode = mode == "frame_mode"
     cfg.freeze()
     np.random.seed(0)
     random.seed(0)
@@ -122,4 +227,7 @@ def test_render_on_card_matches_cpu():
     assert abs(int(g["counts"][2]) - int(c["counts"][2])) <= 0.001 * int(c["counts"][2])
     m = g["mask_at_box"] & c["mask_at_box"]
     d = (g["pred_chw"].reshape(3, -1)[:, m] - c["pred_chw"].reshape(3, -1)[:, m]).abs()
-    assert float(d.median()) < 2e-3 and float(d.max()) < 0.05
+    assert float(d.median()) < 2e-3 and float((d > 0.05).float().mean()) <= 1e-3
+    # fast mode as before; the blanket's rays of image row 0 project onto a
+    # source image's border row to the last bit, where a view flips in or out
+    assert float(d.max()) < (0.05 if mode == "fast" else 0.15)
