@@ -7,12 +7,15 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py --profile    # plus a torch.profiler kernel table
 
 Phases, each fatal on failure:
-  1. device and power limit; build every instantiation of the point-stage
-     CUDA kernel from gpnerf_tpu_torch/csrc/ (one nvcc per instantiation,
-     all started together);
-  2. each instantiation against its plain PyTorch version on the card:
-     seeded random inputs, then the inputs captured from one rendered frame
-     at the main-path shape (the plain version runs in chunks of points);
+  1. device and power limit; build every CUDA kernel from
+     gpnerf_tpu_torch/csrc/: the six instantiations of the point-stage
+     kernel, the quad-lerp kernels and the row gather (one nvcc each, all
+     started together);
+  2. each kernel against its plain PyTorch version on the card: seeded
+     random inputs (the quad lerps at a ragged P for int8 and float32 rows
+     and the row gather at the microbenchmark's shape, bitwise), then the
+     inputs captured from one rendered frame at the main-path shape (the
+     point-stage plain version runs in chunks of points);
   3. end to end at 512^2 (configs/synthetic.yaml, trained checkpoint)
      through `render_demo_fn`, with launch counts, zero-overflow and PSNR
      checks: 3 frames of the bench protocol in the fast mode, 2 in the
@@ -23,6 +26,15 @@ Phases, each fatal on failure:
      sigma_query_cull image. Plus, for the fast and the reference mode, a
      128^2 frame rendered on the card and on the CPU (plain versions) that
      must agree;
+  3b. the op-by-op point stages (pallas_point off): 3 frames of the fast
+     mode through the quad-lerp kernel (exactly one launch per frame, no
+     point-stage launch), held against the fused fast mode's image; the
+     kernel on the frame's captured rows against plain and against its flat
+     channel-major twin, bitwise; one frame each of the torch-op routes
+     (pallas_lerp off, proj_vp_order) and of the op-by-op reference mode;
+     `Renderer.profile`; the gather microbenchmark
+     (gpnerf_tpu_torch/utils/bench_gather.py) through the row-gather kernel;
+     a 128^2 op-by-op frame on the card against the CPU;
   4. CUDA-event timings of the whole render, of its stage prefixes
      (encoder; + frame stage; + ray pipeline and image) and of each kernel
      instantiation beside its bound;
@@ -237,6 +249,27 @@ def point_stage_cost(call, outs):
     return nbytes, max(t_bytes, t_ops) * 1e3, bound_by
 
 
+def same_bits(a, b):
+    """Bitwise equality of two tensors of one float dtype."""
+    import torch
+
+    bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return a.dtype == b.dtype and a.shape == b.shape and bool(
+        torch.equal(a.contiguous().view(bits), b.contiguous().view(bits)))
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def lerp_cost(rows, w4, scale, out):
+    """(bytes, bound ms, bound_by) of one quad lerp: inputs read and output
+    written once over HBM; 9 float32 operations per output value."""
+    nb = nbytes(rows, w4, scale, out)
+    t_bytes, t_ops = nb / HBM_BYTES_PER_S, 9 * out.numel() / F32_FLOP_PER_S
+    return nb, max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def psnr_of(ret, host_batch):
     """PSNR over the mask_at_box pixels (train/evaluator.py semantics)."""
     import numpy as np
@@ -364,7 +397,10 @@ def main():
     profile = "--profile" in sys.argv[1:]
 
     from gpnerf_tpu_torch.ops import point_stages as ps
+    from gpnerf_tpu_torch.ops import quad_lerp as ql
+    from gpnerf_tpu_torch.ops import row_gather as rg
     from gpnerf_tpu_torch.render import demo as demo_mod
+    from gpnerf_tpu_torch.utils import bench_gather
     from gpnerf_tpu_torch.render.base import batch_to_device, src_norm
     from gpnerf_tpu_torch.utils.bench_frames import get_bench_frames
 
@@ -379,12 +415,18 @@ def main():
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     builds = {form: ps.start_build(form) for form in ps.FORMS}
+    lerp_build, gather_build = ql.start_build(), rg.start_build()
     for form, proc in builds.items():
         ps.load_library(form, proc)
-    log(f"# built {len(builds)} instantiation(s) of csrc/point_stages.cu in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for form, name in ps.FORMS.items():
-        for line in ps.BUILD_LOG.get(form, {}).get("output", "").splitlines():
+    ql.load_library(lerp_build)
+    rg.load_library(gather_build)
+    log(f"# built {len(builds)} instantiation(s) of csrc/point_stages.cu, csrc/quad_lerp.cu and "
+        f"csrc/row_gather.cu in {time.perf_counter() - t0:.1f} s")
+    build_logs = [(name, ps.BUILD_LOG.get(form)) for form, name in ps.FORMS.items()]
+    build_logs += [("quad_lerp", ql.BUILD_LOG.get("quad_lerp")),
+                   ("row_gather", rg.BUILD_LOG.get("row_gather"))]
+    for name, entry in build_logs:
+        for line in (entry or {}).get("output", "").splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"#   ptxas [{name}] {line.strip()}")
 
@@ -403,6 +445,43 @@ def main():
         compare_point_stages(k_out, plain_in_chunks((tabs, feats, vmask, sig_ok, weights, kw)),
                              f"point_stages[{name}] vs plain, random inputs, P={P}")
         del tabs, feats, vmask, sig_ok, kw, k_out
+
+    # ---- phase 2b: quad lerps and row gather vs plain, seeded random inputs ----
+    g = torch.Generator(device=dev).manual_seed(1)
+    Pl, Cl = 100003, ps.C  # ragged: no multiple of any tile
+    w4r = torch.rand(ps.V, 4, Pl, generator=g, device=dev)
+    w4r = w4r * (torch.rand(ps.V, 4, Pl, generator=g, device=dev) > 0.1)
+    w4r_flat = w4r.permute(1, 0, 2).reshape(4, -1).contiguous()
+    scr = 0.02 + 0.05 * torch.rand(Cl, generator=g, device=dev)
+    for rows_r in (torch.randint(-127, 128, (ps.V * Pl, 4 * Cl), generator=g, device=dev,
+                                 dtype=torch.int8),
+                   torch.randn(ps.V * Pl, 4 * Cl, generator=g, device=dev)):
+        for odt in (torch.bfloat16, torch.float32):
+            what = f"rows {rows_r.dtype} -> {odt}, P={Pl}"
+            before = dict(ql.LAUNCHES)
+            o_vcp = ql.quad_lerp_rows_vcp(rows_r, w4r, scr, out_dtype=odt)
+            o_cm = ql.quad_lerp_rows_cm(rows_r, w4r_flat, scr, out_dtype=odt)
+            torch.cuda.synchronize()
+            check(ql.LAUNCHES["quad_lerp_rows_vcp"] == before.get("quad_lerp_rows_vcp", 0) + 1
+                  and ql.LAUNCHES["quad_lerp_rows_cm"] == before.get("quad_lerp_rows_cm", 0) + 1,
+                  f"quad lerp wrappers did not launch their kernels ({what})")
+            p_vcp = ql.quad_lerp_rows_vcp_plain(rows_r, w4r, scr, out_dtype=odt)
+            check(same_bits(o_vcp, p_vcp), f"quad_lerp_rows_vcp differs from plain ({what})")
+            check(same_bits(o_cm, ql.quad_lerp_rows_cm_plain(rows_r, w4r_flat, scr, out_dtype=odt)),
+                  f"quad_lerp_rows_cm differs from plain ({what})")
+            log(f"# quad_lerp_rows_vcp and quad_lerp_rows_cm vs plain, random inputs, {what}: bitwise equal")
+    del rows_r, w4r, w4r_flat, o_vcp, o_cm, p_vcp
+    rs = torch.Generator(device=dev).manual_seed(2)
+    g_table = torch.randn(bench_gather.TABLE_ROWS, bench_gather.CHANNELS, generator=rs, device=dev)
+    g_idx = torch.randint(0, bench_gather.TABLE_ROWS, (8 * 1024 * 1024,), generator=rs, device=dev,
+                          dtype=torch.int32)
+    before = rg.LAUNCHES["row_gather"]
+    g_out = rg.row_gather(g_table, g_idx)
+    torch.cuda.synchronize()
+    check(rg.LAUNCHES["row_gather"] == before + 1, "row_gather wrapper did not launch its kernel")
+    check(same_bits(g_out, rg.row_gather_plain(g_table, g_idx)), "row_gather differs from plain")
+    log(f"# row_gather vs plain, table {tuple(g_table.shape)} f32, {g_idx.numel()} int32 indices: bitwise equal")
+    gather_err = float((g_out - rg.row_gather_plain(g_table, g_idx)).abs().max())
 
     # ---- phase 3: end to end at 512^2 on bench-protocol frames ----
     t0 = time.perf_counter()
@@ -504,6 +583,7 @@ def main():
     run_mode("fast mode", "a", 3, render, stages=True)
     run_mode("fast mode, kernel_octet off", "a+b", 1,
              make_render(512, "bfloat16", "cuda", kernel_octet=False)[1])
+    render_fast = render
     del render
     run_mode("reference mode", "c", 2, make_render(512, "bfloat16", "cuda", **REF_MODE)[1], stages=True)
     for title, form_name, extra in (
@@ -523,7 +603,177 @@ def main():
         "(the tap keeps the blanket's fringe samples)")
     check(float(m.max()) < 1e-3, "frame_mode and dense slots + sigma_query_cull images differ")
 
+    # ---- phase 3b: the op-by-op point stages ----
+    def run_opbyop(title, n_frames, render, lerp_launches):
+        """Drive an op-by-op mode over the first n_frames frames with the
+        counts at 0, check launches, overflows and PSNR. Returns the rets."""
+        fn = render.render_demo_fn()
+        fn(batches[0])  # warm
+        torch.cuda.synchronize()
+        ps.LAUNCHES.clear()
+        ql.LAUNCHES.clear()
+        rets = [fn(b) for b in batches[:n_frames]]
+        torch.cuda.synchronize()
+        launches = {**ps.LAUNCHES, **ql.LAUNCHES}
+        log(f"# {title}: main path launches over {n_frames} frame(s): {json.dumps(launches)}")
+        want = {"quad_lerp_rows_vcp": lerp_launches} if lerp_launches else {}
+        check(launches == want, f"{title}: launches {launches}, expected {want}")
+        for i, (r, hb) in enumerate(zip(rets, host)):
+            ov, counts = r["overflows"].tolist(), r["counts"].tolist()
+            check(ov[0] == 0 and ov[2] == 0 and ov[3] == 0, f"{title} frame {i}: overflows {ov}")
+            if not render.tight_cull:
+                check(ov[1] == 0, f"{title} frame {i}: K = S drops nothing, got {ov}")
+            check(bool(torch.isfinite(r["pred_chw"]).all()), f"{title} frame {i}: non-finite image")
+            check(tuple(r["pred_chw"].shape) == (3, 512, 512), f"{title} frame {i}: shape")
+            psnr = psnr_of(r, hb)
+            log(f"# {title} frame {i}: overflows(ray,perrayK,sigma,rgb)={ov} "
+                f"counts(rays,sigma,rgb)={counts} PSNR {psnr:.3f} dB")
+            check(psnr >= 20.0, f"{title} frame {i}: PSNR {psnr:.3f} < 20 dB")
+        return rets
+
+    def image_gap(title, img, ref_title, max_tol, mean_tol):
+        d = (img - images[ref_title]).abs()
+        log(f"# {title} vs {ref_title}, frame 0: |d pred| median {float(d.median()):.2e} "
+            f"mean {float(d.mean()):.2e} max {float(d.max()):.2e}")
+        check(float(d.max()) < max_tol and float(d.mean()) < mean_tol,
+              f"{title} image differs from {ref_title}")
+
+    op_render = make_render(512, "bfloat16", "cuda", pallas_point=False)[1]
+    captured = []
+    real_vcp = ql.quad_lerp_rows_vcp
+
+    def capture_vcp(rows, w4, scale, **kw):
+        captured.append((rows, w4, scale, kw))
+        return real_vcp(rows, w4, scale, **kw)
+
+    ql.quad_lerp_rows_vcp = capture_vcp
+    try:
+        op_render.render_demo_fn()(batches[0])
+    finally:
+        ql.quad_lerp_rows_vcp = real_vcp
+    torch.cuda.synchronize()
+    check(len(captured) == 1, "op-by-op fast mode: one quad lerp per frame")
+    op_title = "op-by-op fast mode"
+    rets = run_opbyop(op_title, 3, op_render, 3)
+    images[op_title] = rets[0]["pred_chw"]
+    # against the fused kernel: bf16 dot inputs with float32 accumulation
+    # there, every layer output rounded to bf16 here
+    image_gap(op_title, images[op_title], "fast mode", 0.1, 5e-4)
+    n = 3
+    it = iter(range(10**9))
+    op_fn = op_render.render_demo_fn()
+    op_ms, op_host_ms = cuda_ms(lambda: op_fn(batches[next(it) % n]), 3 * n, with_host=True)
+    log(f"# timing on {card}: {op_title} whole render {op_ms:.3f} ms/frame "
+        f"(host enqueue {op_host_ms:.3f} ms/frame)")
+    if profile:
+        profile_render(op_fn, batches[:n], card, op_ms)
+
+    # the lerp kernels on the rows captured from frame 0
+    l_rows, l_w4, l_scale, l_kw = captured[0]
+    l_out = ql.quad_lerp_rows_vcp(l_rows, l_w4, l_scale, **l_kw)
+    l_plain = ql.quad_lerp_rows_vcp_plain(l_rows, l_w4, l_scale, **l_kw)
+    check(same_bits(l_out, l_plain), "quad_lerp_rows_vcp differs from plain on the frame's rows")
+    lV, lC, lP = l_out.shape
+    l_w4_flat = l_w4.permute(1, 0, 2).reshape(4, lV * lP).contiguous()
+    ql.LAUNCHES.clear()
+    cm_out = ql.quad_lerp_rows_cm(l_rows, l_w4_flat, l_scale, **l_kw)
+    torch.cuda.synchronize()
+    cm_launches = ql.LAUNCHES["quad_lerp_rows_cm"]
+    check(cm_launches == 1, "quad_lerp_rows_cm did not launch its kernel")
+    check(same_bits(cm_out, l_out.permute(1, 0, 2).reshape(lC, lV * lP)),
+          "quad_lerp_rows_cm differs from the transposed quad_lerp_rows_vcp output")
+    check(same_bits(cm_out, ql.quad_lerp_rows_cm_plain(l_rows, l_w4_flat, l_scale, **l_kw)),
+          "quad_lerp_rows_cm differs from plain on the frame's rows")
+    log(f"# quad_lerp_rows_vcp vs plain and quad_lerp_rows_cm vs both, {op_title} frame 0 rows "
+        f"{tuple(l_rows.shape)} {l_rows.dtype} -> {tuple(l_out.shape)} {l_out.dtype}: bitwise equal")
+    for name, line, fn_k, fn_p, out_k, out_p, launches in (
+        ("quad_lerp_rows_vcp", 125,
+         lambda: ql.quad_lerp_rows_vcp(l_rows, l_w4, l_scale, **l_kw),
+         lambda: ql.quad_lerp_rows_vcp_plain(l_rows, l_w4, l_scale, **l_kw), l_out, l_plain, 3),
+        ("quad_lerp_rows_cm", 70,
+         lambda: ql.quad_lerp_rows_cm(l_rows, l_w4_flat, l_scale, **l_kw),
+         lambda: ql.quad_lerp_rows_cm_plain(l_rows, l_w4_flat, l_scale, **l_kw),
+         cm_out, l_plain.permute(1, 0, 2).reshape(lC, lV * lP), cm_launches),
+    ):
+        k_ms, p_ms = cuda_ms(fn_k, 20), cuda_ms(fn_p, 5)
+        nb, bound_ms, bound_by = lerp_cost(l_rows, l_w4, l_scale, out_k)
+        log(f"# timing on {card}: {name} kernel {k_ms:.4f} ms at rows {tuple(l_rows.shape)}, plain "
+            f"{p_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, {nb / 1e6:.1f} MB)")
+        kernels.append({
+            "name": name, "route": "cuda", "source": "gpnerf_tpu_torch/csrc/quad_lerp.cu",
+            "replaces": f"gpnerf_tpu/ops/pallas_lerp.py:{line}", "launches": launches,
+            "max_abs_err": float((out_k.float() - out_p.float()).abs().max()),
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,  # no single PyTorch call computes the lerp
+        })
+    del captured, l_rows, l_w4, l_w4_flat, l_out, l_plain, cm_out
+
+    # the torch-op routes of the merged table: every product and partial sum
+    # rounded to bf16, where the kernel accumulates in float32
+    for title, extra in (("op-by-op fast mode, pallas_lerp off", {"pallas_lerp": False}),
+                         ("op-by-op fast mode, proj_vp_order", {"pallas_lerp": False,
+                                                                "proj_vp_order": True})):
+        r = make_render(512, "bfloat16", "cuda", pallas_point=False, **extra)[1]
+        rets = run_opbyop(title, 1, r, 0)
+        image_gap(title, rets[0]["pred_chw"], op_title, 0.1, 5e-4)
+        images[title] = rets[0]["pred_chw"]
+    check(bool(torch.equal(images["op-by-op fast mode, pallas_lerp off"],
+                           images["op-by-op fast mode, proj_vp_order"])),
+          "the (P, V) and (V, P) gather orders give different images")
+
+    # Renderer.profile on the fast mode: the op-by-op stage ladder
+    prof = render_fast.profile(batches[:3])
+    slots = prof["time_slots"]
+    log(f"# profile on {card}: fast mode, 3 frames, ms: etime {prof['etime'] * 1e3:.3f} rtime "
+        f"{prof['rtime'] * 1e3:.3f} rtime_production {prof['rtime_production'] * 1e3:.3f} time_slots "
+        + json.dumps({k: round(v * 1e3, 4) for k, v in slots.items()}))
+    check(set(slots) == {"bc_attn", "sigma_attn", "sigma_c", "sp_encode", "bc_time", "bf_sigma",
+                         "sigma_f", "bf_rgb", "rgb_f", "bc_render"}, "profile: slot names")
+    check(render_fast.pallas_point, "profile left pallas_point off")
+    # stage prefixes grow along the ladder; the host sets the fast mode's
+    # frame time and varies by milliseconds between runs of one program, so
+    # a slot may read up to 2 ms low
+    check(all(math.isfinite(v) and v > -2e-3 for v in slots.values()) and slots["sp_encode"] > 0
+          and prof["rtime"] > slots["sp_encode"] and prof["rtime_production"] > 0,
+          f"profile: stage times do not grow along the ladder: {slots}")
+    del render_fast
+
+    # op-by-op reference mode: split tables through project_and_gather_quad
+    title = "op-by-op reference mode"
+    op_ref = make_render(512, "bfloat16", "cuda", pallas_point=False, **REF_MODE)[1]
+    rets = run_opbyop(title, 1, op_ref, 0)
+    image_gap(title, rets[0]["pred_chw"], "reference mode", 0.2, 5e-4)
+    ref_ms = cuda_ms(lambda: op_ref.render_demo_fn()(batches[0]), 3)
+    log(f"# timing on {card}: {title} whole render {ref_ms:.3f} ms/frame (frame 0, 3 reps)")
+    del rets, op_ref
+    torch.cuda.empty_cache()
+
+    # the gather microbenchmark, through the row-gather kernel
+    rg.LAUNCHES.clear()
+    bench = bench_gather.run("cuda")
+    gather_launches = rg.LAUNCHES["row_gather"]
+    for k, v in bench.items():
+        if k.endswith("_ms") or k.endswith("_gb_s"):
+            log(f"# bench_gather on {card}: {k} {v:.4f}")
+    check(bench["kernel_launches"] == 1 and gather_launches >= 1,
+          f"bench_gather: row_gather launches {gather_launches}")
+    k_ms = cuda_ms(lambda: rg.row_gather(g_table, g_idx), 20)
+    p_ms = cuda_ms(lambda: rg.row_gather_plain(g_table, g_idx), 5)
+    lib_ms = cuda_ms(lambda: torch.index_select(g_table, 0, g_idx), 20)
+    nb = nbytes(g_table, g_idx, g_out)
+    log(f"# timing on {card}: row_gather kernel {k_ms:.4f} ms at {g_idx.numel()} rows of "
+        f"{g_table.shape[1]} f32, plain {p_ms:.4f} ms, index_select {lib_ms:.4f} ms, bound "
+        f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes, {nb / 1e6:.1f} MB)")
+    kernels.append({
+        "name": "row_gather", "route": "cuda", "source": "gpnerf_tpu_torch/csrc/row_gather.cu",
+        "replaces": "tools/bench_gather.py:84", "launches": gather_launches,
+        "max_abs_err": gather_err, "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": nb / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": lib_ms,
+    })
+    del g_table, g_idx, g_out
+
     # ---- small-input reference: 128^2 on the card and on the CPU ----
+    card_vs_cpu_128("op-by-op fast mode", 0.05, ray_cap=16384, pallas_point=False)
     card_vs_cpu_128("fast mode", 0.05, ray_cap=16384)
     # reference mode: rays of image row 0 project onto source row y = 0.0 to
     # the last bit, where the rounding of the projection product decides the
@@ -531,6 +781,8 @@ def main():
     card_vs_cpu_128("reference mode", 0.15, **{**REF_MODE, "ray_cap": 9216})
 
     log(f"# total {time.perf_counter() - t_all:.1f} s")
+    check(len(kernels) == 9 and all(k["launches"] >= 1 for k in kernels),
+          f"kernels line: {[(k['name'], k['launches']) for k in kernels]}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,9 +10,11 @@
   * `NeRFHead`: the composition; parameter names follow the reference
     checkpoint (`nerfhead.sigmahead.*`, `nerfhead.rgbhead.*`).
 
-The fast renderer runs density/color inside the point-stage kernel
-(ops/point_stages.py); `density` and `color` here are the plain float32
-forms of the same heads.
+The renderer's fused path runs density/color inside the point-stage kernel
+(ops/point_stages.py); its op-by-op path calls `density`, `color` and
+`query_sigma_feat_octet_folded` here. With a `compute_dtype` they round
+where the JAX package's heads, computing in that dtype, round (values stay
+in float32 tensors; models/layers.MLP).
 """
 
 from __future__ import annotations
@@ -21,8 +23,37 @@ import torch
 from torch import nn
 
 from gpnerf_tpu_torch.models.attention import MultiHeadAttention
-from gpnerf_tpu_torch.models.layers import MLP
+from gpnerf_tpu_torch.models.layers import MLP, rounded
 from gpnerf_tpu_torch.models.sparse_net import SparseConvNet
+
+
+def fused_mean_variance(x, compute_dtype=None):
+    """Mean and variance across the views axis: x (..., V, C) -> ((..., 1,
+    C), (..., 1, C)). Under a `compute_dtype` the sums and the division run
+    in float32 and the results are rounded, as the difference is; its
+    square feeds the float32 sum unrounded (the compiled JAX program keeps
+    that excess precision)."""
+    V = x.shape[-2]
+    dt = compute_dtype
+
+    def mean_views(t):
+        acc = t[..., 0, :]
+        for v in range(1, V):
+            acc = acc + t[..., v, :]
+        return rounded(acc / float(V), dt)[..., None, :]
+
+    mean = mean_views(x)
+    d = rounded(x - mean, dt)
+    return mean, mean_views(d * d)
+
+
+def _sigmoid(x, dt):
+    """Sigmoid; in a compute dtype as 1 / (1 + exp(-x)) with each of the
+    three operations rounded, the form the JAX package's compiled program
+    evaluates."""
+    if dt is None:
+        return torch.sigmoid(x)
+    return rounded(1.0 / rounded(1.0 + rounded(torch.exp(-x), dt), dt), dt)
 
 
 class NeRFSigmaHead(nn.Module):
@@ -36,7 +67,9 @@ class NeRFSigmaHead(nn.Module):
         self.xyzc_net = SparseConvNet(
             code_dim, spconv_n_layers, tuple(spconv_out_dim), compute_dtype
         )
-        self.out_geometry_fc = MLP(sum(spconv_out_dim), (64,), ("elu",))
+        self.out_geometry_fc = MLP(sum(spconv_out_dim), (64,), ("elu",), compute_dtype)
+        self.nch1 = int(spconv_out_dim[0])
+        self.compute_dtype = compute_dtype
 
     def fuse_codes(self, smpl_feat):
         """smpl_feat (S, V, in_feat_ch) -> fused codes (S, code_dim)."""
@@ -50,16 +83,41 @@ class NeRFSigmaHead(nn.Module):
         code = torch.where((vertex_rows >= 0)[:, None], code, 0.0)
         return self.xyzc_net.features(code, levels)
 
+    def query_sigma_feat_octet_folded(self, octet_l1, octet_coarse, dhw_vox,
+                                      out_sh, scales=None, with_l1_occ=False):
+        """Sigma feature (P, 64) against the folded merged-coarse table:
+        out_geometry_fc's coarse block was applied to the coarse volume when
+        the table was built (trilinear commutes with linear maps), so the
+        queried coarse rows are that block's contribution already and only
+        the level-1 block of the linear runs per point:
+        sigma_feat = ELU(f1 @ W[:, :nch].T + fc + b). `with_l1_occ` also
+        returns the level-1 channel sum of the queried features, the
+        trilinear occupancy."""
+        dt = self.compute_dtype
+        feats = self.xyzc_net.query_octet2(
+            octet_l1, octet_coarse, dhw_vox, out_sh, scales=scales, out_dtype=dt)
+        f1, fc = feats[..., :self.nch1], feats[..., self.nch1:]
+        lin = self.out_geometry_fc[0]
+        pre = rounded(rounded(f1, dt) @ rounded(lin.weight[:, :self.nch1], dt).T, dt)
+        pre = rounded(pre + rounded(fc, dt), dt)
+        pre = rounded(pre + rounded(lin.bias, dt), dt)
+        sigma_feat = rounded(torch.nn.functional.elu(pre), dt)
+        if with_l1_occ:
+            return sigma_feat, rounded(f1.sum(dim=-1), dt)
+        return sigma_feat
+
 
 class NeRFRGBHead(nn.Module):
-    def __init__(self, in_feat_ch=32, n_views=3):
+    def __init__(self, in_feat_ch=32, n_views=3, compute_dtype=None):
         super().__init__()
         C = in_feat_ch + 3
-        self.base_fc = MLP(3 * C, (64, 32), ("elu", "elu"))
-        self.vis_fc = MLP(32, (32, 32), ("elu", "elu"))
-        self.rgb_fc = MLP(n_views * 32, (32, 16, 3), ("elu", "elu", "none"))
+        dt = compute_dtype
+        self.compute_dtype = dt
+        self.base_fc = MLP(3 * C, (64, 32), ("elu", "elu"), dt)
+        self.vis_fc = MLP(32, (32, 32), ("elu", "elu"), dt)
+        self.rgb_fc = MLP(n_views * 32, (32, 16, 3), ("elu", "elu", "none"), dt)
         self.out_geometry_fc = MLP(
-            64 + 2 * C, (64, 32, 16, 1), ("elu", "elu", "elu", "relu")
+            64 + 2 * C, (64, 32, 16, 1), ("elu", "elu", "elu", "relu"), dt
         )
 
     def density(self, sigma_feat, mean, var, num_valid_obs):
@@ -74,10 +132,11 @@ class NeRFRGBHead(nn.Module):
         globalfeat = torch.cat([mean, var], dim=-1).expand(
             *rgb_feat.shape[:-1], -1
         )
+        dt = self.compute_dtype
         x = self.base_fc(torch.cat([globalfeat, rgb_feat], dim=-1))
-        x = x + self.vis_fc(x / V)
+        x = rounded(x + self.vis_fc(rounded(x / V, dt)), dt)
         x = x.reshape(*x.shape[:-2], V * x.shape[-1])
-        return torch.sigmoid(self.rgb_fc(x))
+        return _sigmoid(self.rgb_fc(x), dt)
 
 
 class NeRFHead(nn.Module):
@@ -90,7 +149,7 @@ class NeRFHead(nn.Module):
             in_feat_ch, n_smpl, code_dim, attn_n_heads, spconv_n_layers,
             spconv_out_dim, compute_dtype,
         )
-        self.rgbhead = NeRFRGBHead(in_feat_ch)
+        self.rgbhead = NeRFRGBHead(in_feat_ch, compute_dtype=compute_dtype)
 
     def volume(self, smpl_feat, vertex_rows, levels):
         """Fuse vertex codes and build the sparse feature volume once per

@@ -96,10 +96,16 @@ _ACTS = {"elu": nn.ELU, "relu": nn.ReLU}
 class MLP(nn.Sequential):
     """Linear stack with per-layer activations, laid out as the reference's
     nn.Sequential (Linear at even indices), so keys read `<name>.0.weight`,
-    `<name>.2.weight`, ..."""
+    `<name>.2.weight`, ...
+
+    `compute_dtype` reproduces a Dense layer computing in that dtype with
+    float32 parameters (flax `Dense(dtype=bfloat16)`): input, weight and
+    bias are rounded to it, the product is rounded, the biased sum is
+    rounded, and the activation runs on the rounded value and is rounded
+    again. Values stay in float32 tensors."""
 
     def __init__(self, cin: int, features: Sequence[int],
-                 activations: Sequence[str]):
+                 activations: Sequence[str], compute_dtype=None):
         mods = []
         for f, act in zip(features, activations):
             mods.append(nn.Linear(cin, f))
@@ -107,3 +113,16 @@ class MLP(nn.Sequential):
                 mods.append(_ACTS[act]())
             cin = f
         super().__init__(*mods)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        for m in self:
+            if isinstance(m, nn.Linear):
+                x = rounded(rounded(x, dt) @ rounded(m.weight, dt).T, dt)
+                x = rounded(x + rounded(m.bias, dt), dt)
+            else:
+                x = rounded(m(x), dt)
+        return x

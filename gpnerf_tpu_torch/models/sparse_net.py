@@ -92,9 +92,11 @@ class SparseConvNet(nn.Module):
         return level_feats
 
     @staticmethod
-    def query_octet2(octet_l1, octet_coarse, dhw_vox, out_sh, scales=None):
+    def query_octet2(octet_l1, octet_coarse, dhw_vox, out_sh, scales=None,
+                     out_dtype=None):
         """Two-table multi-scale query: the level-1 octet table plus the
-        merged coarse table (octet or nearest). out_sh (3,) int tensor."""
+        merged coarse table (octet or nearest). out_sh (3,) int tensor;
+        `out_dtype` as in ops/grid_sample.bilinear_quad_nhwc."""
         frac = dhw_vox / out_sh.float()
         outs = []
         for i, tab in enumerate((octet_l1, octet_coarse)):
@@ -105,7 +107,7 @@ class SparseConvNet(nn.Module):
                 size = out_sh // (2 ** (i + 1))
                 fn = trilinear_octet_rows
             pos = frac * (size - 1).float()
-            outs.append(fn(tab, pos, size, None if scales is None else scales[i]))
+            outs.append(fn(tab, pos, size, None if scales is None else scales[i], out_dtype))
         return torch.cat(outs, dim=-1)
 
 

@@ -21,6 +21,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gpnerf_tpu_torch.models.layers import rounded
+
 
 def _unnormalize(coord, size):
     """align_corners=True: [-1, 1] -> [0, size-1]."""
@@ -70,6 +72,122 @@ def build_quad_table_2d(img):
          p[..., 1:, 1:, :]],
         dim=-1,
     )
+
+
+def _quad_base(grid, h, w):
+    """Bilinear footprint of normalized `grid` (..., 2) on an (h, w) image:
+    fractional offsets (wx1, wy1), integer base (xi, yi) and the quad-table
+    row index of the base clipped into the table's [-1, size-1] coverage
+    (a sample a cell or more outside has zero weight on every tap)."""
+    x = _unnormalize(grid[..., 0], w)
+    y = _unnormalize(grid[..., 1], h)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    xi = x0.long()
+    yi = y0.long()
+    idx = (yi.clamp(-1, h - 1) + 1) * (w + 1) + xi.clamp(-1, w - 1) + 1
+    return x - x0, y - y0, xi, yi, idx
+
+
+def _quad_tap_weights(wx1, wy1, xi, yi, h, w, dtype=None):
+    """The 4 bilinear tap weights in quad-table order with the in-bounds
+    masks folded in, each product rounded to `dtype`."""
+    wx1 = rounded(wx1, dtype)
+    wy1 = rounded(wy1, dtype)
+    wx0 = rounded(1.0 - wx1, dtype)
+    wy0 = rounded(1.0 - wy1, dtype)
+
+    def tapw(xi_, yi_, wgt):
+        inb = (xi_ >= 0) & (xi_ <= w - 1) & (yi_ >= 0) & (yi_ <= h - 1)
+        return rounded(wgt, dtype) * inb.float()
+
+    return [
+        tapw(xi, yi, wx0 * wy0),
+        tapw(xi + 1, yi, wx1 * wy0),
+        tapw(xi, yi + 1, wx0 * wy1),
+        tapw(xi + 1, yi + 1, wx1 * wy1),
+    ]
+
+
+def _quad_weighted_sum(rows, taps, scale, dtype):
+    """sum_k rows[..., kC:(k+1)C] * taps[k] in tap order, then the dequant
+    factor; every product and partial sum is rounded to `dtype` (None:
+    float32), as arithmetic carried out in that dtype rounds them."""
+    C = rows.shape[-1] // 4
+    out = None
+    for k, t in enumerate(taps):
+        term = rounded(rounded(rows[..., k * C:(k + 1) * C].float(), dtype) * t[..., None], dtype)
+        out = term if out is None else rounded(out + term, dtype)
+    if scale is not None:
+        out = rounded(out * rounded(scale.float(), dtype), dtype)
+    return out
+
+
+def bilinear_quad_nhwc(table, grid, h, w, scale=None, out_dtype=None):
+    """`grid_sample_2d_nhwc` semantics through a quad table: table (N, H+1,
+    W+1, 4C), grid (N, P, 2) normalized -> (N, P, C). `scale`: per-channel
+    dequantization factors of a quantized table, applied after the weighted
+    sum. `out_dtype` (e.g. torch.bfloat16): the weights, products and sums
+    are rounded to it, reproducing arithmetic carried out in that dtype; the
+    result is returned as float32 holding those values."""
+    N, C4 = table.shape[0], table.shape[-1]
+    wx1, wy1, xi, yi, idx = _quad_base(grid, h, w)
+    flat = table.reshape(N, (h + 1) * (w + 1), C4)
+    rows = torch.gather(flat, 1, idx[..., None].expand(-1, -1, C4))
+    taps = _quad_tap_weights(wx1, wy1, xi, yi, h, w, out_dtype)
+    return _quad_weighted_sum(rows, taps, scale, out_dtype)
+
+
+def bilinear_quad_nhwc_pv(table, grid, h, w, scale=None, out_dtype=None):
+    """`bilinear_quad_nhwc` with the gather emitted in (P, V) row order from
+    the view-concatenated flat table: table (V, H+1, W+1, 4C), grid (V, P, 2)
+    -> (P, V, C), no transpose of the result."""
+    V, C4 = table.shape[0], table.shape[-1]
+    wx1, wy1, xi, yi, idx = _quad_base(grid, h, w)
+    stride = (h + 1) * (w + 1)
+    voff = torch.arange(V, device=grid.device)[:, None] * stride
+    rows = table.reshape(V * stride, C4)[(idx + voff).T]  # (P, V, 4C)
+    taps = _quad_tap_weights(wx1.T, wy1.T, xi.T, yi.T, h, w, out_dtype)
+    return _quad_weighted_sum(rows, taps, scale, out_dtype)
+
+
+def quad_rows_and_weights(table, grid, *, batched=False):
+    """Gather half of a quad-table sample: the raw rows (V*P, 4C) in
+    view-major order and the float32 tap weights (V, 4, P) with the
+    in-bounds masks folded in. table (V, Ht+1, Wt+1, 4C), grid (V, P, 2)
+    normalized. `batched` gathers view by view from the per-view table
+    instead of once from the flat (V*rows) table; both return the same rows."""
+    V, C4 = table.shape[0], table.shape[-1]
+    h, w = table.shape[1] - 1, table.shape[2] - 1
+    wx1, wy1, xi, yi, idx = _quad_base(grid, h, w)
+    stride = (h + 1) * (w + 1)
+    if batched:
+        tab = table.reshape(V, stride, C4)
+        rows = torch.cat([tab[v][idx[v]] for v in range(V)])
+    else:
+        voff = torch.arange(V, device=grid.device)[:, None] * stride
+        rows = table.reshape(V * stride, C4)[(idx + voff).reshape(-1)]
+    return rows, torch.stack(_quad_tap_weights(wx1, wy1, xi, yi, h, w), dim=1)
+
+
+def bilinear_quad_nhwc_pv_kernel(table, grid, h, w, scale=None, out_dtype=None):
+    """`bilinear_quad_nhwc_pv` with the weighted sum and dequantization in
+    the quad-lerp kernel (ops/quad_lerp.quad_lerp_rows_vcp; the JAX
+    package's `bilinear_quad_nhwc_pv_pallas`): the rows are gathered in
+    view-major order, the weights stay float32, the kernel accumulates in
+    float32 and rounds once to `out_dtype`, where the other two forms round
+    every product and partial sum. Returns (P, V, C) float32 values as a
+    transposed view of the kernel's (V, C, P) output."""
+    from gpnerf_tpu_torch.ops.quad_lerp import quad_lerp_rows_vcp
+
+    if (h, w) != (table.shape[1] - 1, table.shape[2] - 1):
+        raise ValueError(f"table {tuple(table.shape)} is no quad table of a ({h}, {w}) image")
+    rows, w4 = quad_rows_and_weights(table, grid)
+    C = table.shape[-1] // 4
+    sc = torch.ones(C, device=grid.device) if scale is None else scale.float()
+    out_vcp = quad_lerp_rows_vcp(rows, w4, sc.contiguous(),
+                                 out_dtype=out_dtype or torch.float32)
+    return out_vcp.permute(2, 0, 1).float()
 
 
 def build_octet_table_3d(vol):
@@ -202,15 +320,16 @@ def quantize_image_i4(img, eps=1e-8):
     return ((q[..., :h] & 0xF) | ((q[..., h:] & 0xF) << 4)).to(torch.uint8), scale
 
 
-def octet_rows_and_weights(table: FlatOctetTable, pos, size):
+def octet_rows_and_weights(table: FlatOctetTable, pos, size, dtype=None):
     """Raw octet rows (P, 8C) of the cells holding `pos` (P, 3) dhw voxel
     units, and the 8 trilinear corner weights (P, 8) with the zeros-outside
-    mask of the dynamic extent `size` (3,) folded in."""
+    mask of the dynamic extent `size` (3,) folded in. `dtype`: the weights
+    and their products are rounded to it (None: float32)."""
     Dp, Hp, Wp = table.shape
     fl = torch.floor(pos)
     base = fl.long()
-    w1 = pos - fl
-    w0 = 1.0 - w1
+    w1 = rounded(pos - fl, dtype)
+    w0 = rounded(1.0 - w1, dtype)
     hi = torch.tensor([Dp - 2, Hp - 2, Wp - 2], device=pos.device)
     bc = torch.clamp(base, min=-1) + 1
     bc = torch.minimum(bc, hi + 1)
@@ -219,11 +338,10 @@ def octet_rows_and_weights(table: FlatOctetTable, pos, size):
     for sel in itertools.product((0, 1), repeat=3):
         corner = base + torch.tensor(sel, device=pos.device)
         inb = ((corner >= 0) & (corner < size)).all(dim=-1)
-        w = (
-            (w1[:, 0] if sel[0] else w0[:, 0])
-            * (w1[:, 1] if sel[1] else w0[:, 1])
-            * (w1[:, 2] if sel[2] else w0[:, 2])
-        )
+        w = rounded(
+            rounded((w1[:, 0] if sel[0] else w0[:, 0])
+                    * (w1[:, 1] if sel[1] else w0[:, 1]), dtype)
+            * (w1[:, 2] if sel[2] else w0[:, 2]), dtype)
         ws.append(w * inb.float())
     return rows, torch.stack(ws, dim=-1)
 
@@ -239,24 +357,28 @@ def nearest_row_and_weight(table: NearestTable, pos, size):
     return rows, inb.float()[:, None]
 
 
-def lerp_rows(rows, w, scale=None):
+def lerp_rows(rows, w, scale=None, dtype=None):
     """Weighted sum of T packed taps: rows (P, T*C), w (P, T) -> (P, C)
-    float32, taps summed in order k = 0..T-1, then dequantized."""
+    float32, taps summed in order k = 0..T-1, then dequantized. `dtype`:
+    every product and partial sum is rounded to it (None: float32)."""
     T = w.shape[-1]
     C = rows.shape[-1] // T
-    out = rows[:, :C].float() * w[:, :1]
+    out = rounded(rows[:, :C].float() * w[:, :1], dtype)
     for k in range(1, T):
-        out = out + rows[:, k * C : (k + 1) * C].float() * w[:, k : k + 1]
+        term = rounded(rows[:, k * C : (k + 1) * C].float() * w[:, k : k + 1], dtype)
+        out = rounded(out + term, dtype)
     if scale is not None:
-        out = out * scale
+        out = rounded(out * rounded(scale, dtype), dtype)
     return out
 
 
-def trilinear_octet_rows(table, pos, size, scale=None):
-    """Trilinear sample of an octet table (zeros padding). Returns (P, C)."""
-    return lerp_rows(*octet_rows_and_weights(table, pos, size), scale)
+def trilinear_octet_rows(table, pos, size, scale=None, out_dtype=None):
+    """Trilinear sample of an octet table (zeros padding). Returns (P, C);
+    `out_dtype` as in `bilinear_quad_nhwc`."""
+    return lerp_rows(*octet_rows_and_weights(table, pos, size, out_dtype), scale, out_dtype)
 
 
-def nearest_rows(table, pos, size, scale=None):
-    """Nearest sample of a NearestTable (zeros outside). Returns (P, C)."""
-    return lerp_rows(*nearest_row_and_weight(table, pos, size), scale)
+def nearest_rows(table, pos, size, scale=None, out_dtype=None):
+    """Nearest sample of a NearestTable (zeros outside). Returns (P, C);
+    `out_dtype` as in `bilinear_quad_nhwc`."""
+    return lerp_rows(*nearest_row_and_weight(table, pos, size), scale, out_dtype)

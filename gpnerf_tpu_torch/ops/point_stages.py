@@ -29,7 +29,7 @@ activations, lerps and masks are float32.
 On a CPU tensor the wrapper runs `point_stages_tabs_plain`, the same function in
 torch ops and general in views, channels, tables and F; on a CUDA tensor it
 launches the CUDA kernel — one library per form in `FORMS`, built from
-csrc/point_stages.cu at first use into gpnerf_tpu_torch/_build/ — or raises:
+csrc/point_stages.cu at first use (ops/cuda_build.py) — or raises:
 a form or width with no instantiation is NotImplementedError. `LAUNCHES`
 counts kernel launches per form.
 """
@@ -38,21 +38,17 @@ from __future__ import annotations
 
 import collections
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
-import time
 from typing import List, NamedTuple, Tuple
 
 import torch
 
 from gpnerf_tpu_torch.models.layers import rounded
+from gpnerf_tpu_torch.ops import cuda_build
+from gpnerf_tpu_torch.ops.cuda_build import BUILD_DIR  # noqa: F401 (kept under this name)
 from gpnerf_tpu_torch.ops.grid_sample import lerp_rows
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "point_stages.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
+SOURCE = os.path.join(cuda_build.CSRC_DIR, "point_stages.cu")
 
 # the widths the CUDA kernel is written for (csrc/point_stages.cu constants)
 V, C, CS, CF, C0, C1 = 3, 35, 3, 32, 32, 64
@@ -215,39 +211,24 @@ _libs = {}
 BUILD_LOG = {}
 
 
-def _nvcc():
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = os.path.join(home, "bin", "nvcc")
-    return cand if os.path.exists(cand) else (shutil.which("nvcc") or cand)
+def _build_args(form):
+    proj, use_feats, occ = form
+    code = f"{PROJ_CODES[proj]}{int(use_feats)}{int(occ)}"
+    defines = (f"PS_PROJ={PROJ_CODES[proj]}", f"PS_FEATS={int(use_feats)}",
+               f"PS_OCC={int(occ)}")
+    return "point_stages.cu", f"point_stages_{code}", defines
 
 
 def build_command(form):
     """(nvcc argv, library path) of one instantiation (a key of FORMS) for
-    the current source; the library name carries the source hash, so an
-    edited source rebuilds."""
-    proj, use_feats, occ = form
-    with open(SOURCE, "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:12]
-    code = f"{PROJ_CODES[proj]}{int(use_feats)}{int(occ)}"
-    lib = os.path.join(BUILD_DIR, f"libpoint_stages_{code}_{tag}.so")
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        f"-DPS_PROJ={PROJ_CODES[proj]}", f"-DPS_FEATS={int(use_feats)}",
-        f"-DPS_OCC={int(occ)}", "-o", lib, SOURCE,
-    ]
-    return cmd, lib
+    the current source (ops/cuda_build.py)."""
+    return cuda_build.build_command(*_build_args(form))
 
 
 def start_build(form):
     """Start nvcc for `form` unless its library exists; returns the Popen
     (or None) to hand to load_library. Lets a caller build forms together."""
-    cmd, lib_path = build_command(form)
-    if os.path.exists(lib_path):
-        return None
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+    return cuda_build.start_build(*_build_args(form))
 
 
 def load_library(form, proc=None):
@@ -257,16 +238,8 @@ def load_library(form, proc=None):
         return _libs[form]
     if form not in FORMS:
         raise NotImplementedError(f"point-stage kernel: no instantiation for {form}")
-    _, lib_path = build_command(form)
-    t0 = time.perf_counter()
-    if proc is None:
-        proc = start_build(form)
-    if proc is not None:
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {SOURCE} {form}:\n{out}")
-        BUILD_LOG[form] = {"seconds": time.perf_counter() - t0, "output": out}
-    lib = ctypes.CDLL(lib_path)
+    lib = cuda_build.load(*_build_args(form), proc=proc, build_log=BUILD_LOG,
+                          log_key=form)
     vp = ctypes.c_void_p
     lib.point_stages_launch.argtypes = [vp] * 19 + [ctypes.c_int, vp]
     lib.point_stages_launch.restype = ctypes.c_int
@@ -274,7 +247,7 @@ def load_library(form, proc=None):
         fn.argtypes, fn.restype = [], ctypes.c_int
     proj, use_feats, occ = form
     if lib.point_stages_form() != PROJ_CODES[proj] | int(use_feats) << 2 | int(occ) << 3:
-        raise RuntimeError(f"{lib_path} holds another instantiation than {form}")
+        raise RuntimeError(f"{build_command(form)[1]} holds another instantiation than {form}")
     _libs[form] = lib
     return lib
 

@@ -8,7 +8,13 @@ from __future__ import annotations
 
 import torch
 
-from gpnerf_tpu_torch.ops.grid_sample import _unnormalize, grid_sample_2d_nhwc
+from gpnerf_tpu_torch.ops.grid_sample import (
+    bilinear_quad_nhwc,
+    bilinear_quad_nhwc_pv,
+    bilinear_quad_nhwc_pv_kernel,
+    grid_sample_2d_nhwc,
+    quad_rows_and_weights,
+)
 
 
 def compute_projections(xyz, KE, *, neg_ray=False):
@@ -37,6 +43,49 @@ def inbound_mask(pixel_xy, h, w):
     )
 
 
+def project_and_gather_quad(xyz, KE, src_quad, feat_quad, h, w, *,
+                            neg_ray=False, src_scale=None, feat_scale=None):
+    """Project and gather through the split quad tables, both in (P, V) row
+    order: src_quad (V, H+1, W+1, 12) float or uint8 pixel bytes (`src_scale`
+    then carries the 1/255 dequant), feat_quad (V, Hf+1, Wf+1, 4C) float or
+    int8 (`feat_scale` its per-channel dequant). Returns rgb_feat (P, V,
+    3 + C), mask (P, V)."""
+    pixel, in_front = compute_projections(xyz, KE, neg_ray=neg_ray)
+    norm_pix = normalize_pixels(pixel, h, w)
+    rgb = bilinear_quad_nhwc_pv(src_quad, norm_pix, h, w, scale=src_scale)
+    hf, wf = feat_quad.shape[1] - 1, feat_quad.shape[2] - 1
+    feat = bilinear_quad_nhwc_pv(feat_quad, norm_pix, hf, wf, scale=feat_scale)
+    mask = (inbound_mask(pixel, h, w) & in_front).float()
+    return torch.cat([rgb, feat], dim=-1), mask.T
+
+
+def project_and_gather_quad_merged(xyz, KE, srcfeat_quad, h, w, *,
+                                   neg_ray=False, scale=None, out_dtype=None,
+                                   vp_order=False, kernel=False):
+    """`project_and_gather_quad` through one merged [rgb|features] quad
+    table (V, Ht+1, Wt+1, 4(3+C)) at any resolution: the gather uses the
+    table's own grid, h/w are the pixel frame of K. `scale`: dequantization
+    factors of an int8 table; `out_dtype`: see ops/grid_sample.
+    bilinear_quad_nhwc. Routes: `kernel`, the quad-lerp kernel on view-major
+    rows (float32 accumulation, one rounding); `vp_order`, a per-view (V, P)
+    gather whose float result is transposed; else the gather emitted in
+    (P, V) order. Returns rgb_feat (P, V, 3 + C), mask (P, V)."""
+    pixel, in_front = compute_projections(xyz, KE, neg_ray=neg_ray)
+    norm_pix = normalize_pixels(pixel, h, w)
+    ht, wt = srcfeat_quad.shape[1] - 1, srcfeat_quad.shape[2] - 1
+    if kernel:
+        sample = bilinear_quad_nhwc_pv_kernel
+    elif vp_order:
+        sample = bilinear_quad_nhwc
+    else:
+        sample = bilinear_quad_nhwc_pv
+    rgb_feat = sample(srcfeat_quad, norm_pix, ht, wt, scale=scale, out_dtype=out_dtype)
+    if vp_order and not kernel:
+        rgb_feat = rgb_feat.transpose(0, 1)
+    mask = (inbound_mask(pixel, h, w) & in_front).float()
+    return rgb_feat, mask.T
+
+
 def project_gather_rows_merged(xyz, KE, srcfeat_quad, h, w, *, neg_ray=False,
                                batched=False):
     """Gather half of a quad-table projection: the raw quad rows in
@@ -50,46 +99,9 @@ def project_gather_rows_merged(xyz, KE, srcfeat_quad, h, w, *, neg_ray=False,
     K). `batched` gathers view by view from the per-view table instead of
     once from the flat (V*rows) table; both return the same rows.
     Returns rows (V*P, 4C), w4 (V, 4, P) f32, vmask (V, P) f32."""
-    V = srcfeat_quad.shape[0]
-    C4 = srcfeat_quad.shape[-1]
     pixel, in_front = compute_projections(xyz, KE, neg_ray=neg_ray)
-    norm_pix = normalize_pixels(pixel, h, w)
-    ht = srcfeat_quad.shape[1] - 1
-    wt = srcfeat_quad.shape[2] - 1
-    x = _unnormalize(norm_pix[..., 0], wt)
-    y = _unnormalize(norm_pix[..., 1], ht)
-    x0 = torch.floor(x)
-    y0 = torch.floor(y)
-    wx1 = x - x0
-    wy1 = y - y0
-    wx0 = 1.0 - wx1
-    wy0 = 1.0 - wy1
-    xi = x0.long()
-    yi = y0.long()
-    xc = xi.clamp(-1, wt - 1) + 1
-    yc = yi.clamp(-1, ht - 1) + 1
-    stride = (ht + 1) * (wt + 1)
-    idx_vp = yc * (wt + 1) + xc  # (V, P)
-    if batched:
-        tab = srcfeat_quad.reshape(V, stride, C4)
-        rows = torch.cat([tab[v][idx_vp[v]] for v in range(V)])
-    else:
-        voff = torch.arange(V, device=xyz.device)[:, None] * stride
-        rows = srcfeat_quad.reshape(V * stride, C4)[(idx_vp + voff).reshape(-1)]
-
-    def tapw(xi_, yi_, wgt):
-        inb = (xi_ >= 0) & (xi_ <= wt - 1) & (yi_ >= 0) & (yi_ <= ht - 1)
-        return wgt * inb.float()
-
-    w4 = torch.stack(
-        [
-            tapw(xi, yi, wx0 * wy0),
-            tapw(xi + 1, yi, wx1 * wy0),
-            tapw(xi, yi + 1, wx0 * wy1),
-            tapw(xi + 1, yi + 1, wx1 * wy1),
-        ],
-        dim=1,
-    )
+    rows, w4 = quad_rows_and_weights(
+        srcfeat_quad, normalize_pixels(pixel, h, w), batched=batched)
     vmask = (inbound_mask(pixel, h, w) & in_front).float()
     return rows, w4, vmask
 

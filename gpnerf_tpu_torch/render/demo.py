@@ -29,15 +29,26 @@ Per frame:
      whole sample grid and the cull is the kernel's trilinear level-1
      occupancy (`occ_geom`), which `sigma_query_cull` also applies on top
      of the tap;
-  6. project + gather the quad rows and geometry rows (or, with
-     `kernel_octet` off, query the geometry feature in torch ops), run the
-     point-stage kernel (ops/point_stages.py), composite front to back,
-     scatter the rays into the image.
+  6. the point stages, fused (`pallas_point`, the default) or op by op:
+     fused, project + gather the quad rows and geometry rows (or, with
+     `kernel_octet` off, query the geometry feature in torch ops) and run
+     the point-stage kernel (ops/point_stages.py); op by op, sample the
+     projection tables (merged: through the quad-lerp kernel of
+     ops/quad_lerp.py with `pallas_lerp`, else in torch ops in (P, V) or,
+     with `proj_vp_order`, (V, P) order; split: in torch ops), query the
+     folded sigma feature, take mean/variance over the views and run the
+     density and color heads (models/heads.py). Then composite front to
+     back and scatter the rays into the image.
 
 `build_render` accepts the fast mode, the reference mode, the reference mode
-with one of `frame_mode`, `sigma_query_cull`, `int4_feat`, and either mode
-with `kernel_octet` off; any other renderer switch raises
-NotImplementedError naming the key.
+with one of `frame_mode`, `sigma_query_cull`, `int4_feat`, each with
+`kernel_octet` and `pallas_point` either way (`pallas_lerp` and
+`proj_vp_order` choose the op-by-op route of the merged table); any other
+renderer switch raises NotImplementedError naming the key. As in the JAX
+package, `int4_feat` stores the int8 table off the fused path.
+
+`stop_stage` (one of STOP_STAGES) ends a render after the named stage and
+returns None; `Renderer.profile` times those prefixes.
 
 Index compactions and scatters write through one spare slot that absorbs
 the dropped entries (JAX's `mode="drop"`). Every real target is written
@@ -48,12 +59,14 @@ constant 1 wherever several voxels land on one target.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 from torch import nn
 
 from gpnerf_tpu_torch.models.encoder import ResUNet
-from gpnerf_tpu_torch.models.heads import NeRFHead
+from gpnerf_tpu_torch.models.heads import NeRFHead, fused_mean_variance
 from gpnerf_tpu_torch.models.layers import rounded
 from gpnerf_tpu_torch.models.sparse_net import SparseConvNet, occupancy_volume
 from gpnerf_tpu_torch.ops.grid_sample import (
@@ -69,7 +82,11 @@ from gpnerf_tpu_torch.ops.grid_sample import (
     upsample_image_align_corners,
 )
 from gpnerf_tpu_torch.ops.point_stages import fused_point_stages_tabs, pack_head_weights
-from gpnerf_tpu_torch.ops.projection import project_gather_rows_merged
+from gpnerf_tpu_torch.ops.projection import (
+    project_and_gather_quad,
+    project_and_gather_quad_merged,
+    project_gather_rows_merged,
+)
 from gpnerf_tpu_torch.ops.rays import pixel_rays, ray_aabb_near_far
 from gpnerf_tpu_torch.ops.sparse_conv import scatter_dense
 from gpnerf_tpu_torch.registry import register
@@ -79,8 +96,9 @@ from gpnerf_tpu_torch.render.base import points_to_dhw_vox, prepare_frame, src_n
 # values the port implements: COMMON in every mode; FAST_MODE with
 # tight_cull on; REF_MODE (the reference-semantics mode: blanket cull, all
 # samples kept, no tap window, split projection tables) with it off, where
-# at most one of REF_VARIANTS leaves its default. `kernel_octet` is free in
-# both modes. `splat_bins` is inert without tight_cull, as in the JAX package.
+# at most one of REF_VARIANTS leaves its default. `kernel_octet`,
+# `pallas_point`, `pallas_lerp` and `proj_vp_order` are free in both modes.
+# `splat_bins` is inert without tight_cull, as in the JAX package.
 COMMON = {
     "quantize_volume": True,
     "merge_coarse_octet": True,
@@ -93,7 +111,6 @@ COMMON = {
     "dense_slots": True,
     "quantize_proj": True,
     "pack_octet_u32": False,
-    "pallas_point": True,
 }
 FAST_MODE = {
     "merge_lowres_src": True,
@@ -107,8 +124,19 @@ REF_VARIANTS = {
     "frame_mode": False,
     "sigma_query_cull": False,
     "int4_feat": False,
-    "kernel_octet": True,
 }
+
+# the names a render can stop after, in pipeline order (Renderer.profile)
+FRAME_STOPS = ("pre", "codes", "fuse", "occv", "volume", "rays")
+RAY_STOPS = ("cull_occ", "cull_slots", "cull_compact")
+POINT_STOPS = ("cull", "sigma_q", "meanvar", "sigma", "rgb")
+STOP_STAGES = FRAME_STOPS + RAY_STOPS + POINT_STOPS
+# the prefixes Renderer.profile times; None is the whole render
+PROFILE_LADDER = ("volume", "rays", "cull_occ", "cull_compact", "cull",
+                  "sigma_q", "sigma", None)
+# the op-by-op heads run over chunks of this many points: the color head's
+# (P, V, 105) activations are several GB at the reference mode's P
+HEAD_CHUNK = 1 << 20
 
 # level-1 voxels whose occupancy (masks3d) exceeds this splat into the view
 OCCUPANCY_THRESHOLD = 0.1
@@ -137,7 +165,8 @@ class Renderer(nn.Module):
                  samples_per_ray=13, ray_cap=24576, bin_margin_voxels=2.0,
                  max_out_sh=(96, 320, 224), compute_dtype=None,
                  tight_cull=True, splat_cap=0, frame_mode=False,
-                 sigma_query_cull=False, int4_feat=False, kernel_octet=True):
+                 sigma_query_cull=False, int4_feat=False, kernel_octet=True,
+                 pallas_point=True, pallas_lerp=True, proj_vp_order=False):
         super().__init__()
         if not tight_cull and samples_per_ray != n_samples:
             raise NotImplementedError(
@@ -147,10 +176,10 @@ class Renderer(nn.Module):
             raise NotImplementedError(
                 "frame_mode, sigma_query_cull and int4_feat are ported for "
                 "the blanket cull (tight_cull off) only")
-        if not kernel_octet and (frame_mode or sigma_query_cull):
+        if int4_feat and pallas_point and not kernel_octet:
             raise NotImplementedError(
-                "the trilinear occupancy cull (frame_mode, sigma_query_cull) "
-                "is ported in its in-kernel form only (kernel_octet on)")
+                "the point-stage kernel has no instantiation for int4_feat "
+                "rows with a feature input (kernel_octet off)")
         # tight_cull: splat and cull against the level-1 occupancy (fast
         # mode); off: against the sum-over-levels blanket, compacted to
         # splat_cap voxels (0 = dense walk), with split projection tables
@@ -160,6 +189,15 @@ class Renderer(nn.Module):
         self.sigma_query_cull = bool(sigma_query_cull)
         self.int4_feat = bool(int4_feat)
         self.kernel_octet = bool(kernel_octet)
+        # pallas_point: the point stages in the fused kernel
+        # (ops/point_stages.py); off, op by op, where pallas_lerp routes the
+        # merged table's weighted sum through the quad-lerp kernel
+        # (ops/quad_lerp.py) and proj_vp_order picks the (V, P) gather order
+        # of the torch-op route. Each switch alone decides its route: CUDA
+        # tensors take the kernel, CPU tensors its plain version.
+        self.pallas_point = bool(pallas_point)
+        self.pallas_lerp = bool(pallas_lerp)
+        self.proj_vp_order = bool(proj_vp_order)
         self.encoder = encoder
         self.nerfhead = nerfhead
         self.voxel_size = tuple(float(v) for v in voxel_size)
@@ -176,9 +214,22 @@ class Renderer(nn.Module):
 
     @torch.no_grad()
     def render_demo(self, batch):
-        featmaps = self.encoder(src_norm(batch["src_imgs"]))
-        pre, tables, rd = self._frame_stage(batch, featmaps)
-        rgb_map, stats = self._ray_pipeline(batch, pre, tables, rd)
+        return self._demo_impl(batch, self.encoder(src_norm(batch["src_imgs"])))
+
+    def _demo_impl(self, batch, featmaps, stop_stage=None):
+        """Frame stage, ray pipeline and image assembly on encoded feature
+        maps. `stop_stage` (one of STOP_STAGES) ends the render after that
+        stage and returns None."""
+        if stop_stage is not None and stop_stage not in STOP_STAGES:
+            raise ValueError(f"stop_stage {stop_stage!r} is none of {STOP_STAGES}")
+        out = self._frame_stage(batch, featmaps, stop_stage=stop_stage)
+        if out is None:
+            return None
+        pre, tables, rd = out
+        out = self._ray_pipeline(batch, pre, tables, rd, stop_stage=stop_stage)
+        if out is None:
+            return None
+        rgb_map, stats = out
         H, W = batch["tar_img"].shape[0:2]
         oob = H * W
         ray_ok = rd["ray_ok"]
@@ -202,6 +253,79 @@ class Renderer(nn.Module):
             ),
             "can_bounds": rd["can_bounds"],
         }
+
+    @torch.no_grad()
+    def profile(self, batch, reps=3):
+        """Per-stage time of the render, keyed by the reference's time_slots
+        names. `batch`: one frame or a sequence of distinct frames; every
+        program is warmed on each frame once, then timed `reps` times per
+        frame (CUDA events on a card, the host clock on the CPU); a frame's
+        time is the least of its reps, a program's the mean over the frames.
+        Seconds throughout.
+
+        The prefixes of PROFILE_LADDER run with `pallas_point` forced off
+        (the fused kernel has no stage boundaries inside it), and their
+        differences are mapped onto the closest slot; the fused render, when
+        it is the configured path, is timed apart as `rtime_production`.
+        Returns {"etime": encoder, "rtime": the op-by-op render without the
+        encoder, "time_slots": {...}[, "rtime_production"]}."""
+        frames = [batch] if isinstance(batch, dict) else list(batch)
+        dev = frames[0]["src_imgs"].device
+
+        def once(fn, f):
+            if dev.type != "cuda":
+                t0 = time.perf_counter()
+                fn(f)
+                return time.perf_counter() - t0
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize(dev)
+            start.record()
+            fn(f)
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / 1e3
+
+        def mean_seconds(fn):
+            for f in frames:
+                fn(f)
+            return sum(min(once(fn, f) for _ in range(reps)) for f in frames) / len(frames)
+
+        etime = mean_seconds(lambda f: self.encoder(src_norm(f["src_imgs"])))
+        feats = {id(f): self.encoder(src_norm(f["src_imgs"])) for f in frames}
+        out = {"etime": etime}
+        orig = self.pallas_point
+        try:
+            if orig:
+                out["rtime_production"] = mean_seconds(
+                    lambda f: self._demo_impl(f, feats[id(f)]))
+                self.pallas_point = False
+            totals = {
+                stage: mean_seconds(
+                    lambda f, stage=stage: self._demo_impl(f, feats[id(f)], stop_stage=stage))
+                for stage in PROFILE_LADDER
+            }
+        finally:
+            self.pallas_point = orig
+        deltas, prev = {}, 0.0
+        for stage in PROFILE_LADDER:
+            deltas[stage] = totals[stage] - prev
+            prev = totals[stage]
+        out["rtime"] = totals[None]
+        out["time_slots"] = {
+            "bc_attn": 0.0,  # code fusion is part of sp_encode
+            "sigma_attn": 0.0,
+            "sigma_c": 0.0,
+            "sp_encode": deltas["volume"],  # fuse + conv + occupancy + tables
+            "bc_time": deltas["rays"],  # splat + rays + near/far
+            "bf_sigma": deltas["cull_occ"] + deltas["cull_compact"]
+            + deltas["cull"] + deltas["sigma_q"],  # culls + proj/octet gathers
+            "sigma_f": deltas["sigma"],  # mean/var + density MLP
+            "bf_rgb": 0.0,
+            "rgb_f": deltas[None],  # color MLP + composite
+            "bc_render": 0.0,
+        }
+        return out
 
     # ------------------------------------------------------------------
     def _splat_pixels(self, pts_w, row_ok, batch, H, W):
@@ -261,9 +385,10 @@ class Renderer(nn.Module):
         pts_w = can_pts @ batch["Rh"].T + batch["Th"].reshape(1, 3)
         return pts_w, (masks3d > OCCUPANCY_THRESHOLD).reshape(-1)
 
-    def _frame_stage(self, batch, featmaps):
+    def _frame_stage(self, batch, featmaps, stop_stage=None):
         """Volume, occupancy, gather tables, AABB of the occupied voxels,
-        splats, rays and near/far. Returns (pre, tables, rays)."""
+        splats, rays and near/far. Returns (pre, tables, rays), or None
+        after a `stop_stage` of FRAME_STOPS."""
         dt = self.compute_dtype
         dev = featmaps.device
         src_unnorm = src_norm(batch["src_imgs"]) * 0.5 + 0.5
@@ -271,11 +396,20 @@ class Renderer(nn.Module):
         H, W = batch["tar_img"].shape[0:2]
         grids = pre["grids"]
         o = np.asarray(pre["out_sh"])
+        if stop_stage == "pre":
+            return None
+        if stop_stage == "codes":
+            self.nerfhead.sigmahead.fuse_codes(pre["smpl_feat"])
+            return None
 
         # (2) volume + occupancy
         level_feats = self.nerfhead.volume(pre["smpl_feat"], pre["vertex_rows"], grids)
         vols = [None] + [scatter_dense(level_feats[i], grids[i + 1]) for i in (1, 2, 3)]
+        if stop_stage == "fuse":
+            return None
         masks3d = occupancy_volume(level_feats, grids)
+        if stop_stage == "occv":
+            return None
         featmaps = rounded(featmaps, dt)
         src_unnorm = rounded(src_unnorm, dt)
         vols = [None] + [rounded(v, dt) for v in vols[1:]]
@@ -322,9 +456,13 @@ class Renderer(nn.Module):
                     f"pipeline yields, got {batch['src_imgs'].dtype}")
             tables["src_quad"] = build_quad_table_2d(batch["src_imgs"])
             tables["src_scale"] = torch.full((3,), 1.0 / 255.0, device=dev)
-            quantize = quantize_image_i4 if self.int4_feat else quantize_image_i8
+            # only the fused kernel unpacks int4 rows
+            int4 = self.int4_feat and self.pallas_point
+            quantize = quantize_image_i4 if int4 else quantize_image_i8
             qf, tables["feat_scale"] = quantize(featmaps.float())
             tables["feat_quad"] = build_quad_table_2d(qf)
+        if stop_stage == "volume":
+            return None
 
         # (4) occupied voxels -> world points and their AABB
         vs = torch.tensor(self.voxel_size, dtype=torch.float32, device=dev)
@@ -370,6 +508,8 @@ class Renderer(nn.Module):
         rays_o, rays_d = pixel_rays(xy1, batch["target_K_inv"], tp[:, :3], tp[:, 3:])
         near, far, mask_at_box = ray_aabb_near_far(rays_o, rays_d, can_bounds)
         ray_ok = ray_ok & mask_at_box
+        if stop_stage == "rays":
+            return None
         bins = None
         if self.tight_cull:
             bins = self._splat_bins(pts_w, row_ok, batch, H, W, can_bounds, minx, miny)[safe]
@@ -418,11 +558,12 @@ class Renderer(nn.Module):
         flat = (cells[2] * H1 + cells[1]) * W1 + cells[0]
         return (occb.reshape(-1)[flat] > 0) & inb & rd["ray_ok"][None, :]
 
-    def _ray_pipeline(self, batch, pre, tables, rd):
+    def _ray_pipeline(self, batch, pre, tables, rd, stop_stage=None):
         """Sample cull (splat bins, or the occupancy tap), per-ray K-slot
         compaction over the dense (K, R) slot frame — or, in frame mode, the
-        whole (S, R) sample grid with the cull left to the kernel — then
-        point stages and composite."""
+        whole (S, R) sample grid with the cull left to the point stages —
+        then point stages and composite. Returns (rgb_map, stats), or None
+        after a `stop_stage` of RAY_STOPS or POINT_STOPS."""
         S, K = self.n_samples, self.samples_per_ray
         rays_o, rays_d, ray_ok = rd["rays_o"], rd["rays_d"], rd["ray_ok"]
         nr = rays_o.shape[0]
@@ -441,6 +582,8 @@ class Renderer(nn.Module):
                 ok = (rd["bins"].T > 0) & ray_ok[None, :]  # (S, R)
             else:
                 ok = self._occupancy_tap(batch, pre, tables, rd)
+            if stop_stage == "cull_occ":
+                return None
             cum = torch.cumsum(ok.int(), dim=0)
             # slot k of a ray holds the sample index of its (k+1)-th occupied
             # sample (S when it has fewer): the nearest K survivors are kept.
@@ -451,6 +594,8 @@ class Renderer(nn.Module):
             sig_ok = slot_rel < S
             n_sigma = sig_ok.sum()
             perray_overflow = (cum[-1] - K).clamp_min(0).sum()
+            if stop_stage == "cull_slots":
+                return None
             slot = slot_rel.clamp_max(S - 1).float()
             mask_from_query = self.sigma_query_cull
         t = slot / s_max
@@ -459,8 +604,14 @@ class Renderer(nn.Module):
             [rays_o[None, :, i] + rays_d[None, :, i] * z for i in range(3)], dim=-1
         ).reshape(-1, 3)
         dhw_c = points_to_dhw_vox(pts_c, batch, self.voxel_size)
-        alpha, rgb, sig_ok = self._point_stages(
-            batch, pre, tables, pts_c, dhw_c, sig_ok.reshape(-1), mask_from_query)
+        if stop_stage in RAY_STOPS:  # the frame has no tap and no slots
+            return None
+        out = self._point_stages(
+            batch, pre, tables, pts_c, dhw_c, sig_ok.reshape(-1), mask_from_query,
+            stop_stage=stop_stage)
+        if out is None:
+            return None
+        alpha, rgb, sig_ok = out
         alpha_kr = alpha.reshape(K, nr)
         trans = torch.cat(
             [alpha_kr.new_ones(1, nr),
@@ -479,10 +630,74 @@ class Renderer(nn.Module):
         }
         return rgb_map, stats
 
-    def _point_stages(self, batch, pre, tables, pts_c, dhw_c, sig_ok, mask_from_query):
+    def _point_stages(self, batch, pre, tables, pts_c, dhw_c, sig_ok, mask_from_query,
+                      stop_stage=None):
+        """Projection gather, density and color of the P frame points:
+        fused in one kernel (`pallas_point`), or op by op, which is also the
+        path every `stop_stage` prefix takes. Returns alpha (P,)
+        sigma-masked, rgb (P, 3) zero where not alive, and sig_ok with the
+        occupancy verdict of `mask_from_query` folded in; None after a
+        `stop_stage` of POINT_STOPS."""
+        if self.pallas_point and stop_stage is None:
+            return self._point_stages_fused(
+                batch, pre, tables, pts_c, dhw_c, sig_ok, mask_from_query)
+        dt = self.compute_dtype
+        head = self.nerfhead
+        Hs, Ws = batch["src_imgs"].shape[1:3]
+        if "feat_quad" in tables:
+            rgb_feat, view_mask = project_and_gather_quad(
+                pts_c, pre["KE"], tables["src_quad"], tables["feat_quad"], Hs, Ws,
+                src_scale=tables["src_scale"], feat_scale=tables["feat_scale"])
+            feat_dt = None  # quantized split tables lerp in float32
+        else:
+            rgb_feat, view_mask = project_and_gather_quad_merged(
+                pts_c, pre["KE"], tables["src_quad"], Hs, Ws,
+                scale=tables["proj_scale"], out_dtype=dt,
+                vp_order=self.proj_vp_order, kernel=self.pallas_lerp)
+            feat_dt = dt
+        if stop_stage == "cull":
+            return None
+
+        # density; the level-1 trilinear occupancy (the reference's
+        # `sp_feats > 0` cull) comes off the same query
+        out_sh = torch.tensor(pre["out_sh"], device=dhw_c.device)
+        q = head.sigmahead.query_sigma_feat_octet_folded(
+            tables["octet_l1"], tables["coarse"], dhw_c, out_sh,
+            scales=tables["octet_scales"], with_l1_occ=mask_from_query)
+        if mask_from_query:
+            sigma_feat, occ_l1 = q
+            sig_ok = sig_ok & (occ_l1 > 0)
+        else:
+            sigma_feat = q
+        if stop_stage == "sigma_q":
+            return None
+        mean, var = fused_mean_variance(rgb_feat, feat_dt)  # (P, 1, C)
+        num_valid_obs = view_mask.sum(dim=-1, keepdim=True)
+        if stop_stage == "meanvar":
+            return None
+        P = pts_c.shape[0]
+        chunks = [slice(s, min(P, s + HEAD_CHUNK)) for s in range(0, P, HEAD_CHUNK)]
+        sigma = torch.cat([
+            head.rgbhead.density(sigma_feat[c], mean[c, 0], var[c, 0], num_valid_obs[c])[:, 0]
+            for c in chunks])
+        sigma = torch.where(sig_ok, sigma, 0.0)
+        alpha = 1.0 - torch.exp(-sigma)
+        if stop_stage == "sigma":
+            return None
+
+        # color on the whole frame; the composite weighs masked points 0
+        rgb = torch.cat([
+            head.rgbhead.color(rgb_feat[c, None], mean[c, None], var[c, None])[:, 0]
+            for c in chunks])
+        alive = (alpha > 1e-14) & sig_ok
+        rgb = torch.where(alive[:, None], rgb, 0.0)
+        if stop_stage == "rgb":
+            return None
+        return alpha, rgb, sig_ok
+
+    def _point_stages_fused(self, batch, pre, tables, pts_c, dhw_c, sig_ok, mask_from_query):
         """Geometry-row and projection-row gathers, then the point-stage
-        kernel. Returns alpha (P,) sigma-masked, rgb (P, 3) alpha-culled and
-        sig_ok with the kernel's occupancy verdict folded in."""
+        kernel. Returns as `_point_stages`."""
         out_sh = torch.tensor(pre["out_sh"], device=dhw_c.device)
         sc0, sc1 = tables["octet_scales"]
         coarse = tables["coarse"]
@@ -501,6 +716,9 @@ class Renderer(nn.Module):
         else:
             feats = SparseConvNet.query_octet2(
                 tables["octet_l1"], coarse, dhw_c, out_sh, scales=(sc0, sc1))
+            if mask_from_query:
+                nch = self.nerfhead.spconv_out_dim[0]
+                sig_ok = sig_ok & (feats[:, :nch].sum(dim=-1) > 0)
         Hs, Ws = batch["src_imgs"].shape[1:3]
         rows, w4, vmask = project_gather_rows_merged(
             pts_c, pre["KE"], tables["src_quad"], Hs, Ws
@@ -518,12 +736,14 @@ class Renderer(nn.Module):
             self.nerfhead, fold_nch=self.nerfhead.spconv_out_dim[0]
         )
         # mask_from_query: the kernel derives the reference's `sp_feats > 0`
-        # cull (demo_render.py:294) from the lerped level-1 block
+        # cull (demo_render.py:294) from the lerped level-1 block; with a
+        # feature input the cull is taken from the queried features above
+        occ_geom = mask_from_query and self.kernel_octet
         outs = fused_point_stages_tabs(
             tabs, feats, vmask, sig_ok, weights, geom_tabs=geom_tabs,
-            occ_geom=mask_from_query,
+            occ_geom=occ_geom,
         )
-        if mask_from_query:
+        if occ_geom:
             sig_ok = sig_ok & (outs[2] > 0.5)
         return outs[0], outs[1], sig_ok
 
@@ -553,6 +773,10 @@ def check_mode(cfg):
         raise NotImplementedError(
             f"tpu.{on[1]}={t[on[1]]!r} together with tpu.{on[0]}={t[on[0]]!r}: the "
             "port renders one variant of the reference mode at a time")
+    if t.int4_feat and t.pallas_point and not t.kernel_octet:
+        raise NotImplementedError(
+            "tpu.kernel_octet=False together with tpu.int4_feat=True: the "
+            "point-stage kernel has no such instantiation")
 
 
 def build_render(cfg, device="cuda"):
@@ -594,6 +818,9 @@ def build_render(cfg, device="cuda"):
         sigma_query_cull=cfg.tpu.sigma_query_cull,
         int4_feat=cfg.tpu.int4_feat,
         kernel_octet=cfg.tpu.kernel_octet,
+        pallas_point=cfg.tpu.pallas_point,
+        pallas_lerp=cfg.tpu.pallas_lerp,
+        proj_vp_order=cfg.tpu.proj_vp_order,
     )
     return r.to(device).eval()
 

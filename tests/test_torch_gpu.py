@@ -4,8 +4,9 @@ and skip without a card; on the GPU machine run them with
     python -m pytest tests/test_torch_gpu.py -m gpu -q
 
 They import only torch and the port (the GPU machine has no flax): the
-point-stage CUDA kernel against its plain version at ragged sizes, the
-wrapper's refusal of other forms, and a 128^2 render on the card against
+point-stage, quad-lerp and row-gather CUDA kernels against their plain
+versions at ragged sizes, the
+wrappers' refusal of other forms, and 128^2 renders on the card against
 the same render on the CPU."""
 
 import os
@@ -230,4 +231,161 @@ def test_render_on_card_matches_cpu(mode):
     assert float(d.median()) < 2e-3 and float((d > 0.05).float().mean()) <= 1e-3
     # fast mode as before; the blanket's rays of image row 0 project onto a
     # source image's border row to the last bit, where a view flips in or out
+    assert float(d.max()) < (0.05 if mode == "fast" else 0.15)
+
+
+# --- the quad-lerp kernels and the row gather (ops/quad_lerp.py, row_gather.py)
+
+
+def _lerp_inputs(row_dtype, V, P, C, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if row_dtype == torch.float32:
+        rows = torch.randn(V * P, 4 * C, generator=g, device=dev)
+    else:
+        lo, hi = (0, 256) if row_dtype == torch.uint8 else (-127, 128)
+        rows = torch.randint(lo, hi, (V * P, 4 * C), generator=g, device=dev, dtype=row_dtype)
+    w4 = torch.rand(V, 4, P, generator=g, device=dev)
+    w4 = w4 * (torch.rand(V, 4, P, generator=g, device=dev) > 0.1)
+    scale = 0.02 + 0.05 * torch.rand(C, generator=g, device=dev)
+    return rows, w4, scale
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("row_dtype", [torch.int8, torch.uint8, torch.float32])
+@pytest.mark.parametrize("P,C", [(1, 35), (127, 35), (129, 6), (70001, 35), (1000, 96)])
+def test_quad_lerp_kernels_match_plain_bitwise(P, C, row_dtype, out_dtype):
+    from gpnerf_tpu_torch.ops import quad_lerp as ql
+
+    dev = _cuda()
+    V = 3
+    rows, w4, scale = _lerp_inputs(row_dtype, V, P, C, P + C, dev)
+    before = dict(ql.LAUNCHES)
+    out = ql.quad_lerp_rows_vcp(rows, w4, scale, out_dtype=out_dtype)
+    w_flat = w4.permute(1, 0, 2).reshape(4, V * P).contiguous()
+    out_cm = ql.quad_lerp_rows_cm(rows, w_flat, scale, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    # a CUDA tensor goes through the kernel, once per call
+    assert ql.LAUNCHES["quad_lerp_rows_vcp"] == before.get("quad_lerp_rows_vcp", 0) + 1
+    assert ql.LAUNCHES["quad_lerp_rows_cm"] == before.get("quad_lerp_rows_cm", 0) + 1
+    ref = ql.quad_lerp_rows_vcp_plain(rows, w4, scale, out_dtype=out_dtype)
+    assert out.dtype == out_dtype and tuple(out.shape) == (V, C, P)
+    # the same rounded float32 products and sums in the same order: bitwise
+    assert torch.equal(_bits(out), _bits(ref))
+    assert torch.equal(_bits(out_cm), _bits(ref.permute(1, 0, 2).reshape(C, V * P)))
+    assert torch.equal(_bits(out_cm),
+                       _bits(ql.quad_lerp_rows_cm_plain(rows, w_flat, scale, out_dtype=out_dtype)))
+
+
+@pytest.mark.gpu
+def test_quad_lerp_refuses_what_it_does_not_take():
+    from gpnerf_tpu_torch.ops import quad_lerp as ql
+
+    dev = _cuda()
+    rows, w4, scale = _lerp_inputs(torch.int8, 3, 300, 35, 0, dev)
+    before = sum(ql.LAUNCHES.values())
+    with pytest.raises(NotImplementedError, match="no kernel"):
+        ql.quad_lerp_rows_vcp(rows.to(torch.int16), w4, scale)
+    with pytest.raises(NotImplementedError, match="no kernel"):
+        ql.quad_lerp_rows_vcp(rows, w4, scale, out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="fit together"):
+        ql.quad_lerp_rows_vcp(rows, w4, scale[:34].contiguous())
+    with pytest.raises(ValueError, match="rows for V"):
+        ql.quad_lerp_rows_vcp(rows[:-1], w4, scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        ql.quad_lerp_rows_cm(rows, w4.permute(1, 0, 2).reshape(4, -1).T.contiguous().T, scale)
+    big = torch.zeros(4, 4 * 97, dtype=torch.int8, device=dev)
+    with pytest.raises(NotImplementedError, match="shared-memory"):
+        ql.quad_lerp_rows_cm(big, torch.zeros(4, 4, device=dev), torch.ones(97, device=dev))
+    assert sum(ql.LAUNCHES.values()) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype,C", [(torch.float32, 32), (torch.bfloat16, 32),
+                                     (torch.float32, 3), (torch.bfloat16, 6)])
+@pytest.mark.parametrize("N", [1, 1000, 70001])
+def test_row_gather_kernel_matches_plain_bitwise(N, dtype, C, idx_dtype):
+    from gpnerf_tpu_torch.ops import row_gather as rg
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(N)
+    table = torch.randn(20480, C, generator=g, device=dev).to(dtype)
+    idx = torch.randint(0, 20480, (N,), generator=g, device=dev, dtype=idx_dtype)
+    before = rg.LAUNCHES["row_gather"]
+    out = rg.row_gather(table, idx)
+    torch.cuda.synchronize()
+    assert rg.LAUNCHES["row_gather"] == before + 1
+    assert out.dtype == dtype and torch.equal(_bits(out), _bits(rg.row_gather_plain(table, idx)))
+
+
+@pytest.mark.gpu
+def test_row_gather_refuses_what_it_does_not_take():
+    from gpnerf_tpu_torch.ops import row_gather as rg
+
+    dev = _cuda()
+    table = torch.zeros(16, 3, dtype=torch.bfloat16, device=dev)  # 6-byte rows
+    idx = torch.zeros(4, dtype=torch.int32, device=dev)
+    before = rg.LAUNCHES["row_gather"]
+    with pytest.raises(NotImplementedError, match="4-byte words"):
+        rg.row_gather(table, idx)
+    with pytest.raises(NotImplementedError, match="int32 or int64"):
+        rg.row_gather(table.float(), idx.to(torch.int16))
+    with pytest.raises(ValueError, match="contiguous"):
+        rg.row_gather(torch.zeros(16, 8, device=dev)[:, ::2], idx)
+    assert rg.LAUNCHES["row_gather"] == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["fast", "reference"])
+def test_opbyop_render_on_card_matches_cpu(mode):
+    """The op-by-op point stages (pallas_point off): the card runs the
+    quad-lerp kernel where the CPU runs its plain version."""
+    dev = _cuda()
+    from gpnerf_tpu_torch.config import cfg as base
+    from gpnerf_tpu_torch.ops import quad_lerp as ql
+    from gpnerf_tpu_torch.registry import get
+    from gpnerf_tpu_torch.render.base import batch_to_device
+    from gpnerf_tpu_torch.train.checkpoint import load_eval_model
+
+    cfg = base.clone()
+    cfg.defrost()
+    cfg.merge_from_file("configs/synthetic.yaml")
+    cfg.dataset.H = cfg.dataset.W = 128
+    cfg.head.sigma.code_dim = 32
+    cfg.render.file = "demo_render"
+    cfg.tpu.matmul_dtype = "float32"
+    cfg.tpu.ray_cap = 16384
+    cfg.tpu.pallas_point = False
+    if mode != "fast":
+        cfg.tpu.tight_cull = False
+        cfg.tpu.samples_per_ray = 64
+        cfg.tpu.tap_window = 0
+        cfg.tpu.merge_lowres_src = False
+        cfg.tpu.ray_cap = 9216
+    cfg.freeze()
+    np.random.seed(0)
+    random.seed(0)
+    batch = get("dataset", cfg.dataset.test.file)(cfg, is_train=False)[0]
+    outs = {}
+    lerps, points = ql.LAUNCHES["quad_lerp_rows_vcp"], sum(ps.LAUNCHES.values())
+    for d in (dev, torch.device("cpu")):
+        r = load_eval_model(CKPT, get("render", "demo_render")(cfg, device=d))
+        outs[d.type] = {k: v.cpu() for k, v in r.render_demo_fn()(batch_to_device(batch, d)).items()}
+    # the merged table's lerp went through its kernel once, on the card
+    # only; the split tables have no kernel route; no point-stage launch
+    assert ql.LAUNCHES["quad_lerp_rows_vcp"] == lerps + (mode == "fast")
+    assert sum(ps.LAUNCHES.values()) == points
+    g, c = outs["cuda"], outs["cpu"]
+    assert (g["mask_at_box"] == c["mask_at_box"]).float().mean() > 0.999
+    np.testing.assert_array_equal(g["overflows"].numpy()[[0, 2, 3]], 0)
+    assert abs(int(g["counts"][2]) - int(c["counts"][2])) <= 0.001 * int(c["counts"][2])
+    m = g["mask_at_box"] & c["mask_at_box"]
+    d = (g["pred_chw"].reshape(3, -1)[:, m] - c["pred_chw"].reshape(3, -1)[:, m]).abs()
+    # float32 heads on both devices, sums in another order
+    assert float(d.median()) < 1e-4 and float((d > 0.05).float().mean()) <= 1e-3
     assert float(d.max()) < (0.05 if mode == "fast" else 0.15)

@@ -272,7 +272,7 @@ def test_int4_feat_close_to_int8(port_renders):
         (dict(dense_slots=False), "dense_slots"),
         (dict(quantize_proj=False), "quantize_proj"),
         (dict(frame_mode=True, int4_feat=True), "int4_feat"),
-        (dict(frame_mode=True, kernel_octet=False), "kernel_octet"),
+        (dict(int4_feat=True, kernel_octet=False), "kernel_octet"),
         (dict(tight_cull=True, tap_window=32, samples_per_ray=13,
               merge_lowres_src=True, int4_feat=True), "int4_feat"),
     ],
