@@ -429,6 +429,11 @@ def main():
         for line in (entry or {}).get("output", "").splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"#   ptxas [{name}] {line.strip()}")
+    for form, name in ps.FORMS.items():
+        blocks, smem = ps.occupancy(form)
+        log(f"#   occupancy [{name}] {blocks} block(s) per SM, "
+            f"{smem} bytes of dynamic shared memory per block")
+        check(blocks >= 1, f"point_stages[{name}]: no block fits on an SM ({blocks})")
 
     # ---- phase 2a: every instantiation vs plain on seeded random inputs ----
     cfg, render = make_render(512, "bfloat16", "cuda")

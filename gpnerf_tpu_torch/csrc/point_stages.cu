@@ -52,24 +52,47 @@
 //     with int4 rows 709 bytes -> 2.6 GB, 0.78 ms; with the (P, 96) feature
 //     input 929 bytes.
 // About 1.1e5 flop per point: 35 us (fast shape) and 0.40 ms (reference
-// shape) at the 989 TFLOP/s bf16 tensor-core rate. So every form is
-// memory-bound once the MLPs run on tensor cores. This version runs them as
-// f32 FMA loops on the CUDA cores, where the 53K multiply-adds per point
-// make it FMA-bound instead.
+// shape) at the 989 TFLOP/s bf16 tensor-core rate. So every form's bound is
+// its bytes once the MLPs run on tensor cores, which they do here; the
+// kernel itself stays far above that bound (see the end of this note).
 //
-// Design: one thread per point, 256 points per block. All 12 weight
-// matrices (bf16-rounded values stored as f32, 4 outputs interleaved per
-// input so one 16-byte shared-memory broadcast feeds 4 independent FMA
-// chains) and the biases and dequant scales are staged once per block in
-// dynamic shared memory (~130 KB). Each layer copies its input into
-// registers (statically indexed, fully unrolled) and walks its outputs four
-// at a time. Rows are read as 32-bit words (the 12-byte source rows are only
-// 4-byte aligned) and bytes or nibbles are extracted with shifts. Every
-// offset is size_t: the feature rows of one reference-mode launch span 1.4e9
-// bytes.
+// Design: 256 points per block, 8 warps, one point per thread in the front
+// end (the quad lerps, mean/var, the geometry lerp, the masks and the
+// occupancy verdict, all in registers as before). The twelve layers' padded
+// bf16 weights (33,280 values, 65 KB), their float32 biases and the dequant
+// scales are staged once per block in dynamic shared memory. The front end
+// writes each layer input, rounded to bf16, into its warp's shared-memory
+// tiles, one row per point, padding columns zeroed: the geometry feature f
+// (96 columns) and X = [sigma_feat | mean | var | rf_v | 0] (176 columns),
+// which is layer 1's input in columns 0-143 and view v's color input in
+// columns 64-175; rf_v waits in registers as bf16 pairs until its view.
+// Each warp then runs every layer on its 32 points with nvcuda::wmma
+// 16 x 16 x 16 bf16 fragments: per 16-wide N tile two f32 accumulators (the
+// warp's two 16-row M tiles) are summed over the K tiles from shared memory
+// (A row-major, ld = the tile's width; B = W^T column-major straight from
+// the row-major (Cout, Cin) weight, ld = padded Cin), stored to a 2 KB f32
+// scratch, and a per-thread epilogue adds the bias, applies the activation
+// and writes the next layer's bf16 input (or keeps the f32 value: hv for
+// the vis_fc residual, in registers). rgb_fc's first layer accumulates view
+// by view, so the view concat is never stored. 19 KB per warp, 219 KB per
+// block: one block per SM. Lanes past P take part in every mma_sync on zero
+// rows, and skip their loads and their stores of outputs. Each thread reads
+// its own rows: in 16-byte words where they are 16-byte aligned (octet,
+// coarse and split feature rows), else in 32-bit words (the 140-byte merged
+// and 12-byte source rows); bytes or nibbles are extracted with shifts.
+// Every offset is size_t: the feature rows of one reference-mode launch span
+// 1.4e9 bytes.
+//
+// What bounds it (tools/probe_point_stages.py, H100): each warp runs one
+// long dependent chain, so the time fell with the warps per SM (2, 3, 4, 8
+// measured) and not with padding the shared-memory rows against bank
+// conflicts. The tensor-core products are a small part of the chain; the
+// front end (per-thread row loads, the mean/variance divisions) and the
+// per-tile store / epilogue / reload round trips are most of it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <mma.h>
 #include <stdint.h>
 
 namespace {
@@ -84,6 +107,9 @@ namespace {
 #define PS_OCC 0
 #endif
 
+namespace wmma = nvcuda::wmma;
+using bf16 = __nv_bfloat16;
+
 enum Proj { MERGED_I8 = 0, SPLIT_I8 = 1, SPLIT_I4 = 2 };
 
 constexpr int V = 3;
@@ -94,64 +120,124 @@ constexpr int T = 4;     // bilinear taps per quad row
 constexpr int C0 = 32;   // level-1 octet channels (u8), 8 corners
 constexpr int C1 = 64;   // folded-coarse nearest channels (i8), 1 row
 constexpr int NL = 12;   // MLP layers
-constexpr int BLOCK = 256;
+constexpr int WARPS = 8;
+constexpr int BLOCK = 32 * WARPS;  // one point per thread
 
 // layer order: sigma-feat, density d0..d3, base b0 b1, vis v0 v1, rgb r0..r2
 constexpr int CIN[NL] = {C0 + C1, 64 + 2 * C, 64, 32, 16, 3 * C, 64, 32, 32, V * 32, 32, 16};
 constexpr int COUT[NL] = {64, 64, 32, 16, 1, 64, 32, 32, 32, 32, 16, 3};
 
-__host__ __device__ constexpr int wsize(int l) { return ((COUT[l] + 3) / 4) * 4 * CIN[l]; }
-__host__ __device__ constexpr int woff(int l) { return l == 0 ? 0 : woff(l - 1) + wsize(l - 1); }
-__host__ __device__ constexpr int boff(int l) { return l == 0 ? woff(NL) : boff(l - 1) + COUT[l - 1]; }
-constexpr int WBUF = boff(NL);               // floats in the packed weight buffer
-constexpr int SOFF = WBUF;                   // pscale (C), gs0 (C0), gs1 (C1)
-constexpr int SMEM_FLOATS = WBUF + C + C0 + C1;
+__host__ __device__ constexpr int pad16(int n) { return (n + 15) / 16 * 16; }
+__host__ __device__ constexpr int kp(int l) { return pad16(CIN[l]); }
+__host__ __device__ constexpr int np(int l) { return pad16(COUT[l]); }
+// bf16 offset of layer l's (np, kp) row-major weight; float offset of its bias
+__host__ __device__ constexpr int woff(int l) { return l == 0 ? 0 : woff(l - 1) + np(l - 1) * kp(l - 1); }
+__host__ __device__ constexpr int boff(int l) { return l == 0 ? 0 : boff(l - 1) + COUT[l - 1]; }
+
+// Shared memory, in bytes: the packed weight buffer (bf16 weights, then
+// float32 biases) as the wrapper passes it, the dequant scales, then one
+// set of tiles per warp (19 KB, so 8 warps fit).
+constexpr int WELEMS = woff(NL);                        // 33,280 bf16
+constexpr int WBUF_BYTES = WELEMS * 2 + boff(NL) * 4;   // 68,112
+constexpr int SCALE_OFF = WBUF_BYTES;                   // pscale (C), gs0 (C0), gs1 (C1)
+constexpr int WARP_OFF = (SCALE_OFF + (C + C0 + C1) * 4 + 127) / 128 * 128;
+// A warp's tiles, 32 rows each. X = [sigma_feat | mean | var | rf_v | 0]
+// (bf16): layer 1 reads columns 0-143 (the density input; rf_v's first ten
+// columns meet layer 1's zero padding columns), layer 5 columns 64-175 (view
+// v's color input, rf_v rewritten per view). F = the geometry feature
+// (bf16), later the hidden layers' tiles. Then the f32 scratch of one N tile.
+constexpr int KX = 64 + kp(5), KF = kp(0);             // 176, 96
+constexpr int WARP_BYTES = (32 * KX + 32 * KF) * 2 + 32 * 16 * 4;
+constexpr int SMEM_BYTES = WARP_OFF + WARPS * WARP_BYTES;
+static_assert(WBUF_BYTES % 16 == 0, "weight buffer staged in 16-byte words");
+static_assert(SMEM_BYTES <= 232448, "more shared memory than a block may have");
+static_assert(kp(1) <= KX && CIN[1] == 64 + 2 * C && CIN[5] == 3 * C, "X holds both inputs");
+static_assert(64 + 32 <= KF, "hb and hvs share F");
 
 enum Act { ELU = 0, RELU = 1, SIGMOID = 2 };
 
-__device__ __forceinline__ float bf16r(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
+// ELU(x) = x > 0 ? x : exp(x) - 1, written without a branch: for x > 0 it
+// adds exp(0) - 1 = 0, for x <= 0 it adds the exp term to fmax(x, 0) = 0, so
+// the value is the same bit for bit. The select compiles to a branch around
+// each exp, which keeps a tile's 16 epilogue elements from overlapping.
 template <int ACT>
 __device__ __forceinline__ float act(float x) {
-  if (ACT == ELU) return x > 0.f ? x : expf(fminf(x, 0.f)) - 1.f;
+  if (ACT == ELU) return fmaxf(x, 0.f) + (expf(fminf(x, 0.f)) - 1.f);
   if (ACT == RELU) return fmaxf(x, 0.f);
   return 1.f / (1.f + expf(-x));
 }
 
-// y[o] = act(sum_i W[o][i] * bf16(x[i]) + b[o]); W in shared memory as
-// [COUT/4][CIN][4] (bf16-rounded), b as [COUT].
-template <int L, int ACT>
-__device__ __forceinline__ void dense(const float* __restrict__ sm,
-                                      const float* x, float* y) {
-  constexpr int ci = CIN[L];
-  constexpr int co = COUT[L];
-  float xr[ci];
+// N tile n of one layer on a warp's 32 rows: x (32 x kp(L) bf16, row stride
+// ldx, padding columns 0) times W^T. The two 16-row M tiles accumulate in
+// f32 over the K tiles and land in the scratch s (32 x 16 f32, row-major),
+// which every lane may read on return.
+template <int L>
+__device__ __forceinline__ void mma_tile(const bf16* w, const bf16* x, int ldx, int n, float* s) {
+  constexpr int K = kp(L), WO = woff(L);
+  const bf16* wn = w + WO + n * 16 * K;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc0, acc1;
+  wmma::fill_fragment(acc0, 0.f);
+  wmma::fill_fragment(acc1, 0.f);
 #pragma unroll
-  for (int i = 0; i < ci; ++i) xr[i] = bf16r(x[i]);
-  constexpr int wo = woff(L);
-  constexpr int bo = boff(L);
-  const float4* w = reinterpret_cast<const float4*>(sm + wo);
-  const float* b = sm + bo;
-#pragma unroll 1
-  for (int og = 0; og < (co + 3) / 4; ++og) {
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-    const float4* wg = w + og * ci;
-#pragma unroll
-    for (int i = 0; i < ci; ++i) {
-      const float4 ww = wg[i];
-      a0 = fmaf(ww.x, xr[i], a0);
-      a1 = fmaf(ww.y, xr[i], a1);
-      a2 = fmaf(ww.z, xr[i], a2);
-      a3 = fmaf(ww.w, xr[i], a3);
-    }
-    const int o = og * 4;
-    y[o] = act<ACT>(a0 + b[o]);
-    if (o + 1 < co) y[o + 1] = act<ACT>(a1 + b[o + 1]);
-    if (o + 2 < co) y[o + 2] = act<ACT>(a2 + b[o + 2]);
-    if (o + 3 < co) y[o + 3] = act<ACT>(a3 + b[o + 3]);
+  for (int k = 0; k < K / 16; ++k) {
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a0, a1;
+    wmma::load_matrix_sync(b, wn + k * 16, K);
+    wmma::load_matrix_sync(a0, x + k * 16, ldx);
+    wmma::load_matrix_sync(a1, x + 16 * ldx + k * 16, ldx);
+    wmma::mma_sync(acc0, a0, b, acc0);
+    wmma::mma_sync(acc1, a1, b, acc1);
   }
+  wmma::store_matrix_sync(s, acc0, 16, wmma::mem_row_major);
+  wmma::store_matrix_sync(s + 16 * 16, acc1, 16, wmma::mem_row_major);
+  __syncwarp();
+}
+
+// A whole layer: every N tile, each followed by epi(n, s) on every lane.
+template <int L, class Epi>
+__device__ __forceinline__ void layer(const bf16* w, const bf16* x, int ldx, float* s, Epi epi) {
+  constexpr int NT = np(L) / 16;
+#pragma unroll 1
+  for (int n = 0; n < NT; ++n) {
+    mma_tile<L>(w, x, ldx, n, s);
+    epi(n, s);
+    __syncwarp();
+  }
+}
+
+// Epilogue: out[r][16n + c] = bf16(act(s[r][c] + bias)). Lane l owns column
+// c = l % 16 and rows 2j + l / 16, so s[r][c] = s[32j + l]. All 16 loads come
+// before the first store: s and out may alias as far as the compiler knows, so
+// a load after a store would wait for it, one element at a time.
+template <int L, int ACT>
+__device__ __forceinline__ auto to_tile(const float* bias, bf16* out, int ldo) {
+  static_assert(COUT[L] % 16 == 0, "a padded output needs its own epilogue");
+  return [=](int n, const float* s) {
+    constexpr int BO = boff(L);
+    const int lane = threadIdx.x & 31, col = n * 16 + (lane & 15);
+    const float b = bias[BO + col];
+    float y[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) y[j] = s[32 * j + lane];
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      out[(2 * j + (lane >> 4)) * ldo + col] = __float2bfloat16_rn(act<ACT>(y[j] + b));
+  };
+}
+
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// dst[i] = bf16(get(i)) for i < N (N a multiple of 8), in 16-byte stores
+template <int N, class Get>
+__device__ __forceinline__ void put_row(bf16* dst, Get get) {
+#pragma unroll
+  for (int g = 0; g < N / 8; ++g)
+    reinterpret_cast<uint4*>(dst)[g] = make_uint4(
+        bf16x2(get(8 * g), get(8 * g + 1)), bf16x2(get(8 * g + 2), get(8 * g + 3)),
+        bf16x2(get(8 * g + 4), get(8 * g + 5)), bf16x2(get(8 * g + 6), get(8 * g + 7)));
 }
 
 __device__ __forceinline__ float sbyte(uint32_t word, int s) {
@@ -182,7 +268,7 @@ struct Args {
   const float* feats;
   const float* vmask;
   const uint8_t* sig_ok;
-  const float* wbuf;
+  const uint4* wbuf;
   float* alpha_out;
   float* rgb_out;
   float* occm_out;
@@ -202,190 +288,324 @@ __device__ __forceinline__ float lerp_bytes(const uint32_t (&wd)[NW], const floa
 
 template <int PROJ, bool FEATS, bool OCC>
 __global__ void __launch_bounds__(BLOCK) point_stages_kernel(const Args a, int P) {
-  extern __shared__ float sm[];
+  extern __shared__ __align__(128) unsigned char smem[];
   constexpr int CA = PROJ == MERGED_I8 ? C : CS;  // channels of table a
-  for (int i = threadIdx.x; i < WBUF; i += BLOCK) sm[i] = a.wbuf[i];
-  for (int i = threadIdx.x; i < C; i += BLOCK)
-    sm[SOFF + i] = i < CA ? a.scale_a[i] : a.scale_b[i - CA];
+  constexpr int NW16 = WBUF_BYTES / 16;
+#pragma unroll
+  for (int j = 0; j < (NW16 + BLOCK - 1) / BLOCK; ++j) {  // all loads in flight at once
+    const int i = threadIdx.x + j * BLOCK;
+    if (i < NW16) reinterpret_cast<uint4*>(smem)[i] = a.wbuf[i];
+  }
+  float* const ps = reinterpret_cast<float*>(smem + SCALE_OFF);
+  for (int i = threadIdx.x; i < C; i += BLOCK) ps[i] = i < CA ? a.scale_a[i] : a.scale_b[i - CA];
   if (!FEATS) {
-    for (int i = threadIdx.x; i < C0; i += BLOCK) sm[SOFF + C + i] = a.g0_scale[i];
-    for (int i = threadIdx.x; i < C1; i += BLOCK) sm[SOFF + C + C0 + i] = a.g1_scale[i];
+    for (int i = threadIdx.x; i < C0; i += BLOCK) ps[C + i] = a.g0_scale[i];
+    for (int i = threadIdx.x; i < C1; i += BLOCK) ps[C + C0 + i] = a.g1_scale[i];
   }
   __syncthreads();
-  const int p = blockIdx.x * BLOCK + threadIdx.x;
-  if (p >= P) return;
-  const float* ps = sm + SOFF;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int p0 = blockIdx.x * BLOCK + warp * 32;
+  if (p0 >= P) return;  // the whole warp is past P
+  const int p = p0 + lane;
+  const bool live = p < P;
   const float* gs0 = ps + C;
   const float* gs1 = gs0 + C0;
+  const bf16* const W = reinterpret_cast<const bf16*>(smem);
+  const float* const B = reinterpret_cast<const float*>(smem + WELEMS * 2);
+  bf16* const xx = reinterpret_cast<bf16*>(smem + WARP_OFF + warp * WARP_BYTES);  // (32, KX)
+  bf16* const xf = xx + 32 * KX;  // (32, KF)
+  float* const sc = reinterpret_cast<float*>(xf + 32 * KF);  // (32, 16) f32
+  constexpr int RW = (C + 1) / 2;
+  uint32_t rfp[V][RW];  // rf_v as bf16 pairs, until its view's color input is written
 
-  // ---- projection quad lerp + dequant, per view and table ----
-  float rf[V * C];
+  // ---- front end, one point per thread; a lane past P loads nothing and
+  // writes zero rows ----
+  bool ok = false;
+  {
+    float rf[V * C];
+    if (live) {
+      // projection quad lerp + dequant, per view and table
 #pragma unroll
-  for (int v = 0; v < V; ++v) {
-    const size_t vp = static_cast<size_t>(v) * P + p;
-    float tw[T];
+      for (int v = 0; v < V; ++v) {
+        const size_t vp = static_cast<size_t>(v) * P + p;
+        float tw[T];
 #pragma unroll
-    for (int k = 0; k < T; ++k) tw[k] = __ldg(a.w4_a + (static_cast<size_t>(v) * T + k) * P + p);
-    if (PROJ == MERGED_I8) {
-      const uint32_t* row = reinterpret_cast<const uint32_t*>(a.rows_a + vp * (T * C));
-      uint32_t wd[T * C / 4];
+        for (int k = 0; k < T; ++k) tw[k] = __ldg(a.w4_a + (static_cast<size_t>(v) * T + k) * P + p);
+        if (PROJ == MERGED_I8) {
+          const uint32_t* row = reinterpret_cast<const uint32_t*>(a.rows_a + vp * (T * C));
+          uint32_t wd[T * C / 4];
 #pragma unroll
-      for (int j = 0; j < T * C / 4; ++j) wd[j] = __ldg(row + j);
+          for (int j = 0; j < T * C / 4; ++j) wd[j] = __ldg(row + j);
 #pragma unroll
-      for (int c = 0; c < C; ++c)
-        rf[v * C + c] = __fmul_rn(lerp_bytes<C, true>(wd, tw, c), ps[c]);
-    } else {
-      {
-        const uint32_t* row = reinterpret_cast<const uint32_t*>(a.rows_a + vp * (T * CS));
-        uint32_t wd[T * CS / 4];
+          for (int c = 0; c < C; ++c)
+            rf[v * C + c] = __fmul_rn(lerp_bytes<C, true>(wd, tw, c), ps[c]);
+        } else {
+          {
+            const uint32_t* row = reinterpret_cast<const uint32_t*>(a.rows_a + vp * (T * CS));
+            uint32_t wd[T * CS / 4];
 #pragma unroll
-        for (int j = 0; j < T * CS / 4; ++j) wd[j] = __ldg(row + j);
+            for (int j = 0; j < T * CS / 4; ++j) wd[j] = __ldg(row + j);
 #pragma unroll
-        for (int c = 0; c < CS; ++c)
-          rf[v * C + c] = __fmul_rn(lerp_bytes<CS, false>(wd, tw, c), ps[c]);
-      }
-#pragma unroll
-      for (int k = 0; k < T; ++k) tw[k] = __ldg(a.w4_b + (static_cast<size_t>(v) * T + k) * P + p);
-      if (PROJ == SPLIT_I8) {
-        const uint32_t* row = reinterpret_cast<const uint32_t*>(a.rows_b + vp * (T * CF));
-        uint32_t wd[T * CF / 4];
-#pragma unroll
-        for (int j = 0; j < T * CF / 4; ++j) wd[j] = __ldg(row + j);
-#pragma unroll
-        for (int c = 0; c < CF; ++c)
-          rf[v * C + CS + c] = __fmul_rn(lerp_bytes<CF, true>(wd, tw, c), ps[CS + c]);
-      } else {
-        constexpr int HB = CF / 2;  // bytes per tap
-        const uint32_t* row = reinterpret_cast<const uint32_t*>(a.rows_b + vp * (T * HB));
-        uint32_t wd[T * HB / 4];
-#pragma unroll
-        for (int j = 0; j < T * HB / 4; ++j) wd[j] = __ldg(row + j);
-#pragma unroll
-        for (int c = 0; c < CF; ++c) {
-          // channel c: byte c % HB of each tap, low nibble for c < HB
-          const int n0 = 2 * (c % HB) + c / HB;  // nibble index within the tap
-          float acc = __fmul_rn(snibble(wd[n0 >> 3], n0 & 7), tw[0]);
-#pragma unroll
-          for (int k = 1; k < T; ++k) {
-            const int n = 2 * k * HB + n0;
-            acc = __fadd_rn(acc, __fmul_rn(snibble(wd[n >> 3], n & 7), tw[k]));
+            for (int c = 0; c < CS; ++c)
+              rf[v * C + c] = __fmul_rn(lerp_bytes<CS, false>(wd, tw, c), ps[c]);
           }
-          rf[v * C + CS + c] = __fmul_rn(acc, ps[CS + c]);
+#pragma unroll
+          for (int k = 0; k < T; ++k) tw[k] = __ldg(a.w4_b + (static_cast<size_t>(v) * T + k) * P + p);
+          if (PROJ == SPLIT_I8) {
+            const uint4* row = reinterpret_cast<const uint4*>(a.rows_b + vp * (T * CF));
+            uint32_t wd[T * CF / 4];
+#pragma unroll
+            for (int j = 0; j < T * CF / 16; ++j) {
+              const uint4 q = __ldg(row + j);
+              wd[4 * j] = q.x, wd[4 * j + 1] = q.y, wd[4 * j + 2] = q.z, wd[4 * j + 3] = q.w;
+            }
+#pragma unroll
+            for (int c = 0; c < CF; ++c)
+              rf[v * C + CS + c] = __fmul_rn(lerp_bytes<CF, true>(wd, tw, c), ps[CS + c]);
+          } else {
+            constexpr int HB = CF / 2;  // bytes per tap
+            const uint4* row = reinterpret_cast<const uint4*>(a.rows_b + vp * (T * HB));
+            uint32_t wd[T * HB / 4];
+#pragma unroll
+            for (int j = 0; j < T * HB / 16; ++j) {
+              const uint4 q = __ldg(row + j);
+              wd[4 * j] = q.x, wd[4 * j + 1] = q.y, wd[4 * j + 2] = q.z, wd[4 * j + 3] = q.w;
+            }
+#pragma unroll
+            for (int c = 0; c < CF; ++c) {
+              // channel c: byte c % HB of each tap, low nibble for c < HB
+              const int n0 = 2 * (c % HB) + c / HB;  // nibble index within the tap
+              float acc = __fmul_rn(snibble(wd[n0 >> 3], n0 & 7), tw[0]);
+#pragma unroll
+              for (int k = 1; k < T; ++k) {
+                const int n = 2 * k * HB + n0;
+                acc = __fadd_rn(acc, __fmul_rn(snibble(wd[n >> 3], n & 7), tw[k]));
+              }
+              rf[v * C + CS + c] = __fmul_rn(acc, ps[CS + c]);
+            }
+          }
         }
       }
+    } else {
+#pragma unroll
+      for (int i = 0; i < V * C; ++i) rf[i] = 0.f;
     }
-  }
 
-  // ---- mean / variance over the views; density input [sf | mean | var] ----
-  float xd[64 + 2 * C];
+    // mean / variance over the views; the density input [sf | mean | var]
+    // (sf written by layer 0) and per view the color input [mean | var | rf_v]
+    float mv[2 * C];
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    float s = rf[c];
+    for (int c = 0; c < C; ++c) {
+      float s = rf[c];
 #pragma unroll
-    for (int v = 1; v < V; ++v) s = __fadd_rn(s, rf[v * C + c]);
-    const float m = s / static_cast<float>(V);
-    float q = 0.f;
+      for (int v = 1; v < V; ++v) s = __fadd_rn(s, rf[v * C + c]);
+      const float m = s / static_cast<float>(V);
+      float q = 0.f;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const float d = __fadd_rn(rf[v * C + c], -m);
+        q = __fadd_rn(q, __fmul_rn(d, d));
+      }
+      mv[c] = m;
+      mv[C + c] = q / static_cast<float>(V);
+    }
+    put_row<kp(1) - 64>(xx + lane * KX + 64, [&](int i) { return i < 2 * C ? mv[i] : 0.f; });
 #pragma unroll
     for (int v = 0; v < V; ++v) {
-      const float d = __fadd_rn(rf[v * C + c], -m);
-      q = __fadd_rn(q, __fmul_rn(d, d));
+#pragma unroll
+      for (int i = 0; i < RW; ++i)
+        rfp[v][i] = bf16x2(rf[v * C + 2 * i], 2 * i + 1 < C ? rf[v * C + 2 * i + 1] : 0.f);
     }
-    xd[64 + c] = m;
-    xd[64 + C + c] = q / static_cast<float>(V);
   }
-
-  // ---- geometry: level-1 octet trilerp + coarse nearest, dequantized; or
-  // the (P, 96) feature input ----
-  float f[C0 + C1];
-  if (FEATS) {
-    const float4* fr = reinterpret_cast<const float4*>(a.feats + static_cast<size_t>(p) * (C0 + C1));
+  {
+    // geometry: level-1 octet trilerp + coarse nearest, dequantized; or the
+    // (P, 96) feature input
+    float f[C0 + C1];
+    if (!live) {
 #pragma unroll
-    for (int j = 0; j < (C0 + C1) / 4; ++j) {
-      const float4 t = __ldg(fr + j);
-      f[4 * j] = t.x;
-      f[4 * j + 1] = t.y;
-      f[4 * j + 2] = t.z;
-      f[4 * j + 3] = t.w;
-    }
-  } else {
-    const uint32_t* row = reinterpret_cast<const uint32_t*>(a.g0_rows + static_cast<size_t>(p) * 8 * C0);
-    float gw[8];
+      for (int c = 0; c < C0 + C1; ++c) f[c] = 0.f;
+    } else if (FEATS) {
+      const float4* fr = reinterpret_cast<const float4*>(a.feats + static_cast<size_t>(p) * (C0 + C1));
 #pragma unroll
-    for (int k = 0; k < 8; ++k) gw[k] = __ldg(a.g0_w + static_cast<size_t>(k) * P + p);
+      for (int j = 0; j < (C0 + C1) / 4; ++j) {
+        const float4 t = __ldg(fr + j);
+        f[4 * j] = t.x;
+        f[4 * j + 1] = t.y;
+        f[4 * j + 2] = t.z;
+        f[4 * j + 3] = t.w;
+      }
+    } else {
+      const uint4* row = reinterpret_cast<const uint4*>(a.g0_rows + static_cast<size_t>(p) * 8 * C0);
+      float gw[8];
 #pragma unroll
-    for (int c4 = 0; c4 < C0 / 4; ++c4) {
-      uint32_t wd[8];
+      for (int k = 0; k < 8; ++k) gw[k] = __ldg(a.g0_w + static_cast<size_t>(k) * P + p);
+      uint4 q[8];  // corner k's words 4h .. 4h + 3, channels 16h .. 16h + 15
 #pragma unroll
-      for (int k = 0; k < 8; ++k) wd[k] = __ldg(row + k * (C0 / 4) + c4);
+      for (int c4 = 0; c4 < C0 / 4; ++c4) {
+        if (c4 % 4 == 0) {
 #pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        float acc = __fmul_rn(ubyte(wd[0], s), gw[0]);
+          for (int k = 0; k < 8; ++k) q[k] = __ldg(row + k * (C0 / 16) + c4 / 4);
+        }
+        uint32_t wd[8];
 #pragma unroll
-        for (int k = 1; k < 8; ++k) acc = __fadd_rn(acc, __fmul_rn(ubyte(wd[k], s), gw[k]));
-        f[c4 * 4 + s] = __fmul_rn(acc, gs0[c4 * 4 + s]);
+        for (int k = 0; k < 8; ++k)
+          wd[k] = c4 % 4 == 0 ? q[k].x : c4 % 4 == 1 ? q[k].y : c4 % 4 == 2 ? q[k].z : q[k].w;
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          float acc = __fmul_rn(ubyte(wd[0], s), gw[0]);
+#pragma unroll
+          for (int k = 1; k < 8; ++k) acc = __fadd_rn(acc, __fmul_rn(ubyte(wd[k], s), gw[k]));
+          f[c4 * 4 + s] = __fmul_rn(acc, gs0[c4 * 4 + s]);
+        }
+      }
+      const uint4* row1 = reinterpret_cast<const uint4*>(a.g1_rows + static_cast<size_t>(p) * C1);
+      const float w1 = __ldg(a.g1_w + p);
+      uint4 q1;
+#pragma unroll
+      for (int c4 = 0; c4 < C1 / 4; ++c4) {
+        if (c4 % 4 == 0) q1 = __ldg(row1 + c4 / 4);
+        const uint32_t wd = c4 % 4 == 0 ? q1.x : c4 % 4 == 1 ? q1.y : c4 % 4 == 2 ? q1.z : q1.w;
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+          f[C0 + c4 * 4 + s] = __fmul_rn(__fmul_rn(sbyte(wd, s), w1), gs1[c4 * 4 + s]);
       }
     }
-    const uint32_t* row1 = reinterpret_cast<const uint32_t*>(a.g1_rows + static_cast<size_t>(p) * C1);
-    const float w1 = __ldg(a.g1_w + p);
+    if (live) {
+      ok = a.sig_ok[p] != 0;
+      if (OCC) {
+        // trilinear level-1 occupancy: channel sum of the dequantized lerp
+        float occ = f[0];
 #pragma unroll
-    for (int c4 = 0; c4 < C1 / 4; ++c4) {
-      const uint32_t wd = __ldg(row1 + c4);
-#pragma unroll
-      for (int s = 0; s < 4; ++s)
-        f[C0 + c4 * 4 + s] = __fmul_rn(__fmul_rn(sbyte(wd, s), w1), gs1[c4 * 4 + s]);
+        for (int c = 1; c < C0; ++c) occ = __fadd_rn(occ, f[c]);
+        a.occm_out[p] = occ > 0.f ? 1.f : 0.f;
+        ok = ok && occ > 0.f;
+      }
     }
+    put_row<KF>(xf + lane * KF, [&](int i) { return f[i]; });
   }
-  bool ok = a.sig_ok[p] != 0;
-  if (OCC) {
-    // trilinear level-1 occupancy: channel sum of the dequantized lerp
-    float occ = f[0];
-#pragma unroll
-    for (int c = 1; c < C0; ++c) occ = __fadd_rn(occ, f[c]);
-    a.occm_out[p] = occ > 0.f ? 1.f : 0.f;
-    ok = ok && occ > 0.f;
-  }
+  __syncwarp();
 
-  // ---- sigma-feat linear + density MLP ----
-  dense<0, ELU>(sm, f, xd);  // sigma_feat -> xd[0:64]
-  float h1[64], h2[32], h3[16], sg[1];
-  dense<1, ELU>(sm, xd, h1);
-  dense<2, ELU>(sm, h1, h2);
-  dense<3, ELU>(sm, h2, h3);
-  dense<4, RELU>(sm, h3, sg);
+  // ---- sigma-feat linear + density MLP, on tensor cores ----
+  layer<0>(W, xf, KF, sc, to_tile<0, ELU>(B, xx, KX));  // sigma_feat -> X[:, 0:64]
+  bf16* const h1 = xf;  // the feature tile is dead after layer 0
+  layer<1>(W, xx, KX, sc, to_tile<1, ELU>(B, h1, 64));
+  layer<2>(W, h1, 64, sc, to_tile<2, ELU>(B, xx, KX));  // -> X[:, 0:32]
+  bf16* const h3 = xf;
+  layer<3>(W, xx, KX, sc, to_tile<3, ELU>(B, h3, 16));
+  mma_tile<4>(W, h3, 16, 0, sc);
+  constexpr int B4 = boff(4), B6 = boff(6), B8 = boff(8), B11 = boff(11);
+  const float sg = act<RELU>(sc[lane * 16] + B[B4]);  // row lane, column 0
+  __syncwarp();
   float nv = 0.f;
+  if (live) {
 #pragma unroll
-  for (int v = 0; v < V; ++v) nv = __fadd_rn(nv, __ldg(a.vmask + static_cast<size_t>(v) * P + p));
-  const float sigma = (nv < 1.f || !ok) ? 0.f : sg[0];
+    for (int v = 0; v < V; ++v) nv = __fadd_rn(nv, __ldg(a.vmask + static_cast<size_t>(v) * P + p));
+  }
+  const float sigma = (nv < 1.f || !ok) ? 0.f : sg;
   const float alpha = 1.f - expf(-sigma);
-  a.alpha_out[p] = alpha;
+  if (live) a.alpha_out[p] = alpha;
 
   // ---- color MLP: per-view base/vis, then rgb over the view concat ----
-  float hc[V * 32];
-  {
-    float xc[3 * C], hb[64], hv[32], hvs[32], t[32], u[32];
+  // rgb_fc's first layer runs per view on K tiles 2v, 2v + 1 (that view's 32
+  // columns of [hc_0 | hc_1 | hc_2]) into accumulators kept across the views:
+  // the K tiles are summed in the order of one whole-layer walk.
+  bf16* const hb = xf;            // (32, 64)
+  bf16* const hvs = xf + 32 * 64; // (32, 32): bf16(hv / V)
+  bf16* const t = xf;             // (32, 32), after hb dies
+  constexpr int NT = np(6) / 16, K9 = kp(9), W9 = woff(9);
+  static_assert(np(8) / 16 == NT && np(9) / 16 == 2 && K9 == V * 32, "rgb_fc's input is the view concat");
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc9[2][2];
 #pragma unroll
-    for (int c = 0; c < 2 * C; ++c) xc[c] = xd[64 + c];
-#pragma unroll 1
-    for (int v = 0; v < V; ++v) {
-#pragma unroll
-      for (int c = 0; c < C; ++c) xc[2 * C + c] = rf[v * C + c];
-      dense<5, ELU>(sm, xc, hb);
-      dense<6, ELU>(sm, hb, hv);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) hvs[i] = hv[i] / static_cast<float>(V);
-      dense<7, ELU>(sm, hvs, t);
-      dense<8, ELU>(sm, t, u);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) hc[v * 32 + i] = __fadd_rn(hv[i], u[i]);
-    }
+  for (int n = 0; n < 2; ++n) {
+    wmma::fill_fragment(acc9[n][0], 0.f);
+    wmma::fill_fragment(acc9[n][1], 0.f);
   }
-  float r1[32], r2[16], rgb[3];
-  dense<9, ELU>(sm, hc, r1);
-  dense<10, ELU>(sm, r1, r2);
-  dense<11, SIGMOID>(sm, r2, rgb);
-  const bool alive = alpha > 1e-14f && ok;
 #pragma unroll
-  for (int c = 0; c < 3; ++c) a.rgb_out[static_cast<size_t>(p) * 3 + c] = alive ? rgb[c] : 0.f;
+  for (int v = 0; v < V; ++v) {
+    // X[:, 134:176] = [rf_v | 0]: bf16 pairs from column 134 (4-byte aligned)
+    uint32_t* const xr = reinterpret_cast<uint32_t*>(xx + lane * KX + 64 + 2 * C);
+#pragma unroll
+    for (int i = 0; i < (KX - 64 - 2 * C) / 2; ++i) xr[i] = i < RW ? rfp[v][i] : 0u;
+    __syncwarp();
+    layer<5>(W, xx + 64, KX, sc, to_tile<5, ELU>(B, hb, 64));
+    float hv[NT][16];  // the f32 vis_fc residual, this lane's epilogue elements
+    // Lane l's epilogue elements of an N tile: column 16n + l % 16, rows
+    // 2j + l / 16, at s[32j + l].
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      mma_tile<6>(W, hb, 64, n, sc);
+      const int col = n * 16 + (lane & 15);
+      const float b = B[B6 + col];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) hv[n][j] = sc[32 * j + lane];  // loads before stores (to_tile)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        hv[n][j] = act<ELU>(hv[n][j] + b);
+        hvs[(2 * j + (lane >> 4)) * 32 + col] = __float2bfloat16_rn(hv[n][j] / static_cast<float>(V));
+      }
+      __syncwarp();
+    }
+    layer<7>(W, hvs, 32, sc, to_tile<7, ELU>(B, t, 32));
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {  // hc_v = hv + u -> X[:, 0:32]
+      mma_tile<8>(W, t, 32, n, sc);
+      const int col = n * 16 + (lane & 15);
+      const float b = B[B8 + col];
+      float y[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) y[j] = sc[32 * j + lane];  // loads before stores (to_tile)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float u = act<ELU>(y[j] + b);
+        xx[(2 * j + (lane >> 4)) * KX + col] = __float2bfloat16_rn(__fadd_rn(hv[n][j], u));
+      }
+      __syncwarp();
+    }
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a0, a1;
+        wmma::load_matrix_sync(b, W + W9 + n * 16 * K9 + (2 * v + k) * 16, K9);
+        wmma::load_matrix_sync(a0, xx + k * 16, KX);
+        wmma::load_matrix_sync(a1, xx + 16 * KX + k * 16, KX);
+        wmma::mma_sync(acc9[n][0], a0, b, acc9[n][0]);
+        wmma::mma_sync(acc9[n][1], a1, b, acc9[n][1]);
+      }
+    }
+    __syncwarp();
+  }
+  bf16* const r1 = xf;
+  const auto epi9 = to_tile<9, ELU>(B, r1, 32);
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    wmma::store_matrix_sync(sc, acc9[n][0], 16, wmma::mem_row_major);
+    wmma::store_matrix_sync(sc + 16 * 16, acc9[n][1], 16, wmma::mem_row_major);
+    __syncwarp();
+    epi9(n, sc);
+    __syncwarp();
+  }
+  layer<10>(W, r1, 32, sc, to_tile<10, ELU>(B, xx, KX));  // -> X[:, 0:16]
+  mma_tile<11>(W, xx, KX, 0, sc);
+  float rgb[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) rgb[c] = act<SIGMOID>(sc[lane * 16 + c] + B[B11 + c]);
+  const bool alive = alpha > 1e-14f && ok;
+  if (live) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) a.rgb_out[static_cast<size_t>(p) * 3 + c] = alive ? rgb[c] : 0.f;
+  }
+}
+
+// the instantiation this library holds
+#define PS_KERNEL point_stages_kernel<PS_PROJ, PS_FEATS != 0, PS_OCC != 0>
+
+// Lets the kernel ask for SMEM_BYTES of dynamic shared memory (once).
+cudaError_t configure() {
+  static const cudaError_t e = cudaFuncSetAttribute(
+      PS_KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  return e;
 }
 
 }  // namespace
@@ -393,7 +613,19 @@ __global__ void __launch_bounds__(BLOCK) point_stages_kernel(const Args a, int P
 extern "C" {
 
 // Sizes the Python wrapper checks its packed weight buffer against.
-int point_stages_wbuf_floats() { return WBUF; }
+int point_stages_wbuf_bytes() { return WBUF_BYTES; }
+
+// Dynamic shared memory of one block, in bytes.
+int point_stages_smem_bytes() { return SMEM_BYTES; }
+
+// Blocks resident per SM on the current device (a negative CUDA error code
+// if the shared-memory request or the query is refused).
+int point_stages_blocks_per_sm() {
+  cudaError_t e = configure();
+  int n = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, PS_KERNEL, BLOCK, SMEM_BYTES);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
+}
 
 // The instantiation this library holds: PS_PROJ | PS_FEATS << 2 | PS_OCC << 3.
 int point_stages_form() { return PS_PROJ | (PS_FEATS << 2) | (PS_OCC << 3); }
@@ -405,15 +637,8 @@ int point_stages_launch(const void* rows_a, const void* w4_a, const void* scale_
                         const void* feats, const void* vmask, const void* sig_ok,
                         const void* wbuf, void* alpha, void* rgb, void* occm, int P,
                         void* stream) {
-  const auto kernel = point_stages_kernel<PS_PROJ, PS_FEATS != 0, PS_OCC != 0>;
-  static bool configured = false;
-  const int smem = SMEM_FLOATS * static_cast<int>(sizeof(float));
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = true;
-  }
+  const cudaError_t e = configure();
+  if (e != cudaSuccess) return static_cast<int>(e);
   if (P > 0) {
     const Args a = {
         static_cast<const uint8_t*>(rows_a), static_cast<const float*>(w4_a),
@@ -423,10 +648,10 @@ int point_stages_launch(const void* rows_a, const void* w4_a, const void* scale_
         static_cast<const float*>(g0_scale), static_cast<const int8_t*>(g1_rows),
         static_cast<const float*>(g1_w), static_cast<const float*>(g1_scale),
         static_cast<const float*>(feats), static_cast<const float*>(vmask),
-        static_cast<const uint8_t*>(sig_ok), static_cast<const float*>(wbuf),
+        static_cast<const uint8_t*>(sig_ok), static_cast<const uint4*>(wbuf),
         static_cast<float*>(alpha), static_cast<float*>(rgb), static_cast<float*>(occm)};
     const int grid = (P + BLOCK - 1) / BLOCK;
-    kernel<<<grid, BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(a, P);
+    PS_KERNEL<<<grid, BLOCK, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(a, P);
   }
   return static_cast<int>(cudaGetLastError());
 }

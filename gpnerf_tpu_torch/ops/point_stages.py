@@ -24,7 +24,9 @@ color MLP (see csrc/point_stages.cu). Its forms:
 `fused_point_stages` is the one-table wrapper.
 
 Numerics: every dot input is rounded to bf16 and accumulates in float32;
-activations, lerps and masks are float32.
+activations, lerps and masks are float32. The CUDA kernel runs the twelve
+layers on tensor cores (16 x 16 x 16 bf16 WMMA tiles, float32 accumulators),
+so it differs from the plain version only in the order of the float32 sums.
 
 On a CPU tensor the wrapper runs `point_stages_tabs_plain`, the same function in
 torch ops and general in views, channels, tables and F; on a CUDA tensor it
@@ -70,9 +72,10 @@ LAUNCHES = collections.Counter()
 class PointWeights(NamedTuple):
     """Head weights for the point stages: `layers` = 12 (W (Cout, Cin),
     b (Cout,)) float32 pairs in order [sigma-feat, density d0..d3, base b0
-    b1, vis v0 v1, rgb r0..r2]; `flat` = the same, bf16-rounded and laid out
-    for the kernel's shared memory (4 outputs interleaved per input,
-    outputs padded to a multiple of 4, then all biases)."""
+    b1, vis v0 v1, rgb r0..r2]; `flat` = the same as one uint8 byte buffer
+    for the kernel's shared memory (`_kernel_layout`): every layer's
+    bf16-rounded weight, zero-padded to (pad16(Cout), pad16(Cin)), row-major,
+    layer after layer, then all float32 biases."""
 
     layers: List[Tuple[torch.Tensor, torch.Tensor]]
     flat: torch.Tensor
@@ -99,16 +102,25 @@ def pack_head_weights(nerfhead, fold_nch=None) -> PointWeights:
     return PointWeights(layers, _kernel_layout(layers))
 
 
+def pad16(n):
+    """`n` rounded up to the 16 of a tensor-core tile."""
+    return -(-n // 16) * 16
+
+
 def _kernel_layout(layers):
+    """The byte buffer of PointWeights.flat. A layer's (pad16(Cout),
+    pad16(Cin)) bf16 block, row-major, is the kernel's `matrix_b` operand
+    (W^T) in column-major order with a leading dimension of pad16(Cin); every
+    block is a whole number of 16 x 16 tiles, so all stay 32-byte aligned."""
     ws, bs = [], []
     for w, b in layers:
         cout, cin = w.shape
-        g = -(-cout // 4)
-        wp = w.new_zeros(g * 4, cin)
-        wp[:cout] = rounded(w, torch.bfloat16)
-        ws.append(wp.reshape(g, 4, cin).transpose(1, 2).reshape(-1))
-        bs.append(b)
-    return torch.cat(ws + bs).contiguous()
+        wp = torch.zeros(pad16(cout), pad16(cin), dtype=torch.bfloat16, device=w.device)
+        wp[:cout, :cin] = w.to(torch.bfloat16)
+        ws.append(wp.reshape(-1))
+        bs.append(b.float())
+    return torch.cat([torch.cat(ws).view(torch.uint8),
+                      torch.cat(bs).view(torch.uint8)]).contiguous()
 
 
 def _elu(x):
@@ -243,13 +255,22 @@ def load_library(form, proc=None):
     vp = ctypes.c_void_p
     lib.point_stages_launch.argtypes = [vp] * 19 + [ctypes.c_int, vp]
     lib.point_stages_launch.restype = ctypes.c_int
-    for fn in (lib.point_stages_wbuf_floats, lib.point_stages_form):
+    for fn in (lib.point_stages_wbuf_bytes, lib.point_stages_form,
+               lib.point_stages_smem_bytes, lib.point_stages_blocks_per_sm):
         fn.argtypes, fn.restype = [], ctypes.c_int
     proj, use_feats, occ = form
     if lib.point_stages_form() != PROJ_CODES[proj] | int(use_feats) << 2 | int(occ) << 3:
         raise RuntimeError(f"{build_command(form)[1]} holds another instantiation than {form}")
     _libs[form] = lib
     return lib
+
+
+def occupancy(form):
+    """(blocks resident per SM on the current device, dynamic shared-memory
+    bytes per block) of one instantiation; blocks < 0 is the negated CUDA
+    error of a refused shared-memory request."""
+    lib = load_library(form)
+    return lib.point_stages_blocks_per_sm(), lib.point_stages_smem_bytes()
 
 
 def _check(t, dtype, shape, name):
@@ -309,7 +330,7 @@ def _launch(tabs, feats, vmask, sig_ok, weights, geom_tabs, occ_geom):
     form = (proj, feats is not None, bool(occ_geom))
     lib = load_library(form)
     flat = weights.flat
-    _check(flat, f32, (lib.point_stages_wbuf_floats(),), "packed weights")
+    _check(flat, u8, (lib.point_stages_wbuf_bytes(),), "packed weights")
     dev = tabs[0][0].device
     alpha = torch.empty(P, dtype=f32, device=dev)
     rgb = torch.empty(P, 3, dtype=f32, device=dev)

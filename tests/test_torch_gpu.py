@@ -5,7 +5,8 @@ and skip without a card; on the GPU machine run them with
 
 They import only torch and the port (the GPU machine has no flax): the
 point-stage, quad-lerp and row-gather CUDA kernels against their plain
-versions at ragged sizes, the
+versions at ragged sizes (for the point stages, sizes that end inside a
+16-row tile and inside a warp), the
 wrappers' refusal of other forms, and 128^2 renders on the card against
 the same render on the CPU."""
 
@@ -59,8 +60,27 @@ def _inputs(P, seed, dev):
     return to(arrays) + (ps.pack_head_weights(head, fold_nch=C0),)
 
 
+# sizes that end inside a 16-row tensor-core tile and inside a warp
+RAGGED = (16, 17, 31, 33, 127, 129)
+
+
+def _assert_near(d, P):
+    """Kernel vs plain, |d| per value (rows = points): all within 0.08 and
+    nearly all within 1e-4. bf16 dot inputs are summed in another order, so
+    a float32 ulp can move one input across a bf16 rounding edge for a few
+    points (tests/test_torch_point_stages.py): at most 0.5% of the values
+    beyond 1e-4; at the ragged sizes, where one point's values are already
+    more than 0.5%, at most one point."""
+    assert d.max() < 0.08
+    beyond = d > 1e-4
+    if P in RAGGED:
+        assert beyond.reshape(len(d), -1).any(-1).sum() <= 1
+    else:
+        assert beyond.mean() <= 0.005
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("P", [1, 255, 256, 1000, 70001])
+@pytest.mark.parametrize("P", [1, *RAGGED, 255, 256, 1000, 70001])
 def test_kernel_matches_plain(P):
     dev = _cuda()
     args = _inputs(P, P, dev)
@@ -71,16 +91,11 @@ def test_kernel_matches_plain(P):
     a_p, rgb_p = ps.point_stages_plain(*args)
     a, rgb, a_p, rgb_p = (t.cpu().numpy() for t in (a, rgb, a_p, rgb_p))
     assert np.isfinite(a).all() and np.isfinite(rgb).all()
-    # bf16 dot inputs summed in another order: a float32 ulp can move one
-    # input across a bf16 rounding edge for a few points (tests/
-    # test_torch_point_stages.py); all points within the bounds of
-    # tests/test_pallas_point.py, nearly all within 1e-4
-    d = np.abs(a - a_p)
-    assert d.max() < 0.08 and (d > 1e-4).mean() <= 0.005
+    # all points within the bounds of tests/test_pallas_point.py
+    _assert_near(np.abs(a - a_p), P)
     agree = (a > 1e-14) == (a_p > 1e-14)
     assert (~agree).sum() <= max(1, 0.001 * P)
-    dr = np.abs(rgb - rgb_p)[agree]
-    assert dr.max() < 0.08 and (dr > 1e-4).mean() <= 0.005
+    _assert_near(np.abs(rgb - rgb_p)[agree], P)
 
 
 @pytest.mark.gpu
@@ -143,7 +158,7 @@ def _form_inputs(form, P, seed, dev):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("P", [1, 257, 70001])
+@pytest.mark.parametrize("P", [1, *RAGGED, 257, 70001])
 @pytest.mark.parametrize("name", ["a+b", "c", "c+e", "c+d", "b+c"])
 def test_form_kernel_matches_plain(name, P):
     dev = _cuda()
@@ -158,12 +173,10 @@ def test_form_kernel_matches_plain(name, P):
     a, rgb, a_p, rgb_p = (t.cpu().numpy() for t in (*out[:2], *out_p[:2]))
     assert np.isfinite(a).all() and np.isfinite(rgb).all()
     # the tolerances of test_kernel_matches_plain
-    d = np.abs(a - a_p)
-    assert d.max() < 0.08 and (d > 1e-4).mean() <= 0.005
+    _assert_near(np.abs(a - a_p), P)
     agree = (a > 1e-14) == (a_p > 1e-14)
     assert (~agree).sum() <= max(1, 0.001 * P)
-    dr = np.abs(rgb - rgb_p)[agree]
-    assert dr.max() < 0.08 and (dr > 1e-4).mean() <= 0.005
+    _assert_near(np.abs(rgb - rgb_p)[agree], P)
     if form[2]:
         # a sum of non-negative terms compared with 0: exact
         np.testing.assert_array_equal(out[2].cpu().numpy(), out_p[2].cpu().numpy())

@@ -190,26 +190,76 @@ def test_pack_head_weights_matches_jax(form_a):
         np.testing.assert_array_equal(b.numpy(), bj[:, 0])
 
 
-def test_kernel_weight_layout(form_a):
-    """The flat buffer the CUDA kernel stages in shared memory: per layer
-    [Cout/4][Cin][4] bf16-rounded weights (outputs padded to 4), then all
-    biases; 32,196 floats for C = 35."""
-    pw = form_a["args"][-1]
-    assert pw.flat.shape == (32196,)
-    off = 0
+def _unpack_kernel_layout(pw):
+    """The (pad16(Cout), pad16(Cin)) bf16 blocks and float32 biases of the
+    byte buffer the CUDA kernel stages in shared memory, read back."""
+    blocks, off = [], 0
     for w, _ in pw.layers:
+        n = ps.pad16(w.shape[0]) * ps.pad16(w.shape[1]) * 2
+        blocks.append(pw.flat[off : off + n].view(torch.bfloat16)
+                      .reshape(ps.pad16(w.shape[0]), ps.pad16(w.shape[1])))
+        off += n
+    return blocks, pw.flat[off:].view(torch.float32)
+
+
+def test_kernel_weight_layout(form_a):
+    """The byte buffer the CUDA kernel stages in shared memory: per layer
+    the bf16-rounded (Cout, Cin) weight zero-padded to multiples of 16,
+    row-major, then all float32 biases; 33,280 bf16 values and 388 biases
+    (68,112 bytes) for C = 35."""
+    pw = form_a["args"][-1]
+    assert pw.flat.dtype == torch.uint8 and pw.flat.shape == (33280 * 2 + 388 * 4,)
+    blocks, biases = _unpack_kernel_layout(pw)
+    assert sum(b.numel() for b in blocks) == 33280
+    for (w, _), blk in zip(pw.layers, blocks):
         cout, cin = w.shape
-        g = -(-cout // 4)
-        blk = pw.flat[off : off + g * 4 * cin].reshape(g, cin, 4)
-        wb = w.to(torch.bfloat16).float()
-        for o in (0, cout - 1):
-            np.testing.assert_array_equal(blk[o // 4, :, o % 4].numpy(), wb[o].numpy())
-        if cout % 4:
-            assert (blk[-1, :, cout % 4 :] == 0).all()
-        off += g * 4 * cin
-    np.testing.assert_array_equal(
-        pw.flat[off:].numpy(), torch.cat([b for _, b in pw.layers]).numpy()
-    )
+        assert blk.shape[0] % 16 == 0 and blk.shape[1] % 16 == 0
+        assert blk.shape[0] - cout < 16 and blk.shape[1] - cin < 16
+        np.testing.assert_array_equal(blk[:cout, :cin].float().numpy(),
+                                      w.to(torch.bfloat16).float().numpy())
+        assert (blk[cout:].float() == 0).all() and (blk[:, cin:].float() == 0).all()
+    np.testing.assert_array_equal(biases.numpy(),
+                                  torch.cat([b for _, b in pw.layers]).numpy())
+
+
+def _tile_walk(blk, bias, x):
+    """The kernel's walk of one layer: A = bf16(x) zero-padded to (pad16(P),
+    Kp); per 16-row M tile and 16-wide N tile a float32 accumulator summed
+    over the 16-deep K tiles of exact bf16 products, then the bias."""
+    P, cin = x.shape
+    Np, Kp = blk.shape
+    a = torch.zeros(ps.pad16(P), Kp)
+    a[:P, :cin] = x.to(torch.bfloat16).float()
+    wt = blk.float().T  # matrix_b: B[k][n] = W[n][k]
+    out = torch.empty(ps.pad16(P), Np)
+    for m in range(0, a.shape[0], 16):
+        for n in range(0, Np, 16):
+            acc = torch.zeros(16, 16)
+            for k in range(0, Kp, 16):
+                acc += a[m : m + 16, k : k + 16] @ wt[k : k + 16, n : n + 16]
+            out[m : m + 16, n : n + 16] = acc
+    return out[:P, : bias.shape[0]] + bias
+
+
+def test_kernel_tile_walk_matches_dense(form_a):
+    """Walking the packed buffer in 16 x 16 x 16 tiles, as the CUDA kernel's
+    WMMA loop does, reproduces `_dense` for all 12 layers on seeded inputs
+    (ragged P, inputs at the scale the layers see); only the order of the
+    float32 sums differs."""
+    pw = form_a["args"][-1]
+    blocks, biases = _unpack_kernel_layout(pw)
+    rs = np.random.RandomState(6)
+    off = 0
+    for i, ((w, b), blk) in enumerate(zip(pw.layers, blocks)):
+        cout, cin = w.shape
+        x = torch.from_numpy((rs.randn(37, cin) * 3).astype(np.float32))
+        got = _tile_walk(blk, biases[off : off + cout], x)
+        want = ps._dense((w, b), x)
+        # float32 sums of up to 144 products of magnitude <= ~30 in another order
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-4,
+                                   err_msg=f"layer {i}")
+        off += cout
+    assert off == biases.numel()
 
 
 def test_wrapper_runs_plain_on_cpu_without_launching(form_a):
