@@ -38,7 +38,16 @@ Phases, each fatal on failure:
   4. CUDA-event timings of the whole render, of its stage prefixes
      (encoder; + frame stage; + ray pipeline and image) and of each kernel
      instantiation beside its bound;
-  5. one JSON line listing the kernels, the card's name and power limit,
+  5. the training path at full width (render/base.py BaseRender,
+     train/step.py, train/trainer.py): from the trained checkpoint, 3
+     warm-up and 20 timed AdamW steps (1024 rays x 64 samples, float32) on
+     distinct batches, s/it from CUDA events, peak device memory, the first
+     and last loss; every loss finite, no pyramid overflow, parameters and
+     running statistics moved; the eval render of one test frame (PSNR >=
+     20 dB) and `Trainer.evaluate` of it through the progressive renderer,
+     which launches the point-stage kernel (form (a)); `--profile` adds
+     the train step's kernel table and idle share;
+  6. one JSON line listing the kernels, the card's name and power limit,
      and the final JSON status line.
 
 TF32 is off for matmuls and cuDNN convolutions throughout, so float32
@@ -378,6 +387,150 @@ def card_vs_cpu_128(name, max_tol, **tpu):
     check(abs(n_s - n_c) <= 0.001 * n_c, f"128^2 {name} card vs CPU: sample counts differ")
     check(float(d_img.median()) < 2e-3 and float((d_img > 0.05).float().mean()) <= 1e-3
           and float(d_img.max()) < max_tol, f"128^2 {name} card vs CPU: images differ")
+
+
+def train_phase(card, profile):
+    """Phase 5: the training path at full width (configs/synthetic.yaml:
+    512^2, ResNet34-UNet, code_dim 32, 1024 rays x 64 samples, float32)
+    from the trained checkpoint: warm-up steps, then timed steps on distinct
+    batches through `train.step.train_step`; the whole-image eval render of
+    one test frame; `Trainer.evaluate` of that frame through the progressive
+    renderer (kernel 1, form (a)). Returns the point-stage launches of that
+    evaluation (counts set to 0 just before the path)."""
+    import numpy as np
+    import torch
+
+    from gpnerf_tpu_torch.data.loader import DataLoader
+    from gpnerf_tpu_torch.ops import point_stages as ps
+    from gpnerf_tpu_torch.registry import get
+    from gpnerf_tpu_torch.render.base import batch_to_device
+    from gpnerf_tpu_torch.train.checkpoint import load_eval_model
+    from gpnerf_tpu_torch.train.criterion import Criterion
+    from gpnerf_tpu_torch.train.evaluator import Evaluator, predicted_rows
+    from gpnerf_tpu_torch.train.step import make_optimizer, train_step
+    from gpnerf_tpu_torch.train.trainer import Trainer
+
+    n_warm, n_timed = 3, 20
+    cfg = make_cfg(512, "bfloat16")
+    cfg.defrost()
+    cfg.render.file = "BaseRender"
+    cfg.result_dir = os.path.join(ROOT, "results", "chip_smoke")
+    cfg.freeze()
+    t0 = time.perf_counter()
+    np.random.seed(0)
+    random.seed(0)
+    train_ds = get("dataset", cfg.dataset.train.file)(cfg, is_train=True)
+    host = [train_ds[i] for i in range(n_warm + n_timed)]
+    test_ds = get("dataset", cfg.dataset.test.file)(cfg, is_train=False)
+    test_host = test_ds[0]
+    size = f"{cfg.dataset.H}^2"
+    log(f"# training: built {len(host)} train batches and 1 test frame at {size} on the host "
+        f"in {time.perf_counter() - t0:.1f} s")
+    dev = torch.device("cuda")
+    batches = [batch_to_device(b, dev) for b in host]
+    test_batch = batch_to_device(test_host, dev)
+
+    render = load_eval_model(CKPT, get("render", cfg.render.file)(cfg, device=dev))
+    evaluator = Evaluator(cfg, "chip_smoke")
+
+    def eval_psnr():
+        ret = render.render_eval_fn()(test_batch)
+        pred, gt = predicted_rows(ret, test_host, cfg)
+        check(bool(np.isfinite(pred).all()), "render_eval_fn: non-finite rgb")
+        return evaluator.psnr_metric(pred, gt)
+
+    psnr_before = eval_psnr()
+    opt, sched, _ = make_optimizer(render, cfg)
+    crit = Criterion(cfg)
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    params0 = [p.detach().clone() for p in render.parameters()]
+    stats0 = {k: v.clone() for k, v in render.state_dict().items() if "running" in k}
+
+    ps.LAUNCHES.clear()
+    metrics = [train_step(render, crit, opt, sched, b, generator=gen)[0] for b in batches[:n_warm]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(n_timed)]
+    t0 = time.perf_counter()
+    for (start, end), b in zip(events, batches[n_warm:]):
+        start.record()
+        metrics.append(train_step(render, crit, opt, sched, b, generator=gen)[0])
+        end.record()
+    torch.cuda.synchronize()
+    wall_s = (time.perf_counter() - t0) / n_timed
+    peak = torch.cuda.max_memory_allocated()
+    step_s = sorted(s.elapsed_time(e) / 1e3 for s, e in events)
+    losses = [float(m["loss"]) for m in metrics]
+    overflows = [int(m["overflow"]) for m in metrics]
+    log(f"# training on {card}: {n_timed} timed steps after {n_warm} warm-up, "
+        f"{cfg.train.n_rays} rays x {cfg.train.n_samples} samples, {size}, float32: s/it min {step_s[0]:.4f} median {step_s[n_timed // 2]:.4f} "
+        f"max {step_s[-1]:.4f} (CUDA events per step; host loop {wall_s:.4f} s/it), peak device "
+        f"memory {peak / 2**30:.3f} GiB, loss first {losses[0]:.5f} last {losses[-1]:.5f}, "
+        f"pyramid overflows max {max(overflows)}")
+    check(all(math.isfinite(x) for x in losses), f"training: non-finite loss in {losses}")
+    check(max(overflows) == 0, f"training: pyramid overflows {overflows}")
+    moved = sum(not torch.equal(p, q) for p, q in zip(render.parameters(), params0))
+    stats = {k: v for k, v in render.state_dict().items() if "running" in k}
+    moved_stats = sum(not torch.equal(stats[k], v) for k, v in stats0.items())
+    log(f"# training: {moved} of {len(params0)} parameter tensors and {moved_stats} of "
+        f"{len(stats0)} running-statistics tensors moved")
+    check(moved >= len(params0) - 2 and moved_stats == len(stats0),
+          "training: parameters or running statistics did not move")
+    if profile:
+        profile_steps(lambda b: train_step(render, crit, opt, sched, b, generator=gen),
+                      batches[:3], card, step_s[n_timed // 2] * 1e3)
+
+    psnr_after = eval_psnr()
+    log(f"# training: render_eval_fn on test frame 0 ({int(test_host['n_rays'])} rays): PSNR "
+        f"{psnr_before:.3f} dB before the steps, {psnr_after:.3f} dB after")
+    check(psnr_after >= 20.0, f"training: eval PSNR {psnr_after:.3f} < 20 dB")
+
+    cfg_d = cfg.clone()
+    cfg_d.defrost()
+    cfg_d.render.file = "demo_render"
+    cfg_d.freeze()
+    demo = get("render", cfg_d.render.file)(cfg_d, device=dev)
+    demo.load_state_dict(render.state_dict(), strict=True)
+    del render, opt, batches
+    loader = DataLoader(test_ds, [[0]], prefetch=0)
+    result_path = os.path.join(cfg.result_dir, "evaluate")
+    metrics_d, avg_s = Trainer(cfg_d, render=demo).evaluate(loader, result_path)
+    launches = dict(ps.LAUNCHES)
+    log(f"# training: Trainer.evaluate through demo_render, test frame 0: PSNR "
+        f"{metrics_d['psnr']:.3f} dB, SSIM {metrics_d['ssim']:.4f}, overflows "
+        f"{metrics_d['overflows_max']}, {avg_s * 1e3:.3f} ms per frame; launches over the "
+        f"training path: {json.dumps(launches)}")
+    check(launches == {"a": 2}, f"training path: point-stage launches {launches}, expected 2 "
+                                "of form a (a warm-up and a timed render)")
+    check(metrics_d["psnr"] >= 20.0, f"Trainer.evaluate PSNR {metrics_d['psnr']:.3f} < 20 dB")
+    o = metrics_d["overflows_max"]
+    check(o[0] == 0 and o[2] == 0 and o[3] == 0, f"Trainer.evaluate overflows {o}")
+    return launches.get("a", 0)
+
+
+def profile_steps(step, batches, card, step_ms):
+    """torch.profiler over one train step per batch: device busy time per
+    step and the idle share against the timed step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for b in batches:
+            step(b)
+        torch.cuda.synchronize()
+    n = len(batches)
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    events.sort(key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / n
+    log(f"# profile on {card}: train step, kernels busy {busy:.3f} ms per step of {step_ms:.3f} ms, "
+        f"idle share {1.0 - busy / step_ms:.3f}; {sum(e.count for e in events) / n:.0f} kernel "
+        "launches per step; by kernel (ms per step, launches per step):")
+    for e in events[:25]:
+        log(f"#   {e.self_device_time_total / 1e3 / n:9.4f} ms {e.count / n:6.1f}x  {e.key[:110]}")
 
 
 def main():
@@ -727,7 +880,9 @@ def main():
           "the (P, V) and (V, P) gather orders give different images")
 
     # Renderer.profile on the fast mode: the op-by-op stage ladder
-    prof = render_fast.profile(batches[:3])
+    # five reps per frame: a program's time is the least of its reps, and
+    # the slots are differences of those, so host noise must be outlasted
+    prof = render_fast.profile(batches[:3], reps=5)
     slots = prof["time_slots"]
     log(f"# profile on {card}: fast mode, 3 frames, ms: etime {prof['etime'] * 1e3:.3f} rtime "
         f"{prof['rtime'] * 1e3:.3f} rtime_production {prof['rtime_production'] * 1e3:.3f} time_slots "
@@ -784,6 +939,13 @@ def main():
     # the last bit, where the rounding of the projection product decides the
     # in-bounds test and a view flips in or out for a few pixels
     card_vs_cpu_128("reference mode", 0.15, **{**REF_MODE, "ray_cap": 9216})
+
+    # ---- phase 5: the training path ----
+    torch.cuda.empty_cache()
+    eval_launches = train_phase(card, profile)
+    for k in kernels:
+        if k["name"] == "point_stages[a]":
+            k["launches"] += eval_launches
 
     log(f"# total {time.perf_counter() - t_all:.1f} s")
     check(len(kernels) == 9 and all(k["launches"] >= 1 for k in kernels),

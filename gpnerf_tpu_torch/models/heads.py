@@ -10,9 +10,10 @@
   * `NeRFHead`: the composition; parameter names follow the reference
     checkpoint (`nerfhead.sigmahead.*`, `nerfhead.rgbhead.*`).
 
-The renderer's fused path runs density/color inside the point-stage kernel
-(ops/point_stages.py); its op-by-op path calls `density`, `color` and
-`query_sigma_feat_octet_folded` here. With a `compute_dtype` they round
+The progressive renderer's fused path runs density/color inside the
+point-stage kernel (ops/point_stages.py); its op-by-op path calls
+`density`, `color` and `query_sigma_feat_octet_folded` here. The training
+renderer (render/base.py) runs `volume(train=)` and `point_forward`. With a `compute_dtype` they round
 where the JAX package's heads, computing in that dtype, round (values stay
 in float32 tensors; models/layers.MLP).
 """
@@ -25,6 +26,7 @@ from torch import nn
 from gpnerf_tpu_torch.models.attention import MultiHeadAttention
 from gpnerf_tpu_torch.models.layers import MLP, rounded
 from gpnerf_tpu_torch.models.sparse_net import SparseConvNet
+from gpnerf_tpu_torch.ops.sparse_conv import _gather_rows
 
 
 def fused_mean_variance(x, compute_dtype=None):
@@ -76,12 +78,11 @@ class NeRFSigmaHead(nn.Module):
         fused, _ = self.xyzc_attn(self.c.weight[:, None, :], smpl_feat, smpl_feat)
         return fused[:, 0, :]
 
-    def volume_features(self, fused_codes, vertex_rows, levels):
+    def volume_features(self, fused_codes, vertex_rows, levels, *, train=False):
         """Scatter fused codes onto the level-0 rows (vertex_rows: winning
         vertex per row, -1 padding) and run the conv stack."""
-        code = fused_codes[vertex_rows.clamp_min(0)]
-        code = torch.where((vertex_rows >= 0)[:, None], code, 0.0)
-        return self.xyzc_net.features(code, levels)
+        code = _gather_rows(fused_codes, vertex_rows)
+        return self.xyzc_net.features(code, levels, train=train)
 
     def query_sigma_feat_octet_folded(self, octet_l1, octet_coarse, dhw_vox,
                                       out_sh, scales=None, with_l1_occ=False):
@@ -138,6 +139,13 @@ class NeRFRGBHead(nn.Module):
         x = x.reshape(*x.shape[:-2], V * x.shape[-1])
         return _sigmoid(self.rgb_fc(x), dt)
 
+    def forward(self, rgb_feat, sigma_feat, mask):
+        """rgb_feat (N_rays, N_samples, V, C+3), sigma_feat (..., 64), mask
+        (N_rays, N_samples, V, 1). Returns (rgb_in, rgb, sigma)."""
+        mean, var = fused_mean_variance(rgb_feat, self.compute_dtype)
+        sigma = self.density(sigma_feat, mean[..., 0, :], var[..., 0, :], mask.sum(dim=-2))
+        return rgb_feat[..., :3], self.color(rgb_feat, mean, var), sigma
+
 
 class NeRFHead(nn.Module):
     def __init__(self, in_feat_ch=32, n_smpl=6890, code_dim=16,
@@ -151,8 +159,33 @@ class NeRFHead(nn.Module):
         )
         self.rgbhead = NeRFRGBHead(in_feat_ch, compute_dtype=compute_dtype)
 
-    def volume(self, smpl_feat, vertex_rows, levels):
+    def volume(self, smpl_feat, vertex_rows, levels, *, train=False):
         """Fuse vertex codes and build the sparse feature volume once per
-        frame. Returns the per-level feature matrices."""
+        frame. Returns the per-level feature matrices. `train`: batch
+        statistics in every BatchNorm, running estimates updated."""
         fused = self.sigmahead.fuse_codes(smpl_feat)
-        return self.sigmahead.volume_features(fused, vertex_rows, levels)
+        return self.sigmahead.volume_features(fused, vertex_rows, levels, train=train)
+
+    def point_forward(self, query_ctx, dhw_vox, out_sh, rgb_feat, mask,
+                      occupancy_cull=False):
+        """Multi-scale query and heads for one ray chunk. `query_ctx` is
+        {"sparse": (level_feats, index_vols, shapes)} (training: gradients
+        on the sparse rows) or {"dense": [per-level (D, H, W, C) volumes]};
+        both give the same values. `occupancy_cull` zeroes sigma where the
+        level-1 queried feature's channel sum is <= 0 (the progressive
+        renderer's empty-space cull). dhw_vox (N_rays*N_samples, 3), out_sh
+        (3,) int tensor, rgb_feat (N_rays, N_samples, V, C+3), mask
+        (N_rays, N_samples, V, 1). Returns (raw (N_rays, N_samples, 4),
+        rgb_in)."""
+        n_rays, n_samples = rgb_feat.shape[:2]
+        net = self.sigmahead.xyzc_net
+        if "dense" in query_ctx:
+            feats = net.query_dense(query_ctx["dense"], dhw_vox, out_sh)
+        else:
+            feats = net.query_sparse(*query_ctx["sparse"], dhw_vox, out_sh)
+        sigma_feat = self.sigmahead.out_geometry_fc(feats).reshape(n_rays, n_samples, -1)
+        rgb_in, rgb, sigma = self.rgbhead(rgb_feat, sigma_feat, mask)
+        if occupancy_cull:
+            occ = feats[..., : self.spconv_out_dim[0]].sum(dim=-1) > 0
+            sigma = torch.where(occ.reshape(n_rays, n_samples, 1), sigma, 0.0)
+        return torch.cat([rgb, sigma], dim=-1), rgb_in

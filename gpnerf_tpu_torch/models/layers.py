@@ -1,5 +1,5 @@
-"""Shared layers: reflect-padded conv, InstanceNorm, masked BatchNorm (eval),
-and the Linear stacks of the heads.
+"""Shared layers: reflect-padded conv, InstanceNorm, masked BatchNorm, and
+the Linear stacks of the heads.
 
 Counterparts of gpnerf_tpu/models/layers.py, written as torch modules whose
 parameter names follow the reference checkpoint (`weight`, `bias`,
@@ -69,14 +69,20 @@ class InstanceNorm(nn.Module):
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm1d(eps=1e-3) over a padded (CAP, C) active-site matrix in
-    eval mode: the running statistics are applied as an affine map
-    (layers.MaskedBatchNorm with use_running_average=True). Rendering never
-    updates statistics, so the train-mode branch is not part of the port."""
+    """BatchNorm1d(eps=1e-3, momentum=0.01) over a padded (CAP, C)
+    active-site matrix (layers.MaskedBatchNorm).
 
-    def __init__(self, channels, eps=1e-3):
+    Eval (the default): the running statistics as an affine map. Train
+    (`train=True` with the (CAP,) `valid` mask): mean and biased variance
+    over the valid rows only (n = max(#valid, 1)) normalize the input, and
+    the running estimates move by the momentum in torch's convention, the
+    variance unbiased (var * n / max(n - 1, 1)); `num_batches_tracked`
+    counts the updates."""
+
+    def __init__(self, channels, eps=1e-3, momentum=0.01):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -85,9 +91,27 @@ class MaskedBatchNorm(nn.Module):
             "num_batches_tracked", torch.tensor(0, dtype=torch.long)
         )
 
-    def forward(self, x):
-        y = (x - self.running_mean) / torch.sqrt(self.running_var + self.eps)
-        return y * self.weight + self.bias
+    def forward(self, x, valid=None, *, train=False):
+        if not train:
+            y = (x - self.running_mean) / torch.sqrt(self.running_var + self.eps)
+            return y * self.weight + self.bias
+        # the column sums (the statistics and, in the backward, the scale
+        # and bias gradients and those through the statistics) run in
+        # float64: a float32 sum over ~10^4 rows whose terms cancel loses
+        # up to 1e-2 of its value in a sequential reduction
+        x64 = x.double()
+        vf = valid.double()[:, None]
+        n = vf.sum().clamp_min(1.0)
+        mean = (x64 * vf).sum(dim=0) / n
+        var = (((x64 - mean) ** 2) * vf).sum(dim=0) / n
+        with torch.no_grad():
+            m = self.momentum
+            unbiased = (var * n / (n - 1.0).clamp_min(1.0)).to(x.dtype)
+            self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean.to(x.dtype))
+            self.running_var.copy_((1.0 - m) * self.running_var + m * unbiased)
+            self.num_batches_tracked += 1
+        y = (x64 - mean) / torch.sqrt(var + self.eps)
+        return (y * self.weight.double() + self.bias.double()).to(x.dtype)
 
 
 _ACTS = {"elu": nn.ELU, "relu": nn.ReLU}

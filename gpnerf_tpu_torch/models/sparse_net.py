@@ -21,6 +21,7 @@ from gpnerf_tpu_torch.models.layers import MaskedBatchNorm
 from gpnerf_tpu_torch.ops.grid_sample import (
     NearestTable,
     nearest_rows,
+    trilinear_dense_rows,
     trilinear_octet_rows,
 )
 from gpnerf_tpu_torch.ops.sparse_conv import (
@@ -28,6 +29,7 @@ from gpnerf_tpu_torch.ops.sparse_conv import (
     scatter_channel_sum,
     stride_conv_tbl,
     subm_conv_tbl,
+    trilinear_sparse_rows,
 )
 
 
@@ -50,10 +52,10 @@ class _DoubleConv(nn.Sequential):
             SparseConvWeight(cout, cout), MaskedBatchNorm(cout), nn.ReLU(),
         )
 
-    def run(self, x, level, compute_dtype):
+    def run(self, x, level, compute_dtype, train=False):
         for conv, bn in ((self[0], self[1]), (self[3], self[4])):
             x = subm_conv_tbl(x, level, conv.taps(), compute_dtype=compute_dtype)
-            x = F.relu(bn(x))
+            x = F.relu(bn(x, level.valid, train=train))
         return x
 
 
@@ -61,9 +63,9 @@ class _StrideConv(nn.Sequential):
     def __init__(self, cin, cout):
         super().__init__(SparseConvWeight(cin, cout), MaskedBatchNorm(cout), nn.ReLU())
 
-    def run(self, x, level, compute_dtype):
+    def run(self, x, level, compute_dtype, train=False):
         x = stride_conv_tbl(x, level, self[0].taps(), compute_dtype=compute_dtype)
-        return F.relu(self[1](x))
+        return F.relu(self[1](x, level.valid, train=train))
 
 
 class SparseConvNet(nn.Module):
@@ -79,17 +81,42 @@ class SparseConvNet(nn.Module):
             cin = out_dim[i]
         self.net = nn.ModuleList(mods)
 
-    def features(self, code, levels: List[SparseLevel]):
+    def features(self, code, levels: List[SparseLevel], *, train=False):
         """Run the conv stack on code (CAP0, in_dim); returns per-level
-        feature matrices [(CAP_i, out_dim[i-1]) for levels 1..n_layers]."""
+        feature matrices [(CAP_i, out_dim[i-1]) for levels 1..n_layers].
+        `train`: each BatchNorm takes its statistics over the level's valid
+        rows and updates its running estimates."""
         dt = self.compute_dtype
-        x = self.net[0].run(code, levels[0], dt)
+        x = self.net[0].run(code, levels[0], dt, train)
         level_feats = []
         for i in range(self.n_layers):
-            x = self.net[2 * i + 1].run(x, levels[i + 1], dt)
-            x = self.net[2 * i + 2].run(x, levels[i + 1], dt)
+            x = self.net[2 * i + 1].run(x, levels[i + 1], dt, train)
+            x = self.net[2 * i + 2].run(x, levels[i + 1], dt, train)
             level_feats.append(x)
         return level_feats
+
+    def _level_positions(self, dhw_vox, out_sh):
+        """(level, voxel positions, valid size) of each queried level:
+        level i+1 spans out_sh // 2^(i+1) voxels. out_sh (3,) int tensor."""
+        frac = dhw_vox / out_sh.to(dhw_vox.dtype)
+        for i in range(self.n_layers):
+            size = out_sh // (2 ** (i + 1))
+            yield i, frac * (size - 1).to(dhw_vox.dtype), size
+
+    def query_sparse(self, level_feats, index_vols, shapes, dhw_vox, out_sh):
+        """Multi-scale trilinear query of the level rows through per-level
+        index volumes (the training path: gradients stay on the sparse
+        rows). Returns (P, sum(out_dim))."""
+        return torch.cat([
+            trilinear_sparse_rows(level_feats[i], index_vols[i], shapes[i], pos, dyn_size=size)
+            for i, pos, size in self._level_positions(dhw_vox, out_sh)], dim=-1)
+
+    def query_dense(self, dense_vols, dhw_vox, out_sh):
+        """The multi-scale query against dense per-level (D, H, W, C)
+        volumes (render/base.materialize_dense). Returns (P, sum(out_dim))."""
+        return torch.cat([
+            trilinear_dense_rows(dense_vols[i], pos, dyn_size=size)
+            for i, pos, size in self._level_positions(dhw_vox, out_sh)], dim=-1)
 
     @staticmethod
     def query_octet2(octet_l1, octet_coarse, dhw_vox, out_sh, scales=None,

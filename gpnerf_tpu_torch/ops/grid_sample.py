@@ -1,5 +1,6 @@
-"""Gather tables and samplers of the progressive renderer (the subset of
-gpnerf_tpu/ops/grid_sample.py its fast and reference-semantics modes run).
+"""Gather tables and samplers of the progressive renderer, and the dense
+trilinear query of the training renderer's dense context (the subset of
+gpnerf_tpu/ops/grid_sample.py the port runs).
 
 Semantics are torch `F.grid_sample(align_corners=True, padding_mode=
 'zeros')`, reached through packed tables: a quad table row holds the 4 taps
@@ -382,3 +383,28 @@ def nearest_rows(table, pos, size, scale=None, out_dtype=None):
     """Nearest sample of a NearestTable (zeros outside). Returns (P, C);
     `out_dtype` as in `bilinear_quad_nhwc`."""
     return lerp_rows(*nearest_row_and_weight(table, pos, size), scale, out_dtype)
+
+
+def trilinear_dense_rows(vol, pos, dyn_size=None):
+    """Trilinear sample of a dense (D, H, W, C) volume at voxel positions
+    pos (P, 3), zeros outside `dyn_size` ((3,) int tensor, default the
+    volume's shape). Returns (P, C)."""
+    D, H, W, C = vol.shape
+    size = (torch.tensor([D, H, W], device=pos.device) if dyn_size is None
+            else dyn_size.long())
+    d0 = torch.floor(pos)
+    base = d0.long()
+    w1 = (pos - d0).to(vol.dtype)
+    w0 = 1.0 - w1
+    flat = vol.reshape(-1, C)
+    out = 0.0
+    for sel in itertools.product((0, 1), repeat=3):
+        corner = torch.stack([base[:, a] + sel[a] for a in range(3)], dim=-1)
+        inb = ((corner >= 0) & (corner < size)).all(dim=-1)
+        idx = ((corner[:, 0].clamp(0, D - 1) * H + corner[:, 1].clamp(0, H - 1)) * W
+               + corner[:, 2].clamp(0, W - 1))
+        w = ((w1[:, 0] if sel[0] else w0[:, 0])
+             * (w1[:, 1] if sel[1] else w0[:, 1])
+             * (w1[:, 2] if sel[2] else w0[:, 2]))
+        out = out + flat[idx] * (w * inb.to(vol.dtype))[:, None]
+    return out

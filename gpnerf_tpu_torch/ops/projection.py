@@ -43,6 +43,20 @@ def inbound_mask(pixel_xy, h, w):
     )
 
 
+def project_and_gather(xyz, KE, src_imgs, featmaps, h, w, *, neg_ray=False):
+    """The reference `Projector.compute` (BaseRender.py:326-363): xyz (P, 3);
+    src_imgs (V, H, W, 3) un-normalized, featmaps (V, Hf, Wf, C), both
+    bilinearly sampled (differentiable in both). Returns rgb_feat (P, V,
+    3 + C) and mask (P, V) float (in bounds and in front)."""
+    pixel, in_front = compute_projections(xyz, KE, neg_ray=neg_ray)
+    norm_pix = normalize_pixels(pixel, h, w)
+    rgb = grid_sample_2d_nhwc(src_imgs, norm_pix)
+    feat = grid_sample_2d_nhwc(featmaps, norm_pix)
+    rgb_feat = torch.cat([rgb, feat], dim=-1).transpose(0, 1)
+    mask = (inbound_mask(pixel, h, w) & in_front).to(rgb_feat.dtype)
+    return rgb_feat, mask.T
+
+
 def project_and_gather_quad(xyz, KE, src_quad, feat_quad, h, w, *,
                             neg_ray=False, src_scale=None, feat_scale=None):
     """Project and gather through the split quad tables, both in (P, V) row

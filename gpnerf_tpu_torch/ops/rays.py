@@ -1,9 +1,33 @@
-"""Device-side ray generation and ray/AABB intersection
-(gpnerf_tpu/ops/rays.py; reference demo_render.py:200-239)."""
+"""Device-side ray utilities (gpnerf_tpu/ops/rays.py): stratified depth
+sampling (reference BaseRender.py:35-50), pixel-ray generation and
+ray/AABB intersection (reference demo_render.py:200-239)."""
 
 from __future__ import annotations
 
 import torch
+
+
+def sample_z_vals(near, far, n_samples, *, perturb, generator=None, t_rand=None):
+    """Stratified depth samples: near, far (...,) -> z_vals (..., n_samples).
+    With `perturb` each sample is jittered uniformly within its stratum; the
+    uniform draws are `t_rand` (shape (..., n_samples)) when given, else
+    drawn from `generator` (a torch.Generator on the tensors' device)."""
+    t_vals = torch.linspace(0.0, 1.0, n_samples, dtype=near.dtype, device=near.device)
+    z_vals = near[..., None] * (1.0 - t_vals) + far[..., None] * t_vals
+    if perturb:
+        mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+        upper = torch.cat([mids, z_vals[..., -1:]], dim=-1)
+        lower = torch.cat([z_vals[..., :1], mids], dim=-1)
+        if t_rand is None:
+            t_rand = torch.rand(z_vals.shape, generator=generator, dtype=z_vals.dtype,
+                                device=z_vals.device)
+        z_vals = lower + (upper - lower) * t_rand
+    return z_vals
+
+
+def sample_points(ray_o, ray_d, z_vals):
+    """pts[i, k] = o_i + d_i * z[i, k]: (..., n_samples, 3)."""
+    return ray_o[..., None, :] + ray_d[..., None, :] * z_vals[..., None]
 
 
 def pixel_rays(xy1, K_inv, R, T):

@@ -1,15 +1,48 @@
-"""Per-frame geometry shared by the renderers (gpnerf_tpu/render/base.py):
-source-image normalization, camera matrices, the frame's SMPL features and
-sparse pyramid, and the world -> level-0 voxel mapping (reference
-BaseRender.py:52-73)."""
+"""BaseRender, the training and quick-val renderer (gpnerf_tpu/render/
+base.py; reference BaseRender.py:11-403), and the per-frame geometry the
+progressive renderer shares with it: source-image normalization, camera
+matrices, the frame's SMPL features and sparse pyramid, and the world ->
+level-0 voxel mapping (reference BaseRender.py:52-73).
+
+`Renderer` is an nn.Module whose `encoder` and `nerfhead` children carry
+the reference checkpoint's parameter names, as the progressive renderer's
+do, so one state dict fills either. Per frame the sparse volume is built
+once and queried per ray chunk through per-level index volumes
+(`sparse_query_ctx`), so gradients stay on the sparse rows:
+
+  * `render_train`: the batch's n_rays rays in one chunk, stratified
+    samples jittered by uniform draws, every BatchNorm on the frame's batch
+    statistics (running estimates updated in place);
+  * `render_eval_fn`: the padded box rays of a whole image in chunks of
+    `eval_chunk`, no jitter, running statistics, no autograd.
+
+Out of scope, refused by `build_render` with the key named: the bf16
+training dtype, neg-ray (THuman) rays and the mesh branch
+(`head.rgb.use_rgbhead False`).
+"""
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+from torch import nn
 
-from gpnerf_tpu_torch.ops.projection import gather_smpl_features
-from gpnerf_tpu_torch.ops.sparse_conv import SparseLevel
+from gpnerf_tpu_torch.models.attention import MultiHeadAttention
+from gpnerf_tpu_torch.models.encoder import ResUNet
+from gpnerf_tpu_torch.models.heads import NeRFHead
+from gpnerf_tpu_torch.models.layers import InstanceNorm, MaskedBatchNorm
+from gpnerf_tpu_torch.models.sparse_net import SparseConvWeight
+from gpnerf_tpu_torch.ops.compositing import raw2outputs
+from gpnerf_tpu_torch.ops.projection import gather_smpl_features, project_and_gather
+from gpnerf_tpu_torch.ops.rays import sample_points, sample_z_vals
+from gpnerf_tpu_torch.ops.sparse_conv import (
+    SparseLevel,
+    build_index_volume,
+    scatter_dense,
+)
+from gpnerf_tpu_torch.registry import register
 
 
 def batch_to_device(batch, device):
@@ -84,6 +117,7 @@ def prepare_frame(batch, featmaps, max_out_sh, *, neg_ray=False):
         "grids": levels,
         "vertex_rows": batch["vertex_rows"],
         "out_sh": tuple(int(v) for v in batch["out_sh"]),
+        "overflows": batch.get("pyramid_overflows"),
     }
 
 
@@ -94,3 +128,220 @@ def points_to_dhw_vox(pts, batch, voxel_size):
     min_dhw = batch["bounds"][0].flip(-1)
     vs = torch.tensor(voxel_size[::-1], dtype=dhw.dtype, device=dhw.device)
     return (dhw - min_dhw) / vs
+
+
+# flax's truncated normal draws from N(0, 1) cut at +-2 and rescales by this
+# factor so the kept values have unit variance
+_TRUNC_STD = 0.87962566103423978
+
+
+def _variance_scaling(t, scale, fan_in, generator, truncated=True):
+    std = math.sqrt(scale / fan_in)
+    if truncated:
+        std /= _TRUNC_STD
+        nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+    else:
+        nn.init.normal_(t, 0.0, std, generator=generator)
+
+
+class Renderer(nn.Module):
+    """The training renderer; see the module docstring."""
+
+    def __init__(self, encoder, nerfhead, *, voxel_size, max_out_sh, n_samples=64,
+                 eval_chunk=8192, occupancy_cull=False):
+        super().__init__()
+        self.encoder = encoder
+        self.nerfhead = nerfhead
+        self.voxel_size = tuple(float(v) for v in voxel_size)
+        self.max_out_sh = tuple(int(v) for v in max_out_sh)
+        self.n_samples = int(n_samples)
+        self.eval_chunk = int(eval_chunk)
+        # the progressive renderer's empty-space cull in this renderer too
+        # (NeRFHead.point_forward occupancy_cull)
+        self.occupancy_cull = bool(occupancy_cull)
+
+    @torch.no_grad()
+    def init_variables(self, seed):
+        """Fresh parameters with the JAX package's initializers, drawn on
+        the CPU from `seed` and copied in: lecun-normal (truncated) conv and
+        attention kernels, he-normal (truncated) head Linear kernels,
+        normal(1/(27 Cin)) sparse conv weights, normal(1) vertex codes, zero
+        biases, unit norm scales, running statistics reset. Returns self."""
+        g = torch.Generator().manual_seed(int(seed))
+        attn_linears = {id(m) for a in self.modules() if isinstance(a, MultiHeadAttention)
+                        for m in a.children() if isinstance(m, nn.Linear)}
+        for mod in self.modules():
+            fresh = {}
+            if isinstance(mod, nn.Conv2d):
+                fresh["weight"] = torch.empty(mod.weight.shape)
+                _variance_scaling(fresh["weight"], 1.0, mod.weight[0].numel(), g)
+            elif isinstance(mod, nn.Linear):
+                fresh["weight"] = torch.empty(mod.weight.shape)
+                scale = 1.0 if id(mod) in attn_linears else 2.0
+                _variance_scaling(fresh["weight"], scale, mod.in_features, g)
+            elif isinstance(mod, nn.Embedding):
+                fresh["weight"] = torch.randn(mod.weight.shape, generator=g)
+            elif isinstance(mod, SparseConvWeight):
+                fresh["weight"] = torch.empty(mod.weight.shape)
+                _variance_scaling(fresh["weight"], 1.0, 27 * mod.weight.shape[3], g,
+                                  truncated=False)
+            elif isinstance(mod, (InstanceNorm, MaskedBatchNorm, nn.LayerNorm)):
+                fresh["weight"] = torch.ones(mod.weight.shape)
+            if isinstance(mod, MaskedBatchNorm):
+                mod.running_mean.zero_()
+                mod.running_var.fill_(1.0)
+                mod.num_batches_tracked.zero_()
+            bias = getattr(mod, "bias", None)
+            if isinstance(bias, nn.Parameter):
+                fresh["bias"] = torch.zeros(bias.shape)
+            for name, val in fresh.items():
+                getattr(mod, name).copy_(val)
+        return self
+
+    # ------------------------------------------------------------------
+    def materialize_dense(self, level_feats, levels):
+        """Dense per-level feature volumes (the reference's `.dense()`)."""
+        return [scatter_dense(f, levels[i + 1]) for i, f in enumerate(level_feats)]
+
+    def sparse_query_ctx(self, level_feats, levels):
+        """Per-level index volumes over the sparse level rows: the query
+        context of `NeRFHead.point_forward` that keeps autograd on the rows."""
+        index_vols = [
+            build_index_volume(levels[i + 1].coords, levels[i + 1].valid, levels[i + 1].shape)
+            for i in range(len(level_feats))
+        ]
+        shapes = tuple(levels[i + 1].shape for i in range(len(level_feats)))
+        return {"sparse": (level_feats, index_vols, shapes)}
+
+    def render_chunk(self, query_ctx, pre, batch, src_unnorm, featmaps, rays_o, rays_d,
+                     near, far, *, perturb, generator=None, t_rand=None):
+        """One ray chunk through sampling, projection, heads and
+        compositing (reference render_rays, BaseRender.py:110-157)."""
+        H, W = batch["src_imgs"].shape[1:3]
+        z_vals = sample_z_vals(near, far, self.n_samples, perturb=perturb,
+                               generator=generator, t_rand=t_rand)
+        pts = sample_points(rays_o, rays_d, z_vals)
+        nr = pts.shape[0]
+        dhw_vox = points_to_dhw_vox(pts, batch, self.voxel_size)
+        rgb_feat, mask = project_and_gather(pts.reshape(-1, 3), pre["KE"], src_unnorm,
+                                            featmaps, H, W)
+        rgb_feat = rgb_feat.reshape(nr, self.n_samples, -1, rgb_feat.shape[-1])
+        mask = mask.reshape(nr, self.n_samples, -1)
+        pixel_mask = mask.sum(dim=2) > 1  # seen by at least 2 views
+        raw, rgb_in = self.nerfhead.point_forward(
+            query_ctx, dhw_vox, pre["out_sh_t"], rgb_feat, mask[..., None],
+            occupancy_cull=self.occupancy_cull)
+        # compositing runs in float32: the cumprod accumulates over samples
+        comp = raw2outputs(raw.float(), z_vals, pixel_mask)
+        rgb_in_map = (comp.weights[..., None, None] * rgb_in.float()).sum(dim=1)
+        return {
+            "rgb_map": comp.rgb_map,
+            "disp_map": comp.disp_map,
+            "acc_map": comp.acc_map,
+            "depth_map": comp.depth_map,
+            "alpha": comp.weights,
+            "z_vals": z_vals,
+            "rgb_in_map": rgb_in_map[:, 0],
+            "pixel_mask": comp.mask,
+        }
+
+    def _frame(self, batch, train):
+        src = src_norm(batch["src_imgs"])
+        featmaps = self.encoder(src)
+        pre = prepare_frame(batch, featmaps, self.max_out_sh)
+        pre["out_sh_t"] = torch.as_tensor(np.asarray(batch["out_sh"]), device=featmaps.device)
+        level_feats = self.nerfhead.volume(pre["smpl_feat"], pre["vertex_rows"], pre["grids"],
+                                           train=train)
+        return src * 0.5 + 0.5, featmaps, pre, self.sparse_query_ctx(level_feats, pre["grids"])
+
+    def render_train(self, batch, generator=None, t_rand=None):
+        """Training forward of one frame's n_rays rays with autograd; the
+        BatchNorms' running estimates move in place. `t_rand` (n_rays,
+        n_samples) are the uniform jitter draws, else drawn from
+        `generator`. Returns the render dict with `overflows`."""
+        src_unnorm, featmaps, pre, ctx = self._frame(batch, train=True)
+        ret = self.render_chunk(ctx, pre, batch, src_unnorm, featmaps, batch["ray_o"],
+                                batch["ray_d"], batch["near"], batch["far"], perturb=True,
+                                generator=generator, t_rand=t_rand)
+        ret["overflows"] = pre["overflows"]
+        return ret
+
+    def render_eval_fn(self):
+        """batch -> the whole-image eval render (`render_eval`)."""
+        return self.render_eval
+
+    @torch.no_grad()
+    def render_eval(self, batch):
+        """All padded box rays of the frame in chunks of eval_chunk, no
+        jitter, running statistics. Returns rgb_map, depth_map, acc_map and
+        rgb_in_map over the ray cap."""
+        src_unnorm, featmaps, pre, ctx = self._frame(batch, train=False)
+        ray_cap = batch["ray_o"].shape[0]
+        chunk = min(self.eval_chunk, ray_cap)
+        if ray_cap % chunk:
+            raise ValueError(f"tpu.eval_ray_cap={ray_cap} is not a multiple of "
+                             f"tpu.eval_chunk={chunk}")
+        keys = ("rgb_map", "depth_map", "acc_map", "rgb_in_map")
+        outs = {k: [] for k in keys}
+        for s in range(0, ray_cap, chunk):
+            sl = slice(s, s + chunk)
+            out = self.render_chunk(ctx, pre, batch, src_unnorm, featmaps, batch["ray_o"][sl],
+                                    batch["ray_d"][sl], batch["near"][sl], batch["far"][sl],
+                                    perturb=False)
+            for k in keys:
+                outs[k].append(out[k])
+        return {k: torch.cat(v) for k, v in outs.items()}
+
+    def render(self, batch, generator=None):
+        """Reference-style entry: with a generator, the training render of
+        the sampled rays; without, the whole-image eval render."""
+        if generator is not None:
+            return self.render_train(batch, generator)
+        return self.render_eval(batch)
+
+
+def check_train_scope(cfg):
+    """Raise NotImplementedError, naming the key, for a training or
+    BaseRender switch outside what the port implements."""
+    if cfg.tpu.train_dtype != "float32":
+        raise NotImplementedError(
+            f"tpu.train_dtype={cfg.tpu.train_dtype!r}: the port trains in float32 only")
+    for split in ("train", "test"):
+        if "thuman" in cfg.dataset[split].name:
+            raise NotImplementedError(
+                f"dataset.{split}.name={cfg.dataset[split].name!r}: neg-ray (THuman) rays "
+                "are not ported")
+    if not cfg.head.rgb.use_rgbhead:
+        raise NotImplementedError(
+            "head.rgb.use_rgbhead=False: the mesh branch is not ported")
+    if cfg.tpu.dp_size > 1:
+        raise NotImplementedError(
+            f"tpu.dp_size={cfg.tpu.dp_size}: data parallelism is not ported; the port "
+            "trains on one device")
+
+
+def build_render(cfg, device="cuda"):
+    """BaseRender for `cfg` on `device`, float32, with untrained parameters
+    (call `init_variables(seed)` or load a state dict)."""
+    check_train_scope(cfg)
+    nerfhead = NeRFHead(
+        in_feat_ch=cfg.encoder.out_ch,
+        n_smpl=cfg.head.sigma.n_smpl,
+        code_dim=cfg.head.sigma.code_dim,
+        attn_n_heads=cfg.head.sigma.n_heads,
+        spconv_n_layers=cfg.head.sigma.n_layers,
+        spconv_out_dim=tuple(cfg.head.sigma.outdims),
+    )
+    r = Renderer(
+        ResUNet(cfg.encoder.out_ch, cfg.encoder.name),
+        nerfhead,
+        voxel_size=tuple(cfg.dataset.voxel_size),
+        max_out_sh=tuple(cfg.tpu.max_out_sh),
+        n_samples=cfg.train.n_samples,
+        eval_chunk=cfg.tpu.eval_chunk,
+        occupancy_cull=cfg.tpu.base_occupancy_cull,
+    )
+    return r.to(device)
+
+
+register("render", "BaseRender", build_render)

@@ -59,6 +59,7 @@ constant 1 wherever several voxels land on one target.
 
 from __future__ import annotations
 
+import math
 import time
 
 import numpy as np
@@ -140,6 +141,14 @@ HEAD_CHUNK = 1 << 20
 
 # level-1 voxels whose occupancy (masks3d) exceeds this splat into the view
 OCCUPANCY_THRESHOLD = 0.1
+
+
+def pred_img_hwc(ret):
+    """Host-side (H, W, 3) numpy image of a render dict (`pred_img`, or the
+    channel planes `pred_chw`)."""
+    if "pred_img" in ret:
+        return ret["pred_img"].detach().cpu().numpy()
+    return ret["pred_chw"].detach().permute(1, 2, 0).cpu().numpy()
 
 
 def _compact(mask_flat, cap):
@@ -259,9 +268,9 @@ class Renderer(nn.Module):
         """Per-stage time of the render, keyed by the reference's time_slots
         names. `batch`: one frame or a sequence of distinct frames; every
         program is warmed on each frame once, then timed `reps` times per
-        frame (CUDA events on a card, the host clock on the CPU); a frame's
-        time is the least of its reps, a program's the mean over the frames.
-        Seconds throughout.
+        frame (CUDA events on a card, the host clock on the CPU), the
+        programs in turn within each rep; a frame's time is the least of its
+        reps, a program's the mean over the frames. Seconds throughout.
 
         The prefixes of PROFILE_LADDER run with `pallas_point` forced off
         (the fused kernel has no stage boundaries inside it), and their
@@ -286,27 +295,35 @@ class Renderer(nn.Module):
             end.synchronize()
             return start.elapsed_time(end) / 1e3
 
-        def mean_seconds(fn):
-            for f in frames:
-                fn(f)
-            return sum(min(once(fn, f) for _ in range(reps)) for f in frames) / len(frames)
-
-        etime = mean_seconds(lambda f: self.encoder(src_norm(f["src_imgs"])))
         feats = {id(f): self.encoder(src_norm(f["src_imgs"])) for f in frames}
-        out = {"etime": etime}
         orig = self.pallas_point
+
+        def ladder_program(name, pallas_point):
+            def run(f):
+                self.pallas_point = pallas_point
+                return self._demo_impl(f, feats[id(f)], stop_stage=name)
+            return run
+
+        programs = {"etime": lambda f: self.encoder(src_norm(f["src_imgs"]))}
+        if orig:
+            programs["rtime_production"] = ladder_program(None, True)
+        programs.update({st: ladder_program(st, False) for st in PROFILE_LADDER})
+        # every rep runs each program once on each frame, in turn: a drift
+        # of the host's pace then reaches every program alike
+        best = {name: [math.inf] * len(frames) for name in programs}
         try:
-            if orig:
-                out["rtime_production"] = mean_seconds(
-                    lambda f: self._demo_impl(f, feats[id(f)]))
-                self.pallas_point = False
-            totals = {
-                stage: mean_seconds(
-                    lambda f, stage=stage: self._demo_impl(f, feats[id(f)], stop_stage=stage))
-                for stage in PROFILE_LADDER
-            }
+            for f in frames:
+                for fn in programs.values():
+                    fn(f)
+            for _ in range(reps):
+                for i, f in enumerate(frames):
+                    for name, fn in programs.items():
+                        best[name][i] = min(best[name][i], once(fn, f))
         finally:
             self.pallas_point = orig
+        mean = {name: sum(v) / len(v) for name, v in best.items()}
+        out = {k: mean[k] for k in ("etime", "rtime_production") if k in mean}
+        totals = {st: mean[st] for st in PROFILE_LADDER}
         deltas, prev = {}, 0.0
         for stage in PROFILE_LADDER:
             deltas[stage] = totals[stage] - prev

@@ -1,9 +1,13 @@
-"""Checkpoint loading (gpnerf_tpu/train/checkpoint.py + the key map of
+"""Checkpoints (gpnerf_tpu/train/checkpoint.py + the key map of
 gpnerf_tpu/train/torch_interop.py).
 
 The port's modules carry the reference's torch key layout (`encoder.*`,
 `nerfhead.sigmahead.*`, `nerfhead.rgbhead.*`), so `load_state_dict(strict=
-True)` on a reference-format .pth is the whole loader. `from_jax_variables`
+True)` on a reference-format .pth is the whole loader, and the model's own
+`state_dict()` is what a checkpoint stores. `save_checkpoint` writes the
+reference .pth layout ('epoch', 'model', 'performance/<pi>', 'state_dict',
+'optimizer'); the optimizer entry is torch's AdamW state, which
+`load_checkpoint` resumes. `from_jax_variables`
 carries the JAX package's variables tree (parameters and batch statistics,
 as numpy arrays) into the same layout:
 
@@ -17,6 +21,7 @@ as numpy arrays) into the same layout:
 
 from __future__ import annotations
 
+import logging
 import os
 from typing import Dict, List, Tuple
 
@@ -136,13 +141,23 @@ def _to_torch(a, kind):
 
 def from_jax_variables(variables, n_layers=4) -> Dict[str, torch.Tensor]:
     """JAX variables {'encoder': {...}, 'head': {...}} (numpy leaves) ->
-    a state_dict for the port's Renderer (reference key layout)."""
+    a state_dict for the port's renderers (reference key layout).
+
+    A params-shaped tree without collections, {'encoder': enc_params,
+    'head': head_params} (a JAX gradient tree, as `jax.grad` of the train
+    step's loss returns it), maps to the parameter keys only: the
+    gradient of each parameter under its state-dict key."""
+    grads_only = "params" not in variables["encoder"]
+    if grads_only:
+        variables = {k: {"params": v} for k, v in variables.items()}
     enc = variables["encoder"]["params"]
     blocks = tuple(
         sum(1 for k in enc if k.startswith(f"layer{i}_")) for i in (1, 2, 3)
     )
     state = {}
     for tk, coll, path, kind in key_map(n_layers, blocks):
+        if grads_only and coll != "params":
+            continue
         tree = variables[path[0]][coll]
         for p in path[1:]:
             tree = tree[p]
@@ -150,6 +165,40 @@ def from_jax_variables(variables, n_layers=4) -> Dict[str, torch.Tensor]:
         if tk.endswith(".running_mean"):
             state[tk[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
     return state
+
+
+def save_checkpoint(states, is_best, output_dir, filename="checkpoint.pth"):
+    """Write `states` (the reference layout: 'epoch', 'model',
+    'performance/<pi>', 'state_dict', 'optimizer') to output_dir/filename;
+    when `is_best`, also the bare state dict to model_best.pth."""
+    os.makedirs(output_dir, exist_ok=True)
+    torch.save(states, os.path.join(output_dir, filename))
+    if is_best:
+        torch.save(states["state_dict"], os.path.join(output_dir, "model_best.pth"))
+
+
+def load_checkpoint(cfg, model, optimizer=None):
+    """Resume (reference utils.py:77-122): with cfg.train.resume and
+    cfg.render.resume_path, load the state dict into `model` (non-strict,
+    as the JAX package does), the optimizer state when the file has one
+    that fits, and return the checkpoint's epoch; -1 without resume. A
+    configured path that does not exist raises FileNotFoundError."""
+    path = cfg.render.resume_path
+    if not (path and cfg.train.resume):
+        return -1
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    state = ckpt["state_dict"] if isinstance(ckpt, dict) and "state_dict" in ckpt else ckpt
+    model.load_state_dict(state, strict=False)
+    if optimizer is not None and isinstance(ckpt, dict) and "optimizer" in ckpt:
+        try:
+            optimizer.load_state_dict(ckpt["optimizer"])
+        except (ValueError, KeyError, TypeError) as e:
+            # an optax state (a JAX-written checkpoint) does not fit a torch
+            # optimizer; the JAX package skips the mismatch the same way
+            logging.warning(f"optimizer state not resumable: {e}")
+    return int(ckpt["epoch"]) if isinstance(ckpt, dict) and "epoch" in ckpt else -1
 
 
 def load_eval_model(resume_path, model):
