@@ -38,6 +38,12 @@ Phases, each fatal on failure:
   4. CUDA-event timings of the whole render, of its stage prefixes
      (encoder; + frame stage; + ray pipeline and image) and of each kernel
      instantiation beside its bound;
+  3c. THuman's neg-ray convention on 3 bench frames of the
+     `thuman-synthetic` fixture (the scene through OpenGL-style cameras,
+     negative ray t-spans): the fast mode on 3 frames and the reference mode
+     on 1, with the checks, captured-input kernel comparisons and timings of
+     phase 3, and the op-by-op fast mode on 1 frame (one quad-lerp launch,
+     bitwise against plain, its image against the fused neg frame's);
   5. the training path at full width (render/base.py BaseRender,
      train/step.py, train/trainer.py): from the trained checkpoint, 3
      warm-up and 20 timed AdamW steps (1024 rays x 64 samples, float32) on
@@ -46,8 +52,13 @@ Phases, each fatal on failure:
      running statistics moved; the eval render of one test frame (PSNR >=
      20 dB) and `Trainer.evaluate` of it through the progressive renderer,
      which launches the point-stage kernel (form (a)); `--profile` adds
-     the train step's kernel table and idle share;
-  6. one JSON line listing the kernels, the card's name and power limit,
+     the train step's kernel table and idle share; then the same under
+     neg-ray on the `thuman-synthetic` splits (3 warm-up and 5 timed
+     steps, the eval render's PSNR);
+  6. the inference CLI (tools/inference_torch.py) in a process of its own
+     on configs/synthetic.yaml with the trained checkpoint: exit 0 and PSNR
+     >= 20 dB;
+  7. one JSON line listing the kernels, the card's name and power limit,
      and the final JSON status line.
 
 TF32 is off for matmuls and cuDNN convolutions throughout, so float32
@@ -88,7 +99,12 @@ def check(cond, msg):
         fail(msg)
 
 
-def make_cfg(size, matmul_dtype):
+NEG = "thuman-synthetic"  # the synthetic scene through OpenGL-style cameras
+
+
+def make_cfg(size, matmul_dtype, neg=False):
+    """configs/synthetic.yaml at size^2 with the trained checkpoint's
+    code_dim; `neg` serves the scene in THuman's neg-ray convention."""
     from gpnerf_tpu_torch.config import cfg as base
 
     cfg = base.clone()
@@ -100,6 +116,9 @@ def make_cfg(size, matmul_dtype):
     cfg.head.sigma.code_dim = 32
     cfg.render.file = "demo_render"
     cfg.tpu.matmul_dtype = matmul_dtype
+    if neg:
+        cfg.dataset.train.name = NEG
+        cfg.dataset.test.name = NEG
     cfg.freeze()
     return cfg
 
@@ -341,11 +360,11 @@ REF_MODE = {
 }
 
 
-def make_render(size, matmul_dtype, device, **tpu):
+def make_render(size, matmul_dtype, device, neg=False, **tpu):
     from gpnerf_tpu_torch.registry import get
     from gpnerf_tpu_torch.train.checkpoint import load_eval_model
 
-    cfg = make_cfg(size, matmul_dtype)
+    cfg = make_cfg(size, matmul_dtype, neg)
     cfg.defrost()
     for k, v in tpu.items():
         cfg.tpu[k] = v
@@ -389,14 +408,17 @@ def card_vs_cpu_128(name, max_tol, **tpu):
           and float(d_img.max()) < max_tol, f"128^2 {name} card vs CPU: images differ")
 
 
-def train_phase(card, profile):
+def train_phase(card, profile, neg=False):
     """Phase 5: the training path at full width (configs/synthetic.yaml:
     512^2, ResNet34-UNet, code_dim 32, 1024 rays x 64 samples, float32)
     from the trained checkpoint: warm-up steps, then timed steps on distinct
     batches through `train.step.train_step`; the whole-image eval render of
     one test frame; `Trainer.evaluate` of that frame through the progressive
     renderer (kernel 1, form (a)). Returns the point-stage launches of that
-    evaluation (counts set to 0 just before the path)."""
+    evaluation (counts set to 0 just before the path). With `neg`, the
+    same on the `thuman-synthetic` splits (THuman's neg-ray convention in
+    the train and the eval render), 5 timed steps, no `Trainer.evaluate`;
+    returns 0."""
     import numpy as np
     import torch
 
@@ -410,8 +432,9 @@ def train_phase(card, profile):
     from gpnerf_tpu_torch.train.step import make_optimizer, train_step
     from gpnerf_tpu_torch.train.trainer import Trainer
 
-    n_warm, n_timed = 3, 20
-    cfg = make_cfg(512, "bfloat16")
+    n_warm, n_timed = 3, (5 if neg else 20)
+    what = "training, neg-ray" if neg else "training"
+    cfg = make_cfg(512, "bfloat16", neg)
     cfg.defrost()
     cfg.render.file = "BaseRender"
     cfg.result_dir = os.path.join(ROOT, "results", "chip_smoke")
@@ -424,13 +447,14 @@ def train_phase(card, profile):
     test_ds = get("dataset", cfg.dataset.test.file)(cfg, is_train=False)
     test_host = test_ds[0]
     size = f"{cfg.dataset.H}^2"
-    log(f"# training: built {len(host)} train batches and 1 test frame at {size} on the host "
+    log(f"# {what}: built {len(host)} train batches and 1 test frame at {size} on the host "
         f"in {time.perf_counter() - t0:.1f} s")
     dev = torch.device("cuda")
     batches = [batch_to_device(b, dev) for b in host]
     test_batch = batch_to_device(test_host, dev)
 
     render = load_eval_model(CKPT, get("render", cfg.render.file)(cfg, device=dev))
+    check(render.neg_ray_train == render.neg_ray_val == neg, f"{what}: neg-ray flags")
     evaluator = Evaluator(cfg, "chip_smoke")
 
     def eval_psnr():
@@ -463,28 +487,30 @@ def train_phase(card, profile):
     step_s = sorted(s.elapsed_time(e) / 1e3 for s, e in events)
     losses = [float(m["loss"]) for m in metrics]
     overflows = [int(m["overflow"]) for m in metrics]
-    log(f"# training on {card}: {n_timed} timed steps after {n_warm} warm-up, "
+    log(f"# {what} on {card}: {n_timed} timed steps after {n_warm} warm-up, "
         f"{cfg.train.n_rays} rays x {cfg.train.n_samples} samples, {size}, float32: s/it min {step_s[0]:.4f} median {step_s[n_timed // 2]:.4f} "
         f"max {step_s[-1]:.4f} (CUDA events per step; host loop {wall_s:.4f} s/it), peak device "
         f"memory {peak / 2**30:.3f} GiB, loss first {losses[0]:.5f} last {losses[-1]:.5f}, "
         f"pyramid overflows max {max(overflows)}")
-    check(all(math.isfinite(x) for x in losses), f"training: non-finite loss in {losses}")
-    check(max(overflows) == 0, f"training: pyramid overflows {overflows}")
+    check(all(math.isfinite(x) for x in losses), f"{what}: non-finite loss in {losses}")
+    check(max(overflows) == 0, f"{what}: pyramid overflows {overflows}")
     moved = sum(not torch.equal(p, q) for p, q in zip(render.parameters(), params0))
     stats = {k: v for k, v in render.state_dict().items() if "running" in k}
     moved_stats = sum(not torch.equal(stats[k], v) for k, v in stats0.items())
-    log(f"# training: {moved} of {len(params0)} parameter tensors and {moved_stats} of "
+    log(f"# {what}: {moved} of {len(params0)} parameter tensors and {moved_stats} of "
         f"{len(stats0)} running-statistics tensors moved")
     check(moved >= len(params0) - 2 and moved_stats == len(stats0),
-          "training: parameters or running statistics did not move")
-    if profile:
+          f"{what}: parameters or running statistics did not move")
+    if profile and not neg:
         profile_steps(lambda b: train_step(render, crit, opt, sched, b, generator=gen),
                       batches[:3], card, step_s[n_timed // 2] * 1e3)
 
     psnr_after = eval_psnr()
-    log(f"# training: render_eval_fn on test frame 0 ({int(test_host['n_rays'])} rays): PSNR "
+    log(f"# {what}: render_eval_fn on test frame 0 ({int(test_host['n_rays'])} rays): PSNR "
         f"{psnr_before:.3f} dB before the steps, {psnr_after:.3f} dB after")
-    check(psnr_after >= 20.0, f"training: eval PSNR {psnr_after:.3f} < 20 dB")
+    check(psnr_after >= 20.0, f"{what}: eval PSNR {psnr_after:.3f} < 20 dB")
+    if neg:
+        return 0
 
     cfg_d = cfg.clone()
     cfg_d.defrost()
@@ -646,12 +672,16 @@ def main():
     host = get_bench_frames(cfg, 3)
     log(f"# built 3 bench frames at 512^2 on the host in {time.perf_counter() - t0:.1f} s")
     batches = [batch_to_device(b, dev) for b in host]
+    pos_batches, pos_host = batches, host
     kernels, images = [], {}  # one `kernels` entry per instantiation
 
-    def run_mode(title, form_name, n_frames, render, stages=False):
-        """Drive one render mode over the first n_frames bench frames, check
-        it, compare and time its kernel instantiation on the inputs captured
-        from frame 0. Appends to `kernels`; returns (frame ms, PSNRs)."""
+    def run_mode(title, form_name, n_frames, render, stages=False, frames=None):
+        """Drive one render mode over the first n_frames bench frames (of
+        `frames`, (device batches, host batches), else the positive ones),
+        check it, compare and time its kernel instantiation on the inputs
+        captured from frame 0. Appends to `kernels`; returns (frame ms,
+        PSNRs)."""
+        batches, host = frames or (pos_batches, pos_host)
         fn = render.render_demo_fn()
         captured = []
         real = demo_mod.fused_point_stages_tabs
@@ -762,9 +792,11 @@ def main():
     check(float(m.max()) < 1e-3, "frame_mode and dense slots + sigma_query_cull images differ")
 
     # ---- phase 3b: the op-by-op point stages ----
-    def run_opbyop(title, n_frames, render, lerp_launches):
-        """Drive an op-by-op mode over the first n_frames frames with the
-        counts at 0, check launches, overflows and PSNR. Returns the rets."""
+    def run_opbyop(title, n_frames, render, lerp_launches, frames=None):
+        """Drive an op-by-op mode over the first n_frames frames (of
+        `frames`, as run_mode) with the counts at 0, check launches,
+        overflows and PSNR. Returns the rets."""
+        batches, host = frames or (pos_batches, pos_host)
         fn = render.render_demo_fn()
         fn(batches[0])  # warm
         torch.cuda.synchronize()
@@ -932,6 +964,44 @@ def main():
     })
     del g_table, g_idx, g_out
 
+    # ---- phase 3c: THuman's neg-ray convention ----
+    t0 = time.perf_counter()
+    neg_host = get_bench_frames(make_cfg(512, "bfloat16", neg=True), 3)
+    log(f"# built 3 {NEG} bench frames at 512^2 on the host in {time.perf_counter() - t0:.1f} s")
+    check(all((b["near"][: int(b["n_rays"])] < 0).all() for b in neg_host),
+          f"{NEG}: ray t-spans are not negative")
+    neg_frames = ([batch_to_device(b, dev) for b in neg_host], neg_host)
+    neg_fast = make_render(512, "bfloat16", "cuda", neg=True)[1]
+    check(neg_fast.neg_ray_val, "neg-ray fast mode: neg_ray_val off")
+    run_mode("neg-ray fast mode", "a", 3, neg_fast, stages=True, frames=neg_frames)
+    del neg_fast
+    run_mode("neg-ray reference mode", "c", 1,
+             make_render(512, "bfloat16", "cuda", neg=True, **REF_MODE)[1], stages=True,
+             frames=neg_frames)
+    torch.cuda.empty_cache()
+    title = "neg-ray op-by-op fast mode"
+    neg_op = make_render(512, "bfloat16", "cuda", neg=True, pallas_point=False)[1]
+    captured = []
+    ql.quad_lerp_rows_vcp = capture_vcp
+    try:
+        neg_op.render_demo_fn()(neg_frames[0][0])
+    finally:
+        ql.quad_lerp_rows_vcp = real_vcp
+    check(len(captured) == 1, f"{title}: one quad lerp per frame")
+    rets = run_opbyop(title, 1, neg_op, 1, frames=neg_frames)
+    image_gap(title, rets[0]["pred_chw"], "neg-ray fast mode", 0.1, 5e-4)
+    l_rows, l_w4, l_scale, l_kw = captured[0]
+    check(same_bits(ql.quad_lerp_rows_vcp(l_rows, l_w4, l_scale, **l_kw),
+                    ql.quad_lerp_rows_vcp_plain(l_rows, l_w4, l_scale, **l_kw)),
+          f"quad_lerp_rows_vcp differs from plain on the {title} frame's rows")
+    log(f"# quad_lerp_rows_vcp vs plain, {title} frame 0 rows {tuple(l_rows.shape)} "
+        f"{l_rows.dtype}: bitwise equal")
+    for k in kernels:
+        if k["name"] == "quad_lerp_rows_vcp":
+            k["launches"] += 1
+    del captured, l_rows, l_w4, rets, neg_op, neg_frames
+    torch.cuda.empty_cache()
+
     # ---- small-input reference: 128^2 on the card and on the CPU ----
     card_vs_cpu_128("op-by-op fast mode", 0.05, ray_cap=16384, pallas_point=False)
     card_vs_cpu_128("fast mode", 0.05, ray_cap=16384)
@@ -946,6 +1016,27 @@ def main():
     for k in kernels:
         if k["name"] == "point_stages[a]":
             k["launches"] += eval_launches
+    torch.cuda.empty_cache()
+    train_phase(card, profile, neg=True)
+    torch.cuda.empty_cache()
+
+    # ---- phase 6: the inference CLI, a process of its own ----
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tools", "inference_torch.py"), "--cfg",
+         os.path.join(ROOT, "configs", "synthetic.yaml"), "render.file", "demo_render",
+         "render.resume_path", CKPT, "dataset.test.sampler", "FrameSampler",
+         "head.sigma.code_dim", "32", "result_dir", os.path.join(ROOT, "results", "chip_smoke_cli")],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(cli.returncode == 0, f"inference CLI exited {cli.returncode}: {cli.stderr[-3000:]}")
+    for line in cli.stdout.splitlines():
+        if line.startswith(("mse: ", "psnr: ", "ssim: ", "overflows", "avg ")):
+            log(f"# inference CLI: {line}")
+    cli_psnr = float([x for x in cli.stdout.splitlines() if x.startswith("psnr: ")][-1].split()[1])
+    log(f"# inference CLI on {card}: tools/inference_torch.py --cfg configs/synthetic.yaml "
+        f"(FrameSampler, 2 frames at 512^2) exited 0 in {time.perf_counter() - t0:.1f} s, "
+        f"PSNR {cli_psnr:.3f} dB")
+    check(cli_psnr >= 20.0, f"inference CLI PSNR {cli_psnr:.3f} < 20 dB")
 
     log(f"# total {time.perf_counter() - t_all:.1f} s")
     check(len(kernels) == 9 and all(k["launches"] >= 1 for k in kernels),

@@ -20,6 +20,8 @@ def register(kind: str, name: str, builder: Callable) -> Callable:
 def get(kind: str, name: str) -> Callable:
     name = _ALIASES.get((kind, name), name)
     import gpnerf_tpu_torch.data.synthetic_dataset  # noqa: F401
+    import gpnerf_tpu_torch.data.thuman  # noqa: F401
+    import gpnerf_tpu_torch.data.zjumocap  # noqa: F401
     import gpnerf_tpu_torch.render.base  # noqa: F401
     import gpnerf_tpu_torch.render.demo  # noqa: F401
     import gpnerf_tpu_torch.train.criterion  # noqa: F401

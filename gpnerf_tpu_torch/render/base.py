@@ -16,9 +16,14 @@ once and queried per ray chunk through per-level index volumes
   * `render_eval_fn`: the padded box rays of a whole image in chunks of
     `eval_chunk`, no jitter, running statistics, no autograd.
 
+THuman's neg-ray convention (scene points at negative camera z, ray
+t-parameters negative) is on for the training render when
+`dataset.train.name` holds "thuman" and for the eval render when
+`dataset.test.name` does: the view mask tests z < 0 and the composite
+flips the sample order (reference BaseRender.py:86-88).
+
 Out of scope, refused by `build_render` with the key named: the bf16
-training dtype, neg-ray (THuman) rays and the mesh branch
-(`head.rgb.use_rgbhead False`).
+training dtype and the mesh branch (`head.rgb.use_rgbhead False`).
 """
 
 from __future__ import annotations
@@ -148,10 +153,13 @@ class Renderer(nn.Module):
     """The training renderer; see the module docstring."""
 
     def __init__(self, encoder, nerfhead, *, voxel_size, max_out_sh, n_samples=64,
-                 eval_chunk=8192, occupancy_cull=False):
+                 eval_chunk=8192, occupancy_cull=False, neg_ray_train=False,
+                 neg_ray_val=False):
         super().__init__()
         self.encoder = encoder
         self.nerfhead = nerfhead
+        self.neg_ray_train = bool(neg_ray_train)
+        self.neg_ray_val = bool(neg_ray_val)
         self.voxel_size = tuple(float(v) for v in voxel_size)
         self.max_out_sh = tuple(int(v) for v in max_out_sh)
         self.n_samples = int(n_samples)
@@ -214,7 +222,7 @@ class Renderer(nn.Module):
         return {"sparse": (level_feats, index_vols, shapes)}
 
     def render_chunk(self, query_ctx, pre, batch, src_unnorm, featmaps, rays_o, rays_d,
-                     near, far, *, perturb, generator=None, t_rand=None):
+                     near, far, *, neg_ray, perturb, generator=None, t_rand=None):
         """One ray chunk through sampling, projection, heads and
         compositing (reference render_rays, BaseRender.py:110-157)."""
         H, W = batch["src_imgs"].shape[1:3]
@@ -224,7 +232,7 @@ class Renderer(nn.Module):
         nr = pts.shape[0]
         dhw_vox = points_to_dhw_vox(pts, batch, self.voxel_size)
         rgb_feat, mask = project_and_gather(pts.reshape(-1, 3), pre["KE"], src_unnorm,
-                                            featmaps, H, W)
+                                            featmaps, H, W, neg_ray=neg_ray)
         rgb_feat = rgb_feat.reshape(nr, self.n_samples, -1, rgb_feat.shape[-1])
         mask = mask.reshape(nr, self.n_samples, -1)
         pixel_mask = mask.sum(dim=2) > 1  # seen by at least 2 views
@@ -232,7 +240,7 @@ class Renderer(nn.Module):
             query_ctx, dhw_vox, pre["out_sh_t"], rgb_feat, mask[..., None],
             occupancy_cull=self.occupancy_cull)
         # compositing runs in float32: the cumprod accumulates over samples
-        comp = raw2outputs(raw.float(), z_vals, pixel_mask)
+        comp = raw2outputs(raw.float(), z_vals, pixel_mask, neg=neg_ray)
         rgb_in_map = (comp.weights[..., None, None] * rgb_in.float()).sum(dim=1)
         return {
             "rgb_map": comp.rgb_map,
@@ -245,10 +253,10 @@ class Renderer(nn.Module):
             "pixel_mask": comp.mask,
         }
 
-    def _frame(self, batch, train):
+    def _frame(self, batch, train, neg_ray):
         src = src_norm(batch["src_imgs"])
         featmaps = self.encoder(src)
-        pre = prepare_frame(batch, featmaps, self.max_out_sh)
+        pre = prepare_frame(batch, featmaps, self.max_out_sh, neg_ray=neg_ray)
         pre["out_sh_t"] = torch.as_tensor(np.asarray(batch["out_sh"]), device=featmaps.device)
         level_feats = self.nerfhead.volume(pre["smpl_feat"], pre["vertex_rows"], pre["grids"],
                                            train=train)
@@ -259,10 +267,11 @@ class Renderer(nn.Module):
         BatchNorms' running estimates move in place. `t_rand` (n_rays,
         n_samples) are the uniform jitter draws, else drawn from
         `generator`. Returns the render dict with `overflows`."""
-        src_unnorm, featmaps, pre, ctx = self._frame(batch, train=True)
+        neg_ray = self.neg_ray_train
+        src_unnorm, featmaps, pre, ctx = self._frame(batch, train=True, neg_ray=neg_ray)
         ret = self.render_chunk(ctx, pre, batch, src_unnorm, featmaps, batch["ray_o"],
-                                batch["ray_d"], batch["near"], batch["far"], perturb=True,
-                                generator=generator, t_rand=t_rand)
+                                batch["ray_d"], batch["near"], batch["far"], neg_ray=neg_ray,
+                                perturb=True, generator=generator, t_rand=t_rand)
         ret["overflows"] = pre["overflows"]
         return ret
 
@@ -275,7 +284,8 @@ class Renderer(nn.Module):
         """All padded box rays of the frame in chunks of eval_chunk, no
         jitter, running statistics. Returns rgb_map, depth_map, acc_map and
         rgb_in_map over the ray cap."""
-        src_unnorm, featmaps, pre, ctx = self._frame(batch, train=False)
+        neg_ray = self.neg_ray_val
+        src_unnorm, featmaps, pre, ctx = self._frame(batch, train=False, neg_ray=neg_ray)
         ray_cap = batch["ray_o"].shape[0]
         chunk = min(self.eval_chunk, ray_cap)
         if ray_cap % chunk:
@@ -287,7 +297,7 @@ class Renderer(nn.Module):
             sl = slice(s, s + chunk)
             out = self.render_chunk(ctx, pre, batch, src_unnorm, featmaps, batch["ray_o"][sl],
                                     batch["ray_d"][sl], batch["near"][sl], batch["far"][sl],
-                                    perturb=False)
+                                    neg_ray=neg_ray, perturb=False)
             for k in keys:
                 outs[k].append(out[k])
         return {k: torch.cat(v) for k, v in outs.items()}
@@ -306,11 +316,6 @@ def check_train_scope(cfg):
     if cfg.tpu.train_dtype != "float32":
         raise NotImplementedError(
             f"tpu.train_dtype={cfg.tpu.train_dtype!r}: the port trains in float32 only")
-    for split in ("train", "test"):
-        if "thuman" in cfg.dataset[split].name:
-            raise NotImplementedError(
-                f"dataset.{split}.name={cfg.dataset[split].name!r}: neg-ray (THuman) rays "
-                "are not ported")
     if not cfg.head.rgb.use_rgbhead:
         raise NotImplementedError(
             "head.rgb.use_rgbhead=False: the mesh branch is not ported")
@@ -340,6 +345,8 @@ def build_render(cfg, device="cuda"):
         n_samples=cfg.train.n_samples,
         eval_chunk=cfg.tpu.eval_chunk,
         occupancy_cull=cfg.tpu.base_occupancy_cull,
+        neg_ray_train="thuman" in cfg.dataset.train.name,
+        neg_ray_val="thuman" in cfg.dataset.test.name,
     )
     return r.to(device)
 

@@ -47,6 +47,16 @@ with one of `frame_mode`, `sigma_query_cull`, `int4_feat`, each with
 renderer switch raises NotImplementedError naming the key. As in the JAX
 package, `int4_feat` stores the int8 table off the fused path.
 
+Every mode also renders THuman's neg-ray convention (`dataset.test.name`
+holding "thuman"): scene points lie at negative camera z and the rays'
+t-parameters are negative, so ascending t runs back to front. The view
+masks test z < 0, and the cull walks each ray's sample grid in descending
+index (the bin rows flipped, the tap's candidates from the far end), so
+the K kept slots are still the nearest survivors and the composite runs
+front to back. As in the JAX package, the windowless `frame_mode` needs
+ascending traversal and is inert under neg-ray: the render takes the tap
+and the dense slots.
+
 `stop_stage` (one of STOP_STAGES) ends a render after the named stage and
 returns None; `Renderer.profile` times those prefixes.
 
@@ -175,7 +185,8 @@ class Renderer(nn.Module):
                  max_out_sh=(96, 320, 224), compute_dtype=None,
                  tight_cull=True, splat_cap=0, frame_mode=False,
                  sigma_query_cull=False, int4_feat=False, kernel_octet=True,
-                 pallas_point=True, pallas_lerp=True, proj_vp_order=False):
+                 pallas_point=True, pallas_lerp=True, proj_vp_order=False,
+                 neg_ray_val=False):
         super().__init__()
         if not tight_cull and samples_per_ray != n_samples:
             raise NotImplementedError(
@@ -207,6 +218,8 @@ class Renderer(nn.Module):
         self.pallas_point = bool(pallas_point)
         self.pallas_lerp = bool(pallas_lerp)
         self.proj_vp_order = bool(proj_vp_order)
+        # THuman's convention (see the module docstring)
+        self.neg_ray_val = bool(neg_ray_val)
         self.encoder = encoder
         self.nerfhead = nerfhead
         self.voxel_size = tuple(float(v) for v in voxel_size)
@@ -409,7 +422,7 @@ class Renderer(nn.Module):
         dt = self.compute_dtype
         dev = featmaps.device
         src_unnorm = src_norm(batch["src_imgs"]) * 0.5 + 0.5
-        pre = prepare_frame(batch, featmaps, self.max_out_sh)
+        pre = prepare_frame(batch, featmaps, self.max_out_sh, neg_ray=self.neg_ray_val)
         H, W = batch["tar_img"].shape[0:2]
         grids = pre["grids"]
         o = np.asarray(pre["out_sh"])
@@ -547,15 +560,18 @@ class Renderer(nn.Module):
         """The blanket cull (demo_render.py:270-283, equivalent-or-looser):
         sample s of ray r survives iff the nearest level-1 voxel of the
         one-voxel-dilated occupancy volume is set. Positions are computed per
-        ray as (S, R) component planes. Returns (S, R) bool. (The JAX
+        ray as (S, R) component planes, in traversal order (row w is sample
+        S - 1 - w under neg-ray). Returns (S, R) bool. (The JAX
         package gathers u32 words and shifts the byte out, a TPU gather
         workaround; here the tap reads the byte directly.)"""
         S = self.n_samples
         occb = tables["occb"]
         rays_o, rays_d = rd["rays_o"], rd["rays_d"]
         dev = rays_o.device
-        t = torch.arange(S, dtype=torch.float32, device=dev)[:, None] / torch.full(
-            (), float(S - 1), device=dev)
+        s = torch.arange(S, dtype=torch.float32, device=dev)[:, None]
+        if self.neg_ray_val:
+            s = (S - 1) - s
+        t = s / torch.full((), float(S - 1), device=dev)
         z = rd["near"][None, :] * (1.0 - t) + rd["far"][None, :] * t  # (S, R)
         Rh, Th = batch["Rh"], batch["Th"].reshape(3)
         min_xyz, vs, out_sh = batch["bounds"][0], tables["voxel_size"], pre["out_sh"]
@@ -587,7 +603,8 @@ class Renderer(nn.Module):
         dev = rays_o.device
         s_max = torch.full((), float(S - 1), device=dev)
         n_sigma = None
-        if self.frame_mode:
+        neg = self.neg_ray_val
+        if self.frame_mode and not neg:
             # windowless frame (K == S): no tap, no rank compaction; the
             # trilinear level-1 occupancy cull comes from the kernel
             slot = torch.arange(K, dtype=torch.float32, device=dev)[:, None].expand(K, nr)
@@ -596,7 +613,10 @@ class Renderer(nn.Module):
             mask_from_query = True
         else:
             if rd["bins"] is not None:
-                ok = (rd["bins"].T > 0) & ray_ok[None, :]  # (S, R)
+                ok = rd["bins"].T > 0  # (S, R), ascending sample index
+                if neg:
+                    ok = ok.flip(0)  # traversal order: front to back
+                ok = ok & ray_ok[None, :]
             else:
                 ok = self._occupancy_tap(batch, pre, tables, rd)
             if stop_stage == "cull_occ":
@@ -614,6 +634,8 @@ class Renderer(nn.Module):
             if stop_stage == "cull_slots":
                 return None
             slot = slot_rel.clamp_max(S - 1).float()
+            if neg:
+                slot = (S - 1) - slot
             mask_from_query = self.sigma_query_cull
         t = slot / s_max
         z = rd["near"][None, :] * (1.0 - t) + rd["far"][None, :] * t
@@ -664,11 +686,12 @@ class Renderer(nn.Module):
         if "feat_quad" in tables:
             rgb_feat, view_mask = project_and_gather_quad(
                 pts_c, pre["KE"], tables["src_quad"], tables["feat_quad"], Hs, Ws,
-                src_scale=tables["src_scale"], feat_scale=tables["feat_scale"])
+                neg_ray=self.neg_ray_val, src_scale=tables["src_scale"],
+                feat_scale=tables["feat_scale"])
             feat_dt = None  # quantized split tables lerp in float32
         else:
             rgb_feat, view_mask = project_and_gather_quad_merged(
-                pts_c, pre["KE"], tables["src_quad"], Hs, Ws,
+                pts_c, pre["KE"], tables["src_quad"], Hs, Ws, neg_ray=self.neg_ray_val,
                 scale=tables["proj_scale"], out_dtype=dt,
                 vp_order=self.proj_vp_order, kernel=self.pallas_lerp)
             feat_dt = dt
@@ -738,13 +761,14 @@ class Renderer(nn.Module):
                 sig_ok = sig_ok & (feats[:, :nch].sum(dim=-1) > 0)
         Hs, Ws = batch["src_imgs"].shape[1:3]
         rows, w4, vmask = project_gather_rows_merged(
-            pts_c, pre["KE"], tables["src_quad"], Hs, Ws
+            pts_c, pre["KE"], tables["src_quad"], Hs, Ws, neg_ray=self.neg_ray_val
         )
         if "feat_quad" in tables:
             # split tables, both lerped in the kernel; the view mask is
             # projection-only and the same for both
             rows_f, w4_f, _ = project_gather_rows_merged(
-                pts_c, pre["KE"], tables["feat_quad"], Hs, Ws, batched=True
+                pts_c, pre["KE"], tables["feat_quad"], Hs, Ws, neg_ray=self.neg_ray_val,
+                batched=True
             )
             tabs = ((rows, w4, tables["src_scale"]), (rows_f, w4_f, tables["feat_scale"]))
         else:
@@ -801,8 +825,6 @@ def build_render(cfg, device="cuda"):
     switches select, with untrained parameters (load weights with
     train/checkpoint.py)."""
     check_mode(cfg)
-    if "thuman" in cfg.dataset.test.name:
-        raise NotImplementedError("neg-ray (THuman) rendering is not ported")
     if not cfg.head.rgb.use_rgbhead:
         raise NotImplementedError("the mesh path (use_rgbhead False) is not ported")
     dtypes = {"bfloat16": torch.bfloat16, "float32": None}
@@ -838,6 +860,7 @@ def build_render(cfg, device="cuda"):
         pallas_point=cfg.tpu.pallas_point,
         pallas_lerp=cfg.tpu.pallas_lerp,
         proj_vp_order=cfg.tpu.proj_vp_order,
+        neg_ray_val="thuman" in cfg.dataset.test.name,
     )
     return r.to(device).eval()
 

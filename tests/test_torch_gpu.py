@@ -204,9 +204,15 @@ def test_kernel_refuses_forms_without_instantiation():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode", ["fast", "reference", "frame_mode"])
+@pytest.mark.parametrize("mode", ["fast", "reference", "frame_mode", "neg fast",
+                                  "neg reference"])
 def test_render_on_card_matches_cpu(mode):
+    """128^2 renders on the card against the CPU; "neg" modes render the
+    `thuman-synthetic` frame (THuman's neg-ray convention), whose ray masks
+    and ray and sample counts must be identical on both devices."""
     dev = _cuda()
+    neg = mode.startswith("neg ")
+    mode = mode.split()[-1]
     from gpnerf_tpu_torch.config import cfg as base
     from gpnerf_tpu_torch.registry import get
     from gpnerf_tpu_torch.render.base import batch_to_device
@@ -227,6 +233,8 @@ def test_render_on_card_matches_cpu(mode):
         cfg.tpu.merge_lowres_src = False
         cfg.tpu.ray_cap = 9216
         cfg.tpu.frame_mode = mode == "frame_mode"
+    if neg:
+        cfg.dataset.test.name = "thuman-synthetic"
     cfg.freeze()
     np.random.seed(0)
     random.seed(0)
@@ -234,9 +242,14 @@ def test_render_on_card_matches_cpu(mode):
     outs = {}
     for d in (dev, torch.device("cpu")):
         r = load_eval_model(CKPT, get("render", "demo_render")(cfg, device=d))
+        assert r.neg_ray_val == neg
         outs[d.type] = {k: v.cpu() for k, v in r.render_demo_fn()(batch_to_device(batch, d)).items()}
     g, c = outs["cuda"], outs["cpu"]
     assert (g["mask_at_box"] == c["mask_at_box"]).float().mean() > 0.999
+    if neg:
+        assert torch.equal(g["mask_at_box"], c["mask_at_box"])
+        assert torch.equal(g["counts"][:2], c["counts"][:2])
+        assert torch.equal(g["overflows"], c["overflows"])
     np.testing.assert_array_equal(g["overflows"].numpy()[[0, 2, 3]], 0)
     assert abs(int(g["counts"][2]) - int(c["counts"][2])) <= 0.001 * int(c["counts"][2])
     m = g["mask_at_box"] & c["mask_at_box"]

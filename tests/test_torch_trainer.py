@@ -28,6 +28,7 @@ from gpnerf_tpu_torch.train.criterion import Criterion
 from gpnerf_tpu_torch.train.step import make_optimizer
 from gpnerf_tpu_torch.train.trainer import Trainer
 from gpnerf_tpu_torch.utils.logging_utils import create_logger
+from test_dataset_fixtures import thuman_root  # noqa: F401  (a fixture)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SMALL = {
@@ -199,13 +200,24 @@ def test_render_eval_matches_jax():
 
 @pytest.mark.parametrize("key,value,match", [
     ("tpu.train_dtype", "bfloat16", "tpu.train_dtype"),
-    ("dataset.train.name", "thuman", "dataset.train.name"),
-    ("dataset.test.name", "thuman-synthetic", "dataset.test.name"),
     ("head.rgb.use_rgbhead", False, "head.rgb.use_rgbhead"),
     ("tpu.dp_size", 2, "tpu.dp_size"),
+    # neg-ray (THuman) data, refused before the neg-ray slice: now in scope,
+    # it sets the renderer's flag of its split (tests/test_torch_negray.py
+    # holds the renders against JAX)
+    pytest.param("dataset.train.name", "thuman", None,
+                 id="dataset.train.name-thuman-dataset.train.name"),
+    pytest.param("dataset.test.name", "thuman-synthetic", None,
+                 id="dataset.test.name-thuman-synthetic-dataset.test.name"),
 ])
 def test_out_of_scope_switches_raise(key, value, match):
     cfg = small_cfg(port_cfg, **{key: value})
+    if match is None:
+        check_train_scope(cfg)
+        r = build_render(cfg, device="cpu")
+        assert (r.neg_ray_train, r.neg_ray_val) == (key == "dataset.train.name",
+                                                   key == "dataset.test.name")
+        return
     with pytest.raises(NotImplementedError, match=match):
         check_train_scope(cfg)
     with pytest.raises(NotImplementedError, match=match):
@@ -236,3 +248,29 @@ def test_train_cli(tmp_path, monkeypatch):
                   "train.max_epoch", "0", "train.val_when_train", "False", "workers", "0"])
     assert done.value.code == 0
     assert os.path.isdir(tmp_path / "work_dirs") and os.path.isdir(tmp_path / "logs")
+
+
+def test_train_cli_thuman_with_zju_val(tmp_path, monkeypatch, capsys, thuman_root,  # noqa: F811
+                                       zju_root):
+    """tools/train_torch.py on configs/trainthu_valzju.yaml, the paper's
+    cross-dataset config: neg-ray training on the fabricated THuman tree,
+    quick_val on the fabricated ZJU-MoCap tree, both through the registry's
+    datasets, at the small size (ratio 0.125: THuman 256 -> 32, ZJU 1024 ->
+    128). Two steps, one quick_val, exit 0."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "train_torch", os.path.join(ROOT, "tools", "train_torch.py"))
+    cli = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cli)
+    monkeypatch.chdir(tmp_path)
+    small = [str(x) for k, v in SMALL.items() if not k.startswith("dataset.") for x in (k, v)]
+    with pytest.raises(SystemExit) as done:
+        cli.main(["--cfg", os.path.join(ROOT, "configs", "trainthu_valzju.yaml"), "device", "cpu",
+                  *small, "dataset.ratio", "0.125", "dataset.train.data_root", thuman_root,
+                  "dataset.test.data_root", zju_root, "dataset.test.seq_list", "['CoreView_387']",
+                  "train.ep_iter", "2", "train.max_epoch", "0", "train.valiter_interval", "2",
+                  "workers", "0"])
+    assert done.value.code == 0
+    logged = "".join(capsys.readouterr())
+    assert "rgb_loss:" in logged and "psnr:" in logged  # the quick_val line

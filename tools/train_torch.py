@@ -9,10 +9,14 @@ dataset.W 128 train.n_rays 256 train.n_samples 8`); a YAML file's `device`
 key is the JAX package's platform choice and does not move the port off the
 card. Without a CUDA device and without `device cpu` the script raises.
 
-Switches the port does not implement raise NotImplementedError naming the
-key (render/base.check_train_scope, data/loader.build_batchsampler): bf16
-training, neg-ray (THuman) data, the mesh branch, data parallelism. Float32
-is float32: TF32 is off for matmuls and cuDNN convolutions.
+The datasets are the registry's: the synthetic fixture, ZJU-MoCap
+(`ZjumocapDataset`) and THuman (`CustomDataset`, whose neg-ray convention
+a dataset name holding "thuman" turns on), as in configs/trainzju_valzju.yaml
+and configs/trainthu_valzju.yaml. Switches the port does not implement
+raise NotImplementedError naming the key (render/base.check_train_scope,
+data/loader.build_batchsampler): bf16 training, the mesh branch, data
+parallelism, several frames per step. Float32 is float32: TF32 is off for
+matmuls and cuDNN convolutions.
 """
 
 from __future__ import annotations
@@ -47,8 +51,8 @@ def select_device(opts):
     if pairs.get("device") == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: train on the GPU, or pass `device cpu` to train "
-                           "on the CPU")
+        raise RuntimeError("no CUDA device: run on the GPU, or pass `device cpu` to run on "
+                           "the CPU")
     return torch.device("cuda")
 
 
