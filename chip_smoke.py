@@ -8,9 +8,9 @@ Run from the root of a checkout, with no arguments:
 
 Phases, each fatal on failure:
   1. device and power limit; build every CUDA kernel from
-     gpnerf_tpu_torch/csrc/: the six instantiations of the point-stage
-     kernel, the quad-lerp kernels and the row gather (one nvcc each, all
-     started together);
+     gpnerf_tpu_torch/csrc/: the fifteen instantiations of the point-stage
+     kernel (ops/point_stages.FORMS), the quad-lerp kernels and the row
+     gather (one nvcc each, all started together);
   2. each kernel against its plain PyTorch version on the card: seeded
      random inputs (the quad lerps at a ragged P for int8 and float32 rows
      and the row gather at the microbenchmark's shape, bitwise), then the
@@ -26,12 +26,25 @@ Phases, each fatal on failure:
      sigma_query_cull image. Plus, for the fast and the reference mode, a
      128^2 frame rendered on the card and on the CPU (plain versions) that
      must agree;
+  3d. the paper configs' projection tables (split, under the tight cull) on
+     3 frames with per-frame CUDA-event times, and one frame each of the
+     other table choices and switch pairs, every point-stage instantiation
+     held against its plain version on its frame's captured inputs:
+     merge_src_feat and quantize_proj off (merged: a:bf16; split:
+     c:u8/bf16), sigma_query_cull in the fast mode (a+e; split tables c+e),
+     int4_feat on split tables (c+d), the reference mode's frame_mode +
+     int4_feat (c+d+e), int4_feat + kernel_octet off (b+c+d) and merged
+     tables (a), float source images (c:bf16/i8), and under float32
+     merge_src_feat (a:f32), quantize_proj off (c:u8/f32) and float
+     sources (c:f32/i8);
   3b. the op-by-op point stages (pallas_point off): 3 frames of the fast
      mode through the quad-lerp kernel (exactly one launch per frame, no
      point-stage launch), held against the fused fast mode's image; the
      kernel on the frame's captured rows against plain and against its flat
      channel-major twin, bitwise; one frame each of the torch-op routes
      (pallas_lerp off, proj_vp_order) and of the op-by-op reference mode;
+     one frame under merge_src_feat, whose bf16 rows go through the
+     quad-lerp kernel (bitwise against plain, timed);
      `Renderer.profile`; the gather microbenchmark
      (gpnerf_tpu_torch/utils/bench_gather.py) through the row-gather kernel;
      a 128^2 op-by-op frame on the card against the CPU;
@@ -186,7 +199,7 @@ def random_point_inputs(form, P, device, seed=0):
 
     from gpnerf_tpu_torch.ops.point_stages import C, C0, C1, CF, CS, V
 
-    proj, use_feats, occ = form
+    rows, use_feats, occ = form
     g = torch.Generator(device=device).manual_seed(seed)
 
     def rand(*s):
@@ -198,16 +211,20 @@ def random_point_inputs(form, P, device, seed=0):
     def w4():
         return rand(V, 4, P) * (rand(V, 4, P) > 0.1)
 
-    if proj == "merged_i8":
-        tabs = ((ints(-127, 128, V * P, 4 * C, dtype=torch.int8), w4(), 0.02 + rand(C) * 0.05),)
-    else:
-        feat_rows = (ints(0, 256, V * P, 2 * CF, dtype=torch.uint8) if proj == "split_i4"
-                     else ints(-127, 128, V * P, 4 * CF, dtype=torch.int8))
-        tabs = (
-            (ints(0, 256, V * P, 4 * CS, dtype=torch.uint8), w4(),
-             torch.full((CS,), 1.0 / 255.0, device=device)),
-            (feat_rows, w4(), 0.02 + rand(CF) * 0.05),
-        )
+    def table(kind, Ct):
+        """(rows, w4, scale) of one projection table of Ct channels."""
+        if kind == "i8":
+            return ints(-127, 128, V * P, 4 * Ct, dtype=torch.int8), w4(), 0.02 + rand(Ct) * 0.05
+        if kind == "i4":
+            return ints(0, 256, V * P, 2 * Ct, dtype=torch.uint8), w4(), 0.02 + rand(Ct) * 0.05
+        if kind == "u8":
+            return (ints(0, 256, V * P, 4 * Ct, dtype=torch.uint8), w4(),
+                    torch.full((Ct,), 1.0 / 255.0, device=device))
+        vals = torch.randn(V * P, 4 * Ct, generator=g, device=device) * 0.5
+        dt = torch.bfloat16 if kind == "bf16" else torch.float32
+        return vals.to(dt), w4(), torch.ones(Ct, device=device)
+
+    tabs = (table(rows[0], C),) if len(rows) == 1 else (table(rows[0], CS), table(rows[1], CF))
     kw, feats = {}, None
     if use_feats:
         feats = torch.randn(P, C0 + C1, generator=g, device=device) * 0.5
@@ -791,6 +808,46 @@ def main():
         "(the tap keeps the blanket's fringe samples)")
     check(float(m.max()) < 1e-3, "frame_mode and dense slots + sigma_query_cull images differ")
 
+    # ---- phase 3d: the paper configs' tables and the switch pairs ----
+    # configs/trainzju_valzju.yaml and trainthu_valzju.yaml leave
+    # merge_lowres_src off: split tables under the tight cull, form (c) at
+    # the fast mode's P
+    paper = make_render(512, "bfloat16", "cuda", merge_lowres_src=False)[1]
+    run_mode("paper tables (split, tight cull)", "c", 3, paper)
+    fn_paper = paper.render_demo_fn()
+    per_frame = [cuda_ms(lambda: fn_paper(b), 3) for b in batches[:3]]
+    log(f"# timing on {card}: paper tables (split, tight cull) ms per frame "
+        + " ".join(f"{t:.3f}" for t in per_frame) + " (CUDA events, 3 renders of each frame)")
+    del paper, fn_paper
+    float_src = [dict(b, src_imgs=b["src_imgs"].float() / 127.5 - 1.0) for b in batches]
+    for title, form_name, dtype, extra, frames in (
+        ("merge_src_feat", "a:bf16", "bfloat16", {"merge_src_feat": True}, None),
+        ("quantize_proj off, merged", "a:bf16", "bfloat16", {"quantize_proj": False}, None),
+        ("quantize_proj off, split", "c:u8/bf16", "bfloat16",
+         {"quantize_proj": False, "merge_lowres_src": False}, None),
+        ("fast mode, sigma_query_cull", "a+e", "bfloat16", {"sigma_query_cull": True}, None),
+        ("fast mode, sigma_query_cull, split tables", "c+e", "bfloat16",
+         {"sigma_query_cull": True, "merge_lowres_src": False}, None),
+        ("split tables, int4_feat", "c+d", "bfloat16",
+         {"int4_feat": True, "merge_lowres_src": False}, None),
+        ("reference mode, frame_mode + int4_feat", "c+d+e", "bfloat16",
+         {**REF_MODE, "frame_mode": True, "int4_feat": True}, None),
+        ("reference mode, int4_feat + kernel_octet off", "b+c+d", "bfloat16",
+         {**REF_MODE, "int4_feat": True, "kernel_octet": False}, None),
+        ("reference mode, merge_lowres_src", "a", "bfloat16",
+         {**REF_MODE, "merge_lowres_src": True}, None),
+        ("float src_imgs, split tables", "c:bf16/i8", "bfloat16",
+         {"merge_lowres_src": False}, (float_src, pos_host)),
+        ("float32, merge_src_feat", "a:f32", "float32", {"merge_src_feat": True}, None),
+        ("float32, quantize_proj off, split", "c:u8/f32", "float32",
+         {"quantize_proj": False, "merge_lowres_src": False}, None),
+        ("float32, float src_imgs, split tables", "c:f32/i8", "float32",
+         {"merge_lowres_src": False}, (float_src, pos_host)),
+    ):
+        run_mode(title, form_name, 1, make_render(512, dtype, "cuda", **extra)[1], frames=frames)
+        torch.cuda.empty_cache()
+    del float_src
+
     # ---- phase 3b: the op-by-op point stages ----
     def run_opbyop(title, n_frames, render, lerp_launches, frames=None):
         """Drive an op-by-op mode over the first n_frames frames (of
@@ -940,6 +997,42 @@ def main():
     del rets, op_ref
     torch.cuda.empty_cache()
 
+    # op-by-op under merge_src_feat: the full-resolution merged table's bf16
+    # rows through the quad-lerp kernel
+    title = "op-by-op fast mode, merge_src_feat"
+    op_src = make_render(512, "bfloat16", "cuda", pallas_point=False, merge_src_feat=True)[1]
+    captured = []
+    ql.quad_lerp_rows_vcp = capture_vcp
+    try:
+        op_src.render_demo_fn()(batches[0])
+    finally:
+        ql.quad_lerp_rows_vcp = real_vcp
+    check(len(captured) == 1 and captured[0][0].dtype == torch.bfloat16,
+          f"{title}: one quad lerp of bf16 rows per frame")
+    rets = run_opbyop(title, 1, op_src, 1)
+    bf_launches = ql.LAUNCHES["quad_lerp_rows_vcp"]
+    image_gap(title, rets[0]["pred_chw"], "merge_src_feat", 0.1, 5e-4)
+    l_rows, l_w4, l_scale, l_kw = captured[0]
+    l_out = ql.quad_lerp_rows_vcp(l_rows, l_w4, l_scale, **l_kw)
+    l_plain = ql.quad_lerp_rows_vcp_plain(l_rows, l_w4, l_scale, **l_kw)
+    check(same_bits(l_out, l_plain), f"quad_lerp_rows_vcp differs from plain on the {title} rows")
+    k_ms = cuda_ms(lambda: ql.quad_lerp_rows_vcp(l_rows, l_w4, l_scale, **l_kw), 20)
+    p_ms = cuda_ms(lambda: ql.quad_lerp_rows_vcp_plain(l_rows, l_w4, l_scale, **l_kw), 5)
+    nb, bound_ms, bound_by = lerp_cost(l_rows, l_w4, l_scale, l_out)
+    log(f"# timing on {card}: quad_lerp_rows_vcp kernel {k_ms:.4f} ms at rows {tuple(l_rows.shape)} "
+        f"{l_rows.dtype} -> {l_out.dtype} ({title}, bitwise equal to plain), plain {p_ms:.3f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}, {nb / 1e6:.1f} MB)")
+    kernels.append({
+        "name": "quad_lerp_rows_vcp[bf16 rows]", "route": "cuda",
+        "source": "gpnerf_tpu_torch/csrc/quad_lerp.cu",
+        "replaces": "gpnerf_tpu/ops/pallas_lerp.py:125", "launches": bf_launches,
+        "max_abs_err": float((l_out.float() - l_plain.float()).abs().max()),
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes the lerp
+    })
+    del captured, l_rows, l_w4, l_out, l_plain, rets, op_src
+    torch.cuda.empty_cache()
+
     # the gather microbenchmark, through the row-gather kernel
     rg.LAUNCHES.clear()
     bench = bench_gather.run("cuda")
@@ -1039,7 +1132,10 @@ def main():
     check(cli_psnr >= 20.0, f"inference CLI PSNR {cli_psnr:.3f} < 20 dB")
 
     log(f"# total {time.perf_counter() - t_all:.1f} s")
-    check(len(kernels) == 9 and all(k["launches"] >= 1 for k in kernels),
+    want = {f"point_stages[{n}]" for n in ps.FORMS.values()} | {
+        "quad_lerp_rows_vcp", "quad_lerp_rows_vcp[bf16 rows]", "quad_lerp_rows_cm", "row_gather"}
+    check(len(kernels) == len(want) == 19 and {k["name"] for k in kernels} == want
+          and all(k["launches"] >= 1 for k in kernels),
           f"kernels line: {[(k['name'], k['launches']) for k in kernels]}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,17 +1,24 @@
 // Point-stage megakernel of the progressive renderer, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel gpnerf_tpu/ops/pallas_point.py::_point_kernel
-// (called through fused_point_stages_tabs) in every form that kernel has.
-// One source, one instantiation per compilation, chosen by three macros:
-//   PS_PROJ  0  one merged int8 [rgb|feat] quad table (C = 35 channels, 4
-//               bilinear taps per row): the fast render mode, form (a);
-//            1  split tables, form (c): u8 full-resolution source rgb quad
-//               rows (12 bytes, dequant 1/255) + int8 feature-grid quad rows
-//               (128 bytes), each with its own tap weights, lerped and
-//               concatenated to the same [rgb 3 | feat 32] channel order;
-//            2  as 1 with int4 split-packed feature rows, form (d): 64
-//               bytes, tap k in bytes [16k, 16k+16), byte j = channel j (low
-//               nibble) and channel j + 16 (high nibble), two's complement,
+// (called through fused_point_stages_tabs) in the forms the renderer
+// reaches. One source, one instantiation per compilation, chosen by four
+// macros:
+//   PS_ROW_A, PS_ROW_B  the element type of each projection table's quad
+//               rows (enum Row: 1 int8, 2 uint8, 3 int4 split-packed, 4
+//               bf16, 5 float32); PS_ROW_B 0 means one table.
+//               One table: the merged [rgb|feat] table, C = 35 channels, 4
+//               bilinear taps per row: int8 codes with per-channel dequant
+//               (the fast mode, form (a)), or bf16 / float32 rows with a
+//               unit scale (merge_src_feat, or quantize_proj off).
+//               Two tables, form (c): the source rgb rows (3 channels: the
+//               raw u8 pixels with a 1/255 dequant, or bf16 / float32
+//               values) and the feature-grid rows (32 channels: int8 codes,
+//               int4 codes (form (d)), or bf16 / float32 values), each with
+//               its own tap weights, lerped and concatenated to the same
+//               [rgb 3 | feat 32] channel order. int4 rows are 64 bytes: tap
+//               k in bytes [16k, 16k+16), byte j = channel j (low nibble)
+//               and channel j + 16 (high nibble), two's complement,
 //               sign-extended as (n ^ 8) - 8;
 //   PS_FEATS 0  geometry lerped in the kernel from two tables: the u8
 //               level-1 octet rows (8 corners x 32 channels) and the int8
@@ -22,7 +29,9 @@
 //               (the trilinear occupancy), and that 0/1 verdict is written
 //               to a third output. All terms of the sum are non-negative, so
 //               the verdict does not depend on the order of the sum.
-// V = 3 source views throughout.
+// V = 3 source views throughout. Float rows are rounded to bf16 before the
+// tap sum, as the TPU kernel casts every row (pallas_point.py _to_bf16);
+// bf16 rows are used as they are.
 //
 // Per point p it computes what the TPU kernel computes:
 //   rgbfeat[v][c] = (sum_k rows[v*P+p][k*Ct+c] * w4[v][k][p]) * scale[c]
@@ -45,12 +54,14 @@
 //   form (a) at the fast-mode shape, P = 13 * 24576 = 319,488: 420 quad-row
 //     bytes, 48 tap weights, 256 + 64 geometry-row bytes, 36 geometry
 //     weights, 12 view-mask bytes, 1 cull byte, 16 output bytes = 853 ->
-//     0.27 GB per frame, 81 us at 3.35 TB/s;
+//     0.27 GB per frame, 81 us at 3.35 TB/s; with bf16 rows 1,273 bytes,
+//     with float32 rows 2,113;
 //   form (c) at the reference-mode shape, P = 64 * 57344 = 3,670,016:
 //     3 * (12 + 128) row bytes, 96 tap weights, 356 geometry, 13 masks, 16
 //     out (20 with the occupancy verdict) = 901 -> 3.3 GB per frame, 0.99 ms;
 //     with int4 rows 709 bytes -> 2.6 GB, 0.78 ms; with the (P, 96) feature
-//     input 929 bytes.
+//     input 929 bytes; bf16 feature rows 1,285, float32 ones 2,053; bf16
+//     source rows 937, float32 ones 1,009.
 // About 1.1e5 flop per point: 35 us (fast shape) and 0.40 ms (reference
 // shape) at the 989 TFLOP/s bf16 tensor-core rate. So every form's bound is
 // its bytes once the MLPs run on tensor cores, which they do here; the
@@ -78,8 +89,13 @@
 // block: one block per SM. Lanes past P take part in every mma_sync on zero
 // rows, and skip their loads and their stores of outputs. Each thread reads
 // its own rows: in 16-byte words where they are 16-byte aligned (octet,
-// coarse and split feature rows), else in 32-bit words (the 140-byte merged
-// and 12-byte source rows); bytes or nibbles are extracted with shifts.
+// coarse and split int8 feature rows), else in 32-bit words (the 140-byte
+// merged and 12-byte source rows); bytes or nibbles are extracted with
+// shifts. Float rows (280 to 560 bytes) are streamed tap by tap, each tap's
+// channels summed into the lerp accumulators before the next tap is read,
+// so no whole row waits in registers: bf16 rows in 32-bit words (a merged
+// bf16 row is 280 bytes, so every other row sits 8 bytes off a 16-byte
+// boundary), float32 rows element by element.
 // Every offset is size_t: the feature rows of one reference-mode launch span
 // 1.4e9 bytes.
 //
@@ -97,8 +113,11 @@
 
 namespace {
 
-#ifndef PS_PROJ
-#define PS_PROJ 0
+#ifndef PS_ROW_A
+#define PS_ROW_A 1
+#endif
+#ifndef PS_ROW_B
+#define PS_ROW_B 0
 #endif
 #ifndef PS_FEATS
 #define PS_FEATS 0
@@ -110,7 +129,7 @@ namespace {
 namespace wmma = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
 
-enum Proj { MERGED_I8 = 0, SPLIT_I8 = 1, SPLIT_I4 = 2 };
+enum Row { NONE = 0, I8 = 1, U8 = 2, I4 = 3, BF16 = 4, F32 = 5 };
 
 constexpr int V = 3;
 constexpr int CS = 3;    // source rgb channels
@@ -253,10 +272,10 @@ __device__ __forceinline__ float snibble(uint32_t word, int n) {
 
 // Device pointers of one launch; tables a form does not read are null.
 struct Args {
-  const uint8_t* rows_a;  // merged int8 rows, or the u8 source rgb rows
+  const uint8_t* rows_a;  // the merged rows, or the source rgb rows
   const float* w4_a;
   const float* scale_a;
-  const uint8_t* rows_b;  // split forms: int8 or int4-packed feature rows
+  const uint8_t* rows_b;  // two tables: the feature rows
   const float* w4_b;
   const float* scale_b;
   const uint8_t* g0_rows;
@@ -286,10 +305,97 @@ __device__ __forceinline__ float lerp_bytes(const uint32_t (&wd)[NW], const floa
   return acc;
 }
 
-template <int PROJ, bool FEATS, bool OCC>
+// bytes of one quad row of CT channels stored as `row`
+__host__ __device__ constexpr int row_bytes(int row, int ct) {
+  return T * (row == I4 ? ct / 2 : row == BF16 ? 2 * ct : row == F32 ? 4 * ct : ct);
+}
+
+// bf16 bits -> float (exact)
+__device__ __forceinline__ float bf16_bits(uint32_t h) { return __uint_as_float(h << 16); }
+
+// One table's quad lerp + dequant for the point's row `vp`:
+// rf[off + c] = (sum_k row[k * CT + c] * tw[k]) * scale[c], c < CT, taps in
+// order with explicit roundings (the plain version's order). `off` is a
+// constant once the caller's view loop is unrolled, so rf stays in registers.
+template <int ROW, int CT>
+__device__ __forceinline__ void lerp_table(const uint8_t* rows, size_t vp, const float (&tw)[T],
+                                           const float* scale, float (&rf)[V * C], int off) {
+  constexpr int NB = row_bytes(ROW, CT);
+  const uint8_t* const base = rows + vp * NB;
+  if constexpr (ROW == I8 || ROW == U8 || ROW == I4) {
+    // the whole row in registers: 16-byte words where every row is 16-byte
+    // aligned, else 32-bit words
+    uint32_t wd[NB / 4];
+    if constexpr (NB % 16 == 0) {
+      const uint4* row = reinterpret_cast<const uint4*>(base);
+#pragma unroll
+      for (int j = 0; j < NB / 16; ++j) {
+        const uint4 q = __ldg(row + j);
+        wd[4 * j] = q.x, wd[4 * j + 1] = q.y, wd[4 * j + 2] = q.z, wd[4 * j + 3] = q.w;
+      }
+    } else {
+      const uint32_t* row = reinterpret_cast<const uint32_t*>(base);
+#pragma unroll
+      for (int j = 0; j < NB / 4; ++j) wd[j] = __ldg(row + j);
+    }
+    if constexpr (ROW == I4) {
+      constexpr int HB = CT / 2;  // bytes per tap
+#pragma unroll
+      for (int c = 0; c < CT; ++c) {
+        // channel c: byte c % HB of each tap, low nibble for c < HB
+        const int n0 = 2 * (c % HB) + c / HB;  // nibble index within the tap
+        float acc = __fmul_rn(snibble(wd[n0 >> 3], n0 & 7), tw[0]);
+#pragma unroll
+        for (int k = 1; k < T; ++k) {
+          const int n = 2 * k * HB + n0;
+          acc = __fadd_rn(acc, __fmul_rn(snibble(wd[n >> 3], n & 7), tw[k]));
+        }
+        rf[off + c] = __fmul_rn(acc, scale[c]);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < CT; ++c)
+        rf[off + c] = __fmul_rn(lerp_bytes<CT, ROW == I8>(wd, tw, c), scale[c]);
+    }
+  } else {
+    // float rows, tap by tap: element e = k * CT + c
+    static_assert(ROW == BF16 || ROW == F32, "row type");
+#pragma unroll
+    for (int k = 0; k < T; ++k) {
+      float x[CT];
+      if constexpr (ROW == BF16) {
+        // the 32-bit words holding elements k * CT .. k * CT + CT - 1 (every
+        // row starts on a 4-byte boundary: 8 * CT bytes)
+        constexpr int NWT = CT / 2 + 1;
+        const uint32_t* row = reinterpret_cast<const uint32_t*>(base);
+        const int w0 = (k * CT) >> 1, nw = ((k * CT + CT - 1) >> 1) - w0 + 1;
+        uint32_t wd[NWT];
+#pragma unroll
+        for (int j = 0; j < NWT; ++j) wd[j] = j < nw ? __ldg(row + w0 + j) : 0u;
+#pragma unroll
+        for (int c = 0; c < CT; ++c) {
+          const int e = k * CT + c;
+          x[c] = bf16_bits((wd[(e >> 1) - w0] >> (16 * (e & 1))) & 0xffffu);
+        }
+      } else {
+        const float* row = reinterpret_cast<const float*>(base);
+#pragma unroll
+        for (int c = 0; c < CT; ++c) x[c] = __bfloat162float(__float2bfloat16_rn(__ldg(row + k * CT + c)));
+      }
+#pragma unroll
+      for (int c = 0; c < CT; ++c)
+        rf[off + c] = k == 0 ? __fmul_rn(x[c], tw[0]) : __fadd_rn(rf[off + c], __fmul_rn(x[c], tw[k]));
+    }
+#pragma unroll
+    for (int c = 0; c < CT; ++c) rf[off + c] = __fmul_rn(rf[off + c], scale[c]);
+  }
+}
+
+template <int RA, int RB, bool FEATS, bool OCC>
 __global__ void __launch_bounds__(BLOCK) point_stages_kernel(const Args a, int P) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int CA = PROJ == MERGED_I8 ? C : CS;  // channels of table a
+  constexpr int CA = RB == NONE ? C : CS;  // channels of table a
+  static_assert(RA != NONE && RA != I4 && (RB == NONE || RB != U8), "no such table pair");
   constexpr int NW16 = WBUF_BYTES / 16;
 #pragma unroll
   for (int j = 0; j < (NW16 + BLOCK - 1) / BLOCK; ++j) {  // all loads in flight at once
@@ -331,59 +437,11 @@ __global__ void __launch_bounds__(BLOCK) point_stages_kernel(const Args a, int P
         float tw[T];
 #pragma unroll
         for (int k = 0; k < T; ++k) tw[k] = __ldg(a.w4_a + (static_cast<size_t>(v) * T + k) * P + p);
-        if (PROJ == MERGED_I8) {
-          const uint32_t* row = reinterpret_cast<const uint32_t*>(a.rows_a + vp * (T * C));
-          uint32_t wd[T * C / 4];
-#pragma unroll
-          for (int j = 0; j < T * C / 4; ++j) wd[j] = __ldg(row + j);
-#pragma unroll
-          for (int c = 0; c < C; ++c)
-            rf[v * C + c] = __fmul_rn(lerp_bytes<C, true>(wd, tw, c), ps[c]);
-        } else {
-          {
-            const uint32_t* row = reinterpret_cast<const uint32_t*>(a.rows_a + vp * (T * CS));
-            uint32_t wd[T * CS / 4];
-#pragma unroll
-            for (int j = 0; j < T * CS / 4; ++j) wd[j] = __ldg(row + j);
-#pragma unroll
-            for (int c = 0; c < CS; ++c)
-              rf[v * C + c] = __fmul_rn(lerp_bytes<CS, false>(wd, tw, c), ps[c]);
-          }
+        lerp_table<RA, CA>(a.rows_a, vp, tw, ps, rf, v * C);
+        if constexpr (RB != NONE) {
 #pragma unroll
           for (int k = 0; k < T; ++k) tw[k] = __ldg(a.w4_b + (static_cast<size_t>(v) * T + k) * P + p);
-          if (PROJ == SPLIT_I8) {
-            const uint4* row = reinterpret_cast<const uint4*>(a.rows_b + vp * (T * CF));
-            uint32_t wd[T * CF / 4];
-#pragma unroll
-            for (int j = 0; j < T * CF / 16; ++j) {
-              const uint4 q = __ldg(row + j);
-              wd[4 * j] = q.x, wd[4 * j + 1] = q.y, wd[4 * j + 2] = q.z, wd[4 * j + 3] = q.w;
-            }
-#pragma unroll
-            for (int c = 0; c < CF; ++c)
-              rf[v * C + CS + c] = __fmul_rn(lerp_bytes<CF, true>(wd, tw, c), ps[CS + c]);
-          } else {
-            constexpr int HB = CF / 2;  // bytes per tap
-            const uint4* row = reinterpret_cast<const uint4*>(a.rows_b + vp * (T * HB));
-            uint32_t wd[T * HB / 4];
-#pragma unroll
-            for (int j = 0; j < T * HB / 16; ++j) {
-              const uint4 q = __ldg(row + j);
-              wd[4 * j] = q.x, wd[4 * j + 1] = q.y, wd[4 * j + 2] = q.z, wd[4 * j + 3] = q.w;
-            }
-#pragma unroll
-            for (int c = 0; c < CF; ++c) {
-              // channel c: byte c % HB of each tap, low nibble for c < HB
-              const int n0 = 2 * (c % HB) + c / HB;  // nibble index within the tap
-              float acc = __fmul_rn(snibble(wd[n0 >> 3], n0 & 7), tw[0]);
-#pragma unroll
-              for (int k = 1; k < T; ++k) {
-                const int n = 2 * k * HB + n0;
-                acc = __fadd_rn(acc, __fmul_rn(snibble(wd[n >> 3], n & 7), tw[k]));
-              }
-              rf[v * C + CS + c] = __fmul_rn(acc, ps[CS + c]);
-            }
-          }
+          lerp_table<RB, CF>(a.rows_b, vp, tw, ps + CS, rf, v * C + CS);
         }
       }
     } else {
@@ -599,7 +657,7 @@ __global__ void __launch_bounds__(BLOCK) point_stages_kernel(const Args a, int P
 }
 
 // the instantiation this library holds
-#define PS_KERNEL point_stages_kernel<PS_PROJ, PS_FEATS != 0, PS_OCC != 0>
+#define PS_KERNEL point_stages_kernel<PS_ROW_A, PS_ROW_B, PS_FEATS != 0, PS_OCC != 0>
 
 // Lets the kernel ask for SMEM_BYTES of dynamic shared memory (once).
 cudaError_t configure() {
@@ -627,8 +685,9 @@ int point_stages_blocks_per_sm() {
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
-// The instantiation this library holds: PS_PROJ | PS_FEATS << 2 | PS_OCC << 3.
-int point_stages_form() { return PS_PROJ | (PS_FEATS << 2) | (PS_OCC << 3); }
+// The instantiation this library holds:
+// PS_ROW_A | PS_ROW_B << 3 | PS_FEATS << 6 | PS_OCC << 7.
+int point_stages_form() { return PS_ROW_A | (PS_ROW_B << 3) | (PS_FEATS << 6) | (PS_OCC << 7); }
 
 int point_stages_launch(const void* rows_a, const void* w4_a, const void* scale_a,
                         const void* rows_b, const void* w4_b, const void* scale_b,

@@ -8,8 +8,9 @@
 //     scale (C,) -> out (C, N)
 // with out[.., c, p] = scale[c] * sum_{k=0..3} w4[.., k, p] * rows[.., p, k*C + c].
 //
-// Semantics kept: tap k of channel c sits at column k*C + c; float rows are
-// rounded to bf16 before the sum (int8/uint8 rows are exact); the sum runs
+// Semantics kept: tap k of channel c sits at column k*C + c; float32 rows
+// are rounded to bf16 before the sum (int8/uint8 rows are exact, bf16 rows
+// are used as they are, as the TPU kernel's cast leaves them); the sum runs
 // in float32 from 0 in the order k = 0..3; the scale multiplies the sum;
 // one rounding to the output type. Multiplies and adds are __fmul_rn and
 // __fadd_rn, so no FMA contraction moves a bit against the plain PyTorch
@@ -25,7 +26,8 @@
 // point-contiguous, a transpose. A block takes TILE consecutive points of
 // one view: their rows are one contiguous span of global memory (rows are
 // 4-byte aligned and no more: 140 bytes at C = 35), copied to shared memory
-// with coalesced 32-bit loads. Then threads walk p fastest over (c, p):
+// with coalesced 32-bit loads (every row is a multiple of 4 bytes: 4C of
+// int8, 8C of bf16, 16C of float32). Then threads walk p fastest over (c, p):
 // thread t keeps point t % TILE, so its 4 weights sit in registers, reads
 // its row's bytes from shared memory (row stride C words for int8 rows; an
 // odd C such as 35 gives conflict-free banks) and writes out[c, p0 + p]
@@ -45,6 +47,9 @@ template <> __device__ __forceinline__ float row_value<int8_t>(int8_t r) { retur
 template <> __device__ __forceinline__ float row_value<uint8_t>(uint8_t r) { return (float)r; }
 template <> __device__ __forceinline__ float row_value<float>(float r) {
   return __bfloat162float(__float2bfloat16_rn(r));
+}
+template <> __device__ __forceinline__ float row_value<__nv_bfloat16>(__nv_bfloat16 r) {
+  return __bfloat162float(r);
 }
 
 __device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
@@ -101,7 +106,8 @@ int launch(const void* rows, const float* w4, const float* scale, void* out,
   return (int)cudaGetLastError();
 }
 
-// row_type: 0 int8, 1 uint8, 2 float32; out_type: 0 float32, 1 bfloat16
+// row_type: 0 int8, 1 uint8, 2 float32, 3 bfloat16; out_type: 0 float32,
+// 1 bfloat16
 int dispatch(const void* rows, const float* w4, const float* scale, void* out,
              int V, int P, int C, int row_type, int out_type, cudaStream_t s) {
   const int key = row_type * 2 + out_type;
@@ -112,6 +118,8 @@ int dispatch(const void* rows, const float* w4, const float* scale, void* out,
     case 3: return launch<uint8_t, __nv_bfloat16, 128>(rows, w4, scale, out, V, P, C, s);
     case 4: return launch<float, float, 32>(rows, w4, scale, out, V, P, C, s);
     case 5: return launch<float, __nv_bfloat16, 32>(rows, w4, scale, out, V, P, C, s);
+    case 6: return launch<__nv_bfloat16, float, 64>(rows, w4, scale, out, V, P, C, s);
+    case 7: return launch<__nv_bfloat16, __nv_bfloat16, 64>(rows, w4, scale, out, V, P, C, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -120,7 +128,8 @@ int dispatch(const void* rows, const float* w4, const float* scale, void* out,
 
 // Largest channel count the shared-memory tile holds, per row type.
 extern "C" int quad_lerp_max_channels(int row_type) {
-  return row_type == 2 ? 48 * 1024 / (32 * 16) : 48 * 1024 / (128 * 4);
+  return row_type == 2 ? 48 * 1024 / (32 * 16)
+       : row_type == 3 ? 48 * 1024 / (64 * 8) : 48 * 1024 / (128 * 4);
 }
 
 // rows (V*P, 4C) view-major, w4 (V, 4, P), scale (C,), out (V, C, P).

@@ -110,6 +110,15 @@ def _quad_tap_weights(wx1, wy1, xi, yi, h, w, dtype=None):
     ]
 
 
+def lerp_dtype(table, out_dtype=None):
+    """The dtype a quad-table sample rounds to: `out_dtype` when given, else
+    a bfloat16 table's own dtype (the JAX samplers compute in the table's
+    float dtype), else None (float32: integer codes and float32 fields)."""
+    if out_dtype is not None:
+        return out_dtype
+    return table.dtype if table.dtype == torch.bfloat16 else None
+
+
 def _quad_weighted_sum(rows, taps, scale, dtype):
     """sum_k rows[..., kC:(k+1)C] * taps[k] in tap order, then the dequant
     factor; every product and partial sum is rounded to `dtype` (None:
@@ -128,15 +137,17 @@ def bilinear_quad_nhwc(table, grid, h, w, scale=None, out_dtype=None):
     """`grid_sample_2d_nhwc` semantics through a quad table: table (N, H+1,
     W+1, 4C), grid (N, P, 2) normalized -> (N, P, C). `scale`: per-channel
     dequantization factors of a quantized table, applied after the weighted
-    sum. `out_dtype` (e.g. torch.bfloat16): the weights, products and sums
-    are rounded to it, reproducing arithmetic carried out in that dtype; the
-    result is returned as float32 holding those values."""
+    sum. `out_dtype` (e.g. torch.bfloat16; default `lerp_dtype(table)`):
+    the weights, products and sums are rounded to it, reproducing arithmetic
+    carried out in that dtype; the result is returned as float32 holding
+    those values."""
     N, C4 = table.shape[0], table.shape[-1]
+    dt = lerp_dtype(table, out_dtype)
     wx1, wy1, xi, yi, idx = _quad_base(grid, h, w)
     flat = table.reshape(N, (h + 1) * (w + 1), C4)
     rows = torch.gather(flat, 1, idx[..., None].expand(-1, -1, C4))
-    taps = _quad_tap_weights(wx1, wy1, xi, yi, h, w, out_dtype)
-    return _quad_weighted_sum(rows, taps, scale, out_dtype)
+    taps = _quad_tap_weights(wx1, wy1, xi, yi, h, w, dt)
+    return _quad_weighted_sum(rows, taps, scale, dt)
 
 
 def bilinear_quad_nhwc_pv(table, grid, h, w, scale=None, out_dtype=None):
@@ -144,12 +155,13 @@ def bilinear_quad_nhwc_pv(table, grid, h, w, scale=None, out_dtype=None):
     the view-concatenated flat table: table (V, H+1, W+1, 4C), grid (V, P, 2)
     -> (P, V, C), no transpose of the result."""
     V, C4 = table.shape[0], table.shape[-1]
+    dt = lerp_dtype(table, out_dtype)
     wx1, wy1, xi, yi, idx = _quad_base(grid, h, w)
     stride = (h + 1) * (w + 1)
     voff = torch.arange(V, device=grid.device)[:, None] * stride
     rows = table.reshape(V * stride, C4)[(idx + voff).T]  # (P, V, 4C)
-    taps = _quad_tap_weights(wx1.T, wy1.T, xi.T, yi.T, h, w, out_dtype)
-    return _quad_weighted_sum(rows, taps, scale, out_dtype)
+    taps = _quad_tap_weights(wx1.T, wy1.T, xi.T, yi.T, h, w, dt)
+    return _quad_weighted_sum(rows, taps, scale, dt)
 
 
 def quad_rows_and_weights(table, grid, *, batched=False):
@@ -176,8 +188,9 @@ def bilinear_quad_nhwc_pv_kernel(table, grid, h, w, scale=None, out_dtype=None):
     the quad-lerp kernel (ops/quad_lerp.quad_lerp_rows_vcp; the JAX
     package's `bilinear_quad_nhwc_pv_pallas`): the rows are gathered in
     view-major order, the weights stay float32, the kernel accumulates in
-    float32 and rounds once to `out_dtype`, where the other two forms round
-    every product and partial sum. Returns (P, V, C) float32 values as a
+    float32 and rounds once to `out_dtype` (default `lerp_dtype(table)`,
+    float32 for integer tables), where the other two forms round every
+    product and partial sum. Returns (P, V, C) float32 values as a
     transposed view of the kernel's (V, C, P) output."""
     from gpnerf_tpu_torch.ops.quad_lerp import quad_lerp_rows_vcp
 
@@ -187,7 +200,7 @@ def bilinear_quad_nhwc_pv_kernel(table, grid, h, w, scale=None, out_dtype=None):
     C = table.shape[-1] // 4
     sc = torch.ones(C, device=grid.device) if scale is None else scale.float()
     out_vcp = quad_lerp_rows_vcp(rows, w4, sc.contiguous(),
-                                 out_dtype=out_dtype or torch.float32)
+                                 out_dtype=lerp_dtype(table, out_dtype) or torch.float32)
     return out_vcp.permute(2, 0, 1).float()
 
 

@@ -12,14 +12,19 @@ dequant, mean/var over views, geometry lerp, sigma-feat linear, density MLP,
 color MLP (see csrc/point_stages.cu). Its forms:
 
   (a) one merged int8 [rgb|feat] table, two geometry tables (fast mode);
+      or merged bf16 / float32 rows with a unit scale (`a:bf16`, `a:f32`);
   (b) the geometry feature passed as a (P, F) tensor;
   (c) split projection tables: u8 full-resolution source rgb rows (dequant
-      1/255) + int8 feature-grid rows, lerped and concatenated;
+      1/255) + int8 feature-grid rows, lerped and concatenated; or bf16 /
+      float32 feature rows (`c:u8/bf16`, `c:u8/f32`), or bf16 / float32
+      source rows (`c:bf16/i8`, `c:f32/i8`);
   (d) int4 split-packed feature rows (ops/grid_sample.quantize_image_i4),
       recognised by rows twice as narrow as taps x channels;
   (e) `occ_geom`: sigma also zeroed where the lerped level-1 block's channel
       sum (the trilinear occupancy) is <= 0, with that 0/1 verdict returned
       as a third output.
+Float rows are rounded to bf16 before the tap sum, as the TPU kernel casts
+them; bf16 rows are used as they are.
 
 `fused_point_stages` is the one-table wrapper.
 
@@ -55,17 +60,30 @@ SOURCE = os.path.join(cuda_build.CSRC_DIR, "point_stages.cu")
 # the widths the CUDA kernel is written for (csrc/point_stages.cu constants)
 V, C, CS, CF, C0, C1 = 3, 35, 3, 32, 32, 64
 
-# instantiations of the CUDA kernel: (projection tables, (P, F) feature
-# input, occ_geom) -> form name; the macros of csrc/point_stages.cu follow
-PROJ_CODES = {"merged_i8": 0, "split_i8": 1, "split_i4": 2}
+# instantiations of the CUDA kernel: (the projection tables' row types, (P,
+# F) feature input, occ_geom) -> form name. Row types: "i8", "u8", "i4"
+# (split-packed int8 pairs), "bf16", "f32"; one type is the merged table,
+# two are the (source, feature) pair. The macros of csrc/point_stages.cu
+# follow (ROW_CODES).
+ROW_CODES = {"i8": 1, "u8": 2, "i4": 3, "bf16": 4, "f32": 5}
 FORMS = {
-    ("merged_i8", False, False): "a",
-    ("merged_i8", True, False): "a+b",
-    ("split_i8", False, False): "c",
-    ("split_i8", False, True): "c+e",
-    ("split_i4", False, False): "c+d",
-    ("split_i8", True, False): "b+c",
+    (("i8",), False, False): "a",
+    (("i8",), True, False): "a+b",
+    (("i8",), False, True): "a+e",
+    (("bf16",), False, False): "a:bf16",
+    (("f32",), False, False): "a:f32",
+    (("u8", "i8"), False, False): "c",
+    (("u8", "i8"), False, True): "c+e",
+    (("u8", "i8"), True, False): "b+c",
+    (("u8", "i4"), False, False): "c+d",
+    (("u8", "i4"), False, True): "c+d+e",
+    (("u8", "i4"), True, False): "b+c+d",
+    (("u8", "bf16"), False, False): "c:u8/bf16",
+    (("u8", "f32"), False, False): "c:u8/f32",
+    (("bf16", "i8"), False, False): "c:bf16/i8",
+    (("f32", "i8"), False, False): "c:f32/i8",
 }
+_DTYPE_ROWS = {torch.int8: "i8", torch.uint8: "u8", torch.bfloat16: "bf16", torch.float32: "f32"}
 LAUNCHES = collections.Counter()
 
 
@@ -223,10 +241,16 @@ _libs = {}
 BUILD_LOG = {}
 
 
+def _row_codes(rows):
+    """(PS_ROW_A, PS_ROW_B) of a form's row types."""
+    return ROW_CODES[rows[0]], ROW_CODES[rows[1]] if len(rows) > 1 else 0
+
+
 def _build_args(form):
-    proj, use_feats, occ = form
-    code = f"{PROJ_CODES[proj]}{int(use_feats)}{int(occ)}"
-    defines = (f"PS_PROJ={PROJ_CODES[proj]}", f"PS_FEATS={int(use_feats)}",
+    rows, use_feats, occ = form
+    ra, rb = _row_codes(rows)
+    code = f"{ra}{rb}{int(use_feats)}{int(occ)}"
+    defines = (f"PS_ROW_A={ra}", f"PS_ROW_B={rb}", f"PS_FEATS={int(use_feats)}",
                f"PS_OCC={int(occ)}")
     return "point_stages.cu", f"point_stages_{code}", defines
 
@@ -258,8 +282,9 @@ def load_library(form, proc=None):
     for fn in (lib.point_stages_wbuf_bytes, lib.point_stages_form,
                lib.point_stages_smem_bytes, lib.point_stages_blocks_per_sm):
         fn.argtypes, fn.restype = [], ctypes.c_int
-    proj, use_feats, occ = form
-    if lib.point_stages_form() != PROJ_CODES[proj] | int(use_feats) << 2 | int(occ) << 3:
+    rows, use_feats, occ = form
+    ra, rb = _row_codes(rows)
+    if lib.point_stages_form() != ra | rb << 3 | int(use_feats) << 6 | int(occ) << 7:
         raise RuntimeError(f"{build_command(form)[1]} holds another instantiation than {form}")
     _libs[form] = lib
     return lib
@@ -284,24 +309,32 @@ def _check(t, dtype, shape, name):
                          "16-byte aligned")
 
 
+def _row_type(rows, P, width, name, packed_width=None):
+    """Row type of one projection table's (V*P, width) rows, checked; int4
+    split-packed uint8 rows are `packed_width` wide."""
+    kind = _DTYPE_ROWS.get(rows.dtype)
+    if kind == "u8" and packed_width is not None and rows.shape[-1] == packed_width:
+        kind, width = "i4", packed_width
+    if kind is None or rows.shape[-1] != width:
+        raise NotImplementedError(
+            f"point-stage kernel: {name} must be int8, uint8, bfloat16 or float32 rows "
+            f"{width} wide, got {rows.dtype} {tuple(rows.shape)}")
+    _check(rows, rows.dtype, (V * P, width), name)
+    return kind
+
+
 def _launch(tabs, feats, vmask, sig_ok, weights, geom_tabs, occ_geom):
     P = vmask.shape[-1]
     f32, u8, i8 = torch.float32, torch.uint8, torch.int8
     if len(tabs) == 1:
-        proj = "merged_i8"
-        _check(tabs[0][0], i8, (V * P, 4 * C), "merged [rgb|feat] rows")
+        rows = (_row_type(tabs[0][0], P, 4 * C, "merged [rgb|feat] rows"),)
         _check(tabs[0][2], f32, (C,), "merged scale")
         tabs = (tabs[0], (None, None, None))
     elif len(tabs) == 2:
-        _check(tabs[0][0], u8, (V * P, 4 * CS), "source rgb rows")
+        rows = (_row_type(tabs[0][0], P, 4 * CS, "source rgb rows"),
+                _row_type(tabs[1][0], P, 4 * CF, "feature rows", packed_width=2 * CF))
         _check(tabs[0][2], f32, (CS,), "source rgb scale")
         _check(tabs[1][2], f32, (CF,), "feature scale")
-        if tabs[1][0].dtype == u8:
-            proj = "split_i4"
-            _check(tabs[1][0], u8, (V * P, 2 * CF), "int4-packed feature rows")
-        else:
-            proj = "split_i8"
-            _check(tabs[1][0], i8, (V * P, 4 * CF), "feature rows")
     else:
         raise NotImplementedError("point-stage kernel takes 1 or 2 projection tables")
     for _, w4, _ in tabs:
@@ -327,7 +360,7 @@ def _launch(tabs, feats, vmask, sig_ok, weights, geom_tabs, occ_geom):
         geom = (None,) * 6 + (feats,)
     _check(vmask, f32, (V, P), "vmask")
     _check(sig_ok, u8, (P,), "sig_ok")
-    form = (proj, feats is not None, bool(occ_geom))
+    form = (rows, feats is not None, bool(occ_geom))
     lib = load_library(form)
     flat = weights.flat
     _check(flat, u8, (lib.point_stages_wbuf_bytes(),), "packed weights")

@@ -8,11 +8,13 @@ from __future__ import annotations
 
 import torch
 
+from gpnerf_tpu_torch.models.layers import rounded
 from gpnerf_tpu_torch.ops.grid_sample import (
     bilinear_quad_nhwc,
     bilinear_quad_nhwc_pv,
     bilinear_quad_nhwc_pv_kernel,
     grid_sample_2d_nhwc,
+    lerp_dtype,
     quad_rows_and_weights,
 )
 
@@ -62,13 +64,16 @@ def project_and_gather_quad(xyz, KE, src_quad, feat_quad, h, w, *,
     """Project and gather through the split quad tables, both in (P, V) row
     order: src_quad (V, H+1, W+1, 12) float or uint8 pixel bytes (`src_scale`
     then carries the 1/255 dequant), feat_quad (V, Hf+1, Wf+1, 4C) float or
-    int8 (`feat_scale` its per-channel dequant). Returns rgb_feat (P, V,
-    3 + C), mask (P, V)."""
+    int8 (`feat_scale` its per-channel dequant). Each table is sampled in
+    its `lerp_dtype`, and the rgb is rounded to the features' (the JAX
+    package casts it to their dtype). Returns rgb_feat (P, V, 3 + C), mask
+    (P, V)."""
     pixel, in_front = compute_projections(xyz, KE, neg_ray=neg_ray)
     norm_pix = normalize_pixels(pixel, h, w)
     rgb = bilinear_quad_nhwc_pv(src_quad, norm_pix, h, w, scale=src_scale)
     hf, wf = feat_quad.shape[1] - 1, feat_quad.shape[2] - 1
     feat = bilinear_quad_nhwc_pv(feat_quad, norm_pix, hf, wf, scale=feat_scale)
+    rgb = rounded(rgb, lerp_dtype(feat_quad))
     mask = (inbound_mask(pixel, h, w) & in_front).float()
     return torch.cat([rgb, feat], dim=-1), mask.T
 
@@ -80,7 +85,7 @@ def project_and_gather_quad_merged(xyz, KE, srcfeat_quad, h, w, *,
     table (V, Ht+1, Wt+1, 4(3+C)) at any resolution: the gather uses the
     table's own grid, h/w are the pixel frame of K. `scale`: dequantization
     factors of an int8 table; `out_dtype`: see ops/grid_sample.
-    bilinear_quad_nhwc. Routes: `kernel`, the quad-lerp kernel on view-major
+    bilinear_quad_nhwc (a bf16 table rounds to bf16 by default). Routes: `kernel`, the quad-lerp kernel on view-major
     rows (float32 accumulation, one rounding); `vp_order`, a per-view (V, P)
     gather whose float result is transposed; else the gather emitted in
     (P, V) order. Returns rgb_feat (P, V, 3 + C), mask (P, V)."""

@@ -9,9 +9,9 @@ channel-major with points innermost, the orientation the point stages read.
 out[.., c, p] = scale[c] * sum_k w4[.., k, p] * rows[.., p, k*C + c]: tap k of
 channel c sits at column k*C + c (ops/grid_sample.build_quad_table_2d), the
 weights carry the in-bounds masks, and the dequantization factor multiplies
-the sum. Rows are int8 or uint8 codes, or float32 fields that are rounded to
-bf16 first (as the TPU kernel casts them); the sum runs in float32 from 0 in
-the order k = 0..3 and is rounded once to `out_dtype`.
+the sum. Rows are int8 or uint8 codes, bf16 fields, or float32 fields that
+are rounded to bf16 first (as the TPU kernel casts them); the sum runs in
+float32 from 0 in the order k = 0..3 and is rounded once to `out_dtype`.
 
 On a CPU tensor each wrapper runs its plain version (`*_plain`, the same
 function in torch ops); on a CUDA tensor it launches the kernel of
@@ -33,7 +33,7 @@ from gpnerf_tpu_torch.ops import cuda_build
 LAUNCHES = collections.Counter()
 BUILD_LOG = {}
 _BUILD = ("quad_lerp.cu", "quad_lerp")
-_ROW_TYPES = {torch.int8: 0, torch.uint8: 1, torch.float32: 2}
+_ROW_TYPES = {torch.int8: 0, torch.uint8: 1, torch.float32: 2, torch.bfloat16: 3}
 _OUT_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
 
@@ -87,7 +87,7 @@ def _checked(rows, w4, scale, w4_shape, out_dtype, what):
     if rows.dtype not in _ROW_TYPES or out_dtype not in _OUT_TYPES:
         raise NotImplementedError(
             f"{what}: rows {rows.dtype} -> {out_dtype} has no kernel (rows int8, "
-            "uint8 or float32; output float32 or bfloat16)")
+            "uint8, bfloat16 or float32; output float32 or bfloat16)")
     if C4 != 4 * C or tuple(w4.shape) != w4_shape or tuple(scale.shape) != (C,):
         raise ValueError(
             f"{what}: rows {tuple(rows.shape)}, w4 {tuple(w4.shape)} (expected "
@@ -114,7 +114,7 @@ def _raise_on(err, what):
 def quad_lerp_rows_vcp(rows_vmajor, w4, scale, *, out_dtype=torch.bfloat16):
     """View-major quad lerp on the device the rows live on: the plain version
     for CPU tensors, the CUDA kernel for CUDA tensors. rows (V*P, 4C) int8,
-    uint8 or float32; w4 (V, 4, P) f32; scale (C,) f32 -> (V, C, P)."""
+    uint8, bfloat16 or float32; w4 (V, 4, P) f32; scale (C,) f32 -> (V, C, P)."""
     dev = rows_vmajor.device
     if dev.type == "cpu":
         return quad_lerp_rows_vcp_plain(rows_vmajor, w4, scale, out_dtype=out_dtype)

@@ -10,11 +10,16 @@ Per frame:
   3. build the gather tables: the u8 level-1 octet table (corner-scattered
      from the active rows), the folded merged-coarse field (out_geometry_fc's
      coarse block pre-applied) resampled onto the level-1 grid as an int8
-     nearest table, and the projection tables — fast mode: one int8
-     [rgb|feat] quad table of the source rgb downsampled to the feature
-     grid; reference mode: the split pair, the raw u8 source pixels at full
-     resolution (dequant 1/255) and the int8 (or int4 split-packed) encoder
-     features on their own grid;
+     nearest table, and the projection tables, chosen apart from the cull
+     as the JAX package chooses them (`projection_rows`): one [rgb|feat]
+     quad table at the source resolution in the compute dtype
+     (`merge_src_feat`); one at the feature grid (`merge_lowres_src`, the
+     shipped synthetic config), int8 or in the compute dtype
+     (`quantize_proj`); or the split pair, the raw u8 source pixels at full
+     resolution (dequant 1/255; float sources in the compute dtype) and the
+     encoder features on their own grid, int8, int4 split-packed
+     (`int4_feat`, fused path) or in the compute dtype (the paper configs'
+     default);
   4. splat occupied level-1 voxels into the target view and compact the hit
      pixels to `ray_cap` rays. Fast mode (`tight_cull`): the level-1 active
      set, a dilated pixel mask and per-pixel depth-bin masks on the
@@ -40,12 +45,14 @@ Per frame:
      density and color heads (models/heads.py). Then composite front to
      back and scatter the rays into the image.
 
-`build_render` accepts the fast mode, the reference mode, the reference mode
-with one of `frame_mode`, `sigma_query_cull`, `int4_feat`, each with
-`kernel_octet` and `pallas_point` either way (`pallas_lerp` and
-`proj_vp_order` choose the op-by-op route of the merged table); any other
-renderer switch raises NotImplementedError naming the key. As in the JAX
-package, `int4_feat` stores the int8 table off the fused path.
+`build_render` accepts the fast mode and the reference mode under every
+projection-table choice, each with any of `frame_mode`, `sigma_query_cull`,
+`int4_feat` and `kernel_octet` and `pallas_point` either way (`pallas_lerp`
+and `proj_vp_order` choose the op-by-op route of the merged table), where
+the fused path has the point-stage instantiation the combination needs;
+any other renderer switch raises NotImplementedError naming the key. As in
+the JAX package, `int4_feat` stores the int8 table off the fused path and
+acts on split tables only, and `frame_mode` acts only without splat bins.
 
 Every mode also renders THuman's neg-ray convention (`dataset.test.name`
 holding "thuman"): scene points lie at negative camera z and the rays'
@@ -84,6 +91,7 @@ from gpnerf_tpu_torch.ops.grid_sample import (
     NearestTable,
     build_octet_table_scatter,
     build_quad_table_2d,
+    lerp_dtype,
     nearest_row_and_weight,
     octet_rows_and_weights,
     quantize_image_i4,
@@ -92,7 +100,12 @@ from gpnerf_tpu_torch.ops.grid_sample import (
     resample_volume_to,
     upsample_image_align_corners,
 )
-from gpnerf_tpu_torch.ops.point_stages import fused_point_stages_tabs, pack_head_weights
+from gpnerf_tpu_torch.ops.point_stages import (
+    FORMS,
+    V as PS_V,
+    fused_point_stages_tabs,
+    pack_head_weights,
+)
 from gpnerf_tpu_torch.ops.projection import (
     project_and_gather_quad,
     project_and_gather_quad_merged,
@@ -106,10 +119,13 @@ from gpnerf_tpu_torch.render.base import points_to_dhw_vox, prepare_frame, src_n
 # Renderer switches (configs/synthetic.yaml over config/default.py) and the
 # values the port implements: COMMON in every mode; FAST_MODE with
 # tight_cull on; REF_MODE (the reference-semantics mode: blanket cull, all
-# samples kept, no tap window, split projection tables) with it off, where
-# at most one of REF_VARIANTS leaves its default. `kernel_octet`,
-# `pallas_point`, `pallas_lerp` and `proj_vp_order` are free in both modes.
-# `splat_bins` is inert without tight_cull, as in the JAX package.
+# samples kept, no tap window) with it off. The projection tables follow
+# `merge_src_feat`, `merge_lowres_src`, `quantize_proj` and `int4_feat` in
+# either mode (`projection_rows`); `frame_mode`, `sigma_query_cull`,
+# `kernel_octet`, `pallas_point`, `pallas_lerp` and `proj_vp_order` are free
+# in both, where the fused path needs a point-stage instantiation for the
+# form they select (`Renderer.kernel_form`). `splat_bins` is inert without
+# tight_cull, and `frame_mode` with it, as in the JAX package.
 COMMON = {
     "quantize_volume": True,
     "merge_coarse_octet": True,
@@ -118,24 +134,11 @@ COMMON = {
     "coarse_nearest": 2,
     "l1_nearest": 0,
     "dense_conv": False,
-    "merge_src_feat": False,
     "dense_slots": True,
-    "quantize_proj": True,
     "pack_octet_u32": False,
 }
-FAST_MODE = {
-    "merge_lowres_src": True,
-    "frame_mode": False,
-    "splat_bins": True,
-    "sigma_query_cull": False,
-    "int4_feat": False,
-}
-REF_MODE = {"merge_lowres_src": False, "tap_window": 0}
-REF_VARIANTS = {
-    "frame_mode": False,
-    "sigma_query_cull": False,
-    "int4_feat": False,
-}
+FAST_MODE = {"splat_bins": True}
+REF_MODE = {"tap_window": 0}
 
 # the names a render can stop after, in pipeline order (Renderer.profile)
 FRAME_STOPS = ("pre", "codes", "fuse", "occv", "volume", "rays")
@@ -176,6 +179,28 @@ def _compact(mask_flat, cap):
     return idx[:cap], ok, (total - cap).clamp_min(0)
 
 
+def projection_rows(merge_src_feat, merge_lowres_src, quantize_proj, int4_feat,
+                    compute_dtype, src_uint8=True):
+    """Row types of the projection tables the switches select, as
+    ops/point_stages.FORMS names them, by the JAX package's precedence
+    (gpnerf_tpu/render/demo.py:1376-1457): `merge_src_feat`, one merged
+    table at the source resolution in the compute dtype; `merge_lowres_src`,
+    one merged table at the feature grid, int8 under `quantize_proj`, else in
+    the compute dtype; otherwise the split pair, the source half the raw u8
+    pixels (float sources: the compute dtype) and the feature half int4
+    (`int4_feat`, fused path only), int8 (`quantize_proj`) or the compute
+    dtype."""
+    flt = "bf16" if compute_dtype == torch.bfloat16 else "f32"
+    if merge_src_feat:
+        return (flt,)
+    if merge_lowres_src:
+        return ("i8",) if quantize_proj else (flt,)
+    src = "u8" if src_uint8 else flt
+    if not quantize_proj:
+        return (src, flt)
+    return (src, "i4" if int4_feat else "i8")
+
+
 class Renderer(nn.Module):
     """Progressive renderer; its `encoder` and `nerfhead` children carry the
     reference checkpoint's parameter names."""
@@ -186,20 +211,13 @@ class Renderer(nn.Module):
                  tight_cull=True, splat_cap=0, frame_mode=False,
                  sigma_query_cull=False, int4_feat=False, kernel_octet=True,
                  pallas_point=True, pallas_lerp=True, proj_vp_order=False,
+                 merge_src_feat=False, merge_lowres_src=False, quantize_proj=True,
                  neg_ray_val=False):
         super().__init__()
         if not tight_cull and samples_per_ray != n_samples:
             raise NotImplementedError(
                 "the blanket cull (tight_cull off) is ported with all "
                 f"{n_samples} samples kept, not samples_per_ray={samples_per_ray}")
-        if tight_cull and (frame_mode or sigma_query_cull or int4_feat):
-            raise NotImplementedError(
-                "frame_mode, sigma_query_cull and int4_feat are ported for "
-                "the blanket cull (tight_cull off) only")
-        if int4_feat and pallas_point and not kernel_octet:
-            raise NotImplementedError(
-                "the point-stage kernel has no instantiation for int4_feat "
-                "rows with a feature input (kernel_octet off)")
         # tight_cull: splat and cull against the level-1 occupancy (fast
         # mode); off: against the sum-over-levels blanket, compacted to
         # splat_cap voxels (0 = dense walk), with split projection tables
@@ -218,6 +236,10 @@ class Renderer(nn.Module):
         self.pallas_point = bool(pallas_point)
         self.pallas_lerp = bool(pallas_lerp)
         self.proj_vp_order = bool(proj_vp_order)
+        # the projection tables (projection_rows)
+        self.merge_src_feat = bool(merge_src_feat)
+        self.merge_lowres_src = bool(merge_lowres_src)
+        self.quantize_proj = bool(quantize_proj)
         # THuman's convention (see the module docstring)
         self.neg_ray_val = bool(neg_ray_val)
         self.encoder = encoder
@@ -229,6 +251,32 @@ class Renderer(nn.Module):
         self.bin_margin_voxels = float(bin_margin_voxels)
         self.max_out_sh = tuple(int(v) for v in max_out_sh)
         self.compute_dtype = compute_dtype
+        form = self.kernel_form()
+        if self.pallas_point and form not in FORMS:
+            switches = ("merge_src_feat", "merge_lowres_src", "quantize_proj", "int4_feat",
+                        "frame_mode", "sigma_query_cull", "kernel_octet")
+            raise NotImplementedError(
+                ", ".join(f"tpu.{k}={getattr(self, k)!r}" for k in switches)
+                + f": the point-stage kernel has no instantiation for the form {form} these "
+                "select (tpu.pallas_point False renders it op by op)")
+
+    def kernel_form(self, src_uint8=True):
+        """The point-stage kernel form (a key of ops/point_stages.FORMS) the
+        fused path launches for uint8 (or float) source images: the
+        projection tables' row types, the (P, F) feature input (kernel_octet
+        off) and the in-kernel occupancy cull (`occ_geom`: the windowless
+        frame or sigma_query_cull, with kernel_octet on)."""
+        rows = projection_rows(self.merge_src_feat, self.merge_lowres_src, self.quantize_proj,
+                               self.int4_feat, self.compute_dtype, src_uint8)
+        mask_from_query = self._frame_mode_on() or self.sigma_query_cull
+        return rows, not self.kernel_octet, mask_from_query and self.kernel_octet
+
+    def _frame_mode_on(self):
+        """JAX's windowless frame (gpnerf_tpu/render/demo.py:459-461: no
+        bins, ascending traversal, K == S; the port has no tap window): the
+        blanket cull only, not under neg-ray."""
+        return (self.frame_mode and not self.tight_cull and not self.neg_ray_val
+                and self.samples_per_ray == self.n_samples)
 
     def render_demo_fn(self):
         """batch (render/base.batch_to_device) -> render dict."""
@@ -468,29 +516,51 @@ class Renderer(nn.Module):
         q, sc1 = quantize_image_i8(vol)
         coarse = NearestTable(q.reshape(-1, q.shape[-1]), tuple(vol.shape[:3]), 2)
         tables = {"octet_l1": octet_l1, "coarse": coarse, "octet_scales": (sc0, sc1)}
-        if self.tight_cull:
-            # merged [rgb|feat] quad table at the feature grid, int8
+        # projection quad tables (projection_rows). A table with no dequant
+        # gets a unit scale (JAX render/demo.py:757-759): multiplying by 1 is
+        # exact, so the op-by-op samplers also round as with none.
+        fdt = dt or torch.float32
+        if self.merge_src_feat:
+            # one [rgb|feat] table at the source resolution, the features
+            # upsampled (align corners), in the compute dtype
+            Hs, Ws = src_unnorm.shape[1:3]
+            feat_up = upsample_image_align_corners(featmaps.float(), Hs, Ws)
+            comb = torch.cat([src_unnorm.float(), feat_up], dim=-1)
+            tables["src_quad"] = build_quad_table_2d(comb.to(fdt))
+            tables["proj_scale"] = torch.ones(comb.shape[-1], device=dev)
+        elif self.merge_lowres_src:
+            # one [rgb|feat] table at the feature grid, the source rgb
+            # downsampled (align corners); int8 under quantize_proj
             Hf, Wf = featmaps.shape[1:3]
             src_low = upsample_image_align_corners(src_unnorm.float(), Hf, Wf)
-            qc, tables["proj_scale"] = quantize_image_i8(
-                torch.cat([src_low, featmaps.float()], dim=-1))
-            tables["src_quad"] = build_quad_table_2d(qc)
+            comb = torch.cat([src_low, featmaps.float()], dim=-1)
+            if self.quantize_proj:
+                qc, tables["proj_scale"] = quantize_image_i8(comb)
+                tables["src_quad"] = build_quad_table_2d(qc)
+            else:
+                tables["src_quad"] = build_quad_table_2d(comb.to(fdt))
+                tables["proj_scale"] = torch.ones(comb.shape[-1], device=dev)
         else:
             # split tables (reference semantics: rgb at full source
-            # resolution, demo_render.py:586): the raw u8 pixels with a 1/255
-            # dequant after the bilinear sum, and the quantized encoder
-            # features on their own grid
-            if batch["src_imgs"].dtype != torch.uint8:
-                raise NotImplementedError(
-                    "the split source table stores the uint8 pixels the data "
-                    f"pipeline yields, got {batch['src_imgs'].dtype}")
-            tables["src_quad"] = build_quad_table_2d(batch["src_imgs"])
-            tables["src_scale"] = torch.full((3,), 1.0 / 255.0, device=dev)
-            # only the fused kernel unpacks int4 rows
-            int4 = self.int4_feat and self.pallas_point
-            quantize = quantize_image_i4 if int4 else quantize_image_i8
-            qf, tables["feat_scale"] = quantize(featmaps.float())
-            tables["feat_quad"] = build_quad_table_2d(qf)
+            # resolution, demo_render.py:586): uint8 sources as the raw
+            # pixels with a 1/255 dequant after the bilinear sum, float ones
+            # in the compute dtype; the encoder features on their own grid,
+            # quantized (int4 only on the fused path, which alone unpacks
+            # it) or in the compute dtype
+            if batch["src_imgs"].dtype == torch.uint8:
+                tables["src_quad"] = build_quad_table_2d(batch["src_imgs"])
+                tables["src_scale"] = torch.full((3,), 1.0 / 255.0, device=dev)
+            else:
+                tables["src_quad"] = build_quad_table_2d(src_unnorm.to(fdt))
+                tables["src_scale"] = torch.ones(3, device=dev)
+            if self.quantize_proj:
+                int4 = self.int4_feat and self.pallas_point
+                quantize = quantize_image_i4 if int4 else quantize_image_i8
+                qf, tables["feat_scale"] = quantize(featmaps.float())
+                tables["feat_quad"] = build_quad_table_2d(qf)
+            else:
+                tables["feat_quad"] = build_quad_table_2d(featmaps.to(fdt))
+                tables["feat_scale"] = torch.ones(featmaps.shape[-1], device=dev)
         if stop_stage == "volume":
             return None
 
@@ -604,9 +674,10 @@ class Renderer(nn.Module):
         s_max = torch.full((), float(S - 1), device=dev)
         n_sigma = None
         neg = self.neg_ray_val
-        if self.frame_mode and not neg:
-            # windowless frame (K == S): no tap, no rank compaction; the
-            # trilinear level-1 occupancy cull comes from the kernel
+        if self._frame_mode_on():
+            # windowless frame (no bins, K == S): no tap, no rank
+            # compaction; the trilinear level-1 occupancy cull comes from
+            # the kernel
             slot = torch.arange(K, dtype=torch.float32, device=dev)[:, None].expand(K, nr)
             sig_ok = ray_ok[None, :].expand(K, nr)
             perray_overflow = torch.zeros((), dtype=torch.long, device=dev)
@@ -688,7 +759,8 @@ class Renderer(nn.Module):
                 pts_c, pre["KE"], tables["src_quad"], tables["feat_quad"], Hs, Ws,
                 neg_ray=self.neg_ray_val, src_scale=tables["src_scale"],
                 feat_scale=tables["feat_scale"])
-            feat_dt = None  # quantized split tables lerp in float32
+            # quantized feature tables lerp in float32, bf16 ones in bf16
+            feat_dt = lerp_dtype(tables["feat_quad"])
         else:
             rgb_feat, view_mask = project_and_gather_quad_merged(
                 pts_c, pre["KE"], tables["src_quad"], Hs, Ws, neg_ray=self.neg_ray_val,
@@ -791,7 +863,9 @@ class Renderer(nn.Module):
 
 def check_mode(cfg):
     """Raise NotImplementedError, naming the key, for a renderer switch
-    outside the modes the port implements (see COMMON above)."""
+    outside the modes the port implements (see COMMON above). The Renderer
+    constructor refuses, naming the keys, a combination whose point-stage
+    form the fused path has no instantiation for."""
     t = cfg.tpu
 
     def need(table, mode):
@@ -803,21 +877,16 @@ def check_mode(cfg):
     need(COMMON, "renderer")
     if t.tight_cull:
         need(FAST_MODE, "fast mode (tight_cull on)")
-        return
-    need(REF_MODE, "reference mode (tight_cull off)")
-    if t.samples_per_ray != cfg.train.n_samples:
+    else:
+        need(REF_MODE, "reference mode (tight_cull off)")
+        if t.samples_per_ray != cfg.train.n_samples:
+            raise NotImplementedError(
+                f"tpu.samples_per_ray={t.samples_per_ray}: the port's reference mode "
+                f"keeps all train.n_samples={cfg.train.n_samples} samples")
+    if t.pallas_point and cfg.src_view_num != PS_V:
         raise NotImplementedError(
-            f"tpu.samples_per_ray={t.samples_per_ray}: the port's reference mode "
-            f"keeps all train.n_samples={cfg.train.n_samples} samples")
-    on = [k for k, v in REF_VARIANTS.items() if t[k] != v]
-    if len(on) > 1:
-        raise NotImplementedError(
-            f"tpu.{on[1]}={t[on[1]]!r} together with tpu.{on[0]}={t[on[0]]!r}: the "
-            "port renders one variant of the reference mode at a time")
-    if t.int4_feat and t.pallas_point and not t.kernel_octet:
-        raise NotImplementedError(
-            "tpu.kernel_octet=False together with tpu.int4_feat=True: the "
-            "point-stage kernel has no such instantiation")
+            f"src_view_num={cfg.src_view_num}: the point-stage kernel is built for {PS_V} "
+            "source views (tpu.pallas_point False renders op by op)")
 
 
 def build_render(cfg, device="cuda"):
@@ -860,6 +929,9 @@ def build_render(cfg, device="cuda"):
         pallas_point=cfg.tpu.pallas_point,
         pallas_lerp=cfg.tpu.pallas_lerp,
         proj_vp_order=cfg.tpu.proj_vp_order,
+        merge_src_feat=cfg.tpu.merge_src_feat,
+        merge_lowres_src=cfg.tpu.merge_lowres_src,
+        quantize_proj=cfg.tpu.quantize_proj,
         neg_ray_val="thuman" in cfg.dataset.test.name,
     )
     return r.to(device).eval()

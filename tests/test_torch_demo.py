@@ -122,9 +122,9 @@ def test_port_render_is_deterministic(renders):
 
 @pytest.mark.parametrize(
     "key,value",
-    [("frame_mode", True), ("dense_slots", False), ("splat_bins", False),
-     ("quantize_volume", False), ("merge_lowres_src", False),
-     ("sigma_query_cull", True)],
+    [("l1_nearest", 1), ("dense_slots", False), ("splat_bins", False),
+     ("quantize_volume", False), ("coarse_nearest", 0),
+     ("int4_coarse", True)],
 )
 def test_switches_outside_fast_mode_raise(key, value):
     with pytest.raises(NotImplementedError, match=key):

@@ -111,22 +111,28 @@ def test_kernel_refuses_other_forms():
 def _form_inputs(form, P, seed, dev):
     """Seeded inputs of one instantiation (a key of ps.FORMS) at the widths
     the kernel is written for."""
-    proj, use_feats, occ = form
+    rows, use_feats, occ = form
     rs = np.random.RandomState(seed)
     V, C, CS, CF, C0, C1 = ps.V, ps.C, ps.CS, ps.CF, ps.C0, ps.C1
 
     def w4():
         return (rs.rand(V, 4, P) * (rs.rand(V, 4, P) > 0.1)).astype(np.float32)
 
-    if proj == "merged_i8":
-        tabs = ((rs.randint(-127, 128, size=(V * P, 4 * C)).astype(np.int8), w4(),
-                 (0.02 + rs.rand(C) * 0.05).astype(np.float32)),)
-    else:
-        feat = (rs.randint(0, 256, size=(V * P, 2 * CF)).astype(np.uint8) if proj == "split_i4"
-                else rs.randint(-127, 128, size=(V * P, 4 * CF)).astype(np.int8))
-        tabs = ((rs.randint(0, 256, size=(V * P, 4 * CS)).astype(np.uint8), w4(),
-                 np.full((CS,), 1 / 255.0, np.float32)),
-                (feat, w4(), (0.02 + rs.rand(CF) * 0.05).astype(np.float32)))
+    def table(kind, Ct):
+        if kind == "i8":
+            return (rs.randint(-127, 128, size=(V * P, 4 * Ct)).astype(np.int8), w4(),
+                    (0.02 + rs.rand(Ct) * 0.05).astype(np.float32))
+        if kind == "i4":
+            return (rs.randint(0, 256, size=(V * P, 2 * Ct)).astype(np.uint8), w4(),
+                    (0.02 + rs.rand(Ct) * 0.05).astype(np.float32))
+        if kind == "u8":
+            return (rs.randint(0, 256, size=(V * P, 4 * Ct)).astype(np.uint8), w4(),
+                    np.full((Ct,), 1 / 255.0, np.float32))
+        # float rows (bf16 ones are cast on the device), unit scale
+        return ((rs.randn(V * P, 4 * Ct) * 0.5).astype(np.float32), w4(),
+                np.ones((Ct,), np.float32))
+
+    tabs = (table(rows[0], C),) if len(rows) == 1 else (table(rows[0], CS), table(rows[1], CF))
     feats, kw = None, {}
     if use_feats:
         feats = (rs.randn(P, C0 + C1) * 0.5).astype(np.float32)
@@ -154,12 +160,16 @@ def _form_inputs(form, P, seed, dev):
     kw = {k: to(v) for k, v in kw.items()}
     if occ:
         kw["occ_geom"] = True
-    return (to(tabs), to(feats), to(vmask), to(sig_ok), ps.pack_head_weights(head, fold_nch=C0)), kw
+    t_tabs = tuple((r.to(torch.bfloat16) if kind == "bf16" else r, w, sc)
+                   for kind, (r, w, sc) in zip(rows, to(tabs)))
+    return (t_tabs, to(feats), to(vmask), to(sig_ok), ps.pack_head_weights(head, fold_nch=C0)), kw
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("P", [1, *RAGGED, 257, 70001])
-@pytest.mark.parametrize("name", ["a+b", "c", "c+e", "c+d", "b+c"])
+@pytest.mark.parametrize("name", ["a+b", "c", "c+e", "c+d", "b+c", "a+e", "c+d+e", "b+c+d",
+                                  "a:bf16", "a:f32", "c:u8/bf16", "c:u8/f32", "c:bf16/i8",
+                                  "c:f32/i8"])
 def test_form_kernel_matches_plain(name, P):
     dev = _cuda()
     form = {v: k for k, v in ps.FORMS.items()}[name]
@@ -188,13 +198,15 @@ def test_form_kernel_matches_plain(name, P):
 def test_kernel_refuses_forms_without_instantiation():
     dev = _cuda()
     before = sum(ps.LAUNCHES.values())
-    args, kw = _form_inputs(("split_i4", False, True), 300, 0, dev)
-    with pytest.raises(NotImplementedError, match="no instantiation"):
-        ps.fused_point_stages_tabs(*args, **kw)
-    args, kw = _form_inputs(("split_i4", True, False), 300, 0, dev)
-    with pytest.raises(NotImplementedError, match="no instantiation"):
-        ps.fused_point_stages_tabs(*args, **kw)
-    (tabs, feats, vmask, sig_ok, weights), kw = _form_inputs(("split_i8", True, False), 300, 0, dev)
+    # float feature rows with occ_geom, a merged bf16 table with a feature
+    # input, int4 rows beside float source rows: no library holds them
+    for form in ((("u8", "bf16"), False, True), (("bf16",), True, False),
+                 (("f32", "i4"), False, False)):
+        assert form not in ps.FORMS
+        args, kw = _form_inputs(form, 300, 0, dev)
+        with pytest.raises(NotImplementedError, match="no instantiation"):
+            ps.fused_point_stages_tabs(*args, **kw)
+    (tabs, feats, vmask, sig_ok, weights), kw = _form_inputs((("u8", "i8"), True, False), 300, 0, dev)
     with pytest.raises(NotImplementedError, match="geometry features"):
         ps.fused_point_stages_tabs(tabs, feats[:, :64].contiguous(), vmask, sig_ok, weights)
     with pytest.raises(NotImplementedError, match="tap weights"):
@@ -205,11 +217,12 @@ def test_kernel_refuses_forms_without_instantiation():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["fast", "reference", "frame_mode", "neg fast",
-                                  "neg reference"])
+                                  "neg reference", "paper"])
 def test_render_on_card_matches_cpu(mode):
     """128^2 renders on the card against the CPU; "neg" modes render the
     `thuman-synthetic` frame (THuman's neg-ray convention), whose ray masks
-    and ray and sample counts must be identical on both devices."""
+    and ray and sample counts must be identical on both devices; "paper" is
+    the paper configs' table choice, split tables under the tight cull."""
     dev = _cuda()
     neg = mode.startswith("neg ")
     mode = mode.split()[-1]
@@ -226,7 +239,9 @@ def test_render_on_card_matches_cpu(mode):
     cfg.render.file = "demo_render"
     cfg.tpu.matmul_dtype = "float32"
     cfg.tpu.ray_cap = 16384
-    if mode != "fast":
+    if mode == "paper":
+        cfg.tpu.merge_lowres_src = False
+    elif mode != "fast":
         cfg.tpu.tight_cull = False
         cfg.tpu.samples_per_ray = 64
         cfg.tpu.tap_window = 0
@@ -257,7 +272,7 @@ def test_render_on_card_matches_cpu(mode):
     assert float(d.median()) < 2e-3 and float((d > 0.05).float().mean()) <= 1e-3
     # fast mode as before; the blanket's rays of image row 0 project onto a
     # source image's border row to the last bit, where a view flips in or out
-    assert float(d.max()) < (0.05 if mode == "fast" else 0.15)
+    assert float(d.max()) < (0.05 if mode in ("fast", "paper") else 0.15)
 
 
 # --- the quad-lerp kernels and the row gather (ops/quad_lerp.py, row_gather.py)
@@ -265,8 +280,8 @@ def test_render_on_card_matches_cpu(mode):
 
 def _lerp_inputs(row_dtype, V, P, C, seed, dev):
     g = torch.Generator(device=dev).manual_seed(seed)
-    if row_dtype == torch.float32:
-        rows = torch.randn(V * P, 4 * C, generator=g, device=dev)
+    if row_dtype in (torch.float32, torch.bfloat16):
+        rows = torch.randn(V * P, 4 * C, generator=g, device=dev).to(row_dtype)
     else:
         lo, hi = (0, 256) if row_dtype == torch.uint8 else (-127, 128)
         rows = torch.randint(lo, hi, (V * P, 4 * C), generator=g, device=dev, dtype=row_dtype)
@@ -282,7 +297,7 @@ def _bits(t):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("row_dtype", [torch.int8, torch.uint8, torch.float32])
+@pytest.mark.parametrize("row_dtype", [torch.int8, torch.uint8, torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("P,C", [(1, 35), (127, 35), (129, 6), (70001, 35), (1000, 96)])
 def test_quad_lerp_kernels_match_plain_bitwise(P, C, row_dtype, out_dtype):
     from gpnerf_tpu_torch.ops import quad_lerp as ql
@@ -414,7 +429,7 @@ def test_opbyop_render_on_card_matches_cpu(mode):
     d = (g["pred_chw"].reshape(3, -1)[:, m] - c["pred_chw"].reshape(3, -1)[:, m]).abs()
     # float32 heads on both devices, sums in another order
     assert float(d.median()) < 1e-4 and float((d > 0.05).float().mean()) <= 1e-3
-    assert float(d.max()) < (0.05 if mode == "fast" else 0.15)
+    assert float(d.max()) < (0.05 if mode in ("fast", "paper") else 0.15)
 
 
 # --- the training path (render/base.py, train/step.py)

@@ -68,18 +68,25 @@ def test_synthetic_small(tmp_path, ckpt):
     assert os.path.isdir(tmp_path / "work_dirs")
 
 
-@pytest.mark.parametrize("config", ["trainzju_valzju.yaml", "trainthu_valzju.yaml"])
-def test_zjumocap_tree(tmp_path, ckpt, zju_root, config):
+@pytest.mark.parametrize("config,tables", [
+    pytest.param("trainzju_valzju.yaml", ["tpu.merge_lowres_src", "True"],
+                 id="trainzju_valzju.yaml"),
+    pytest.param("trainthu_valzju.yaml", ["tpu.merge_lowres_src", "True"],
+                 id="trainthu_valzju.yaml"),
+    pytest.param("trainzju_valzju.yaml", [], id="trainzju_valzju.yaml-paper-tables"),
+])
+def test_zjumocap_tree(tmp_path, ckpt, zju_root, config, tables):
     """The published evaluation command's shape (README) on the fabricated
     ZJU tree at ratio 0.125 (1024 -> 128), for both paper configs (both
-    validate on ZJU-MoCap), in the port's fast mode: the configs' own
-    default of split projection tables under the tight cull
-    (`tpu.merge_lowres_src False`) is a switch the port still refuses."""
+    validate on ZJU-MoCap): in the fast mode's merged table
+    (`tpu.merge_lowres_src True`), and with the config's own `tpu` section
+    unchanged, whose default is split projection tables under the tight
+    cull."""
     out = run_cli(tmp_path, "--cfg", os.path.join(ROOT, "configs", config),
                   *SMALL, "render.resume_path", ckpt, "dataset.test.shuffle", "False",
                   "dataset.test.data_root", zju_root, "dataset.test.seq_list",
                   "['CoreView_387']", "test.test_seq", "CoreView_387", "dataset.ratio", "0.125",
-                  "tpu.ray_cap", "8192", "tpu.merge_lowres_src", "True", "test.is_vis", "True",
+                  "tpu.ray_cap", "8192", *tables, "test.is_vis", "True",
                   "test.save_imgs", "True", "result_dir", str(tmp_path / "results"))
     assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
     assert 0 < _metric(out.stdout, "psnr") < 60

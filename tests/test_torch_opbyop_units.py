@@ -266,6 +266,11 @@ def test_profile_returns_the_reference_slots(small_renders, pallas_point):
         dict(REF, pallas_point=False, kernel_octet=False),
         dict(REF, frame_mode=True, kernel_octet=False),
         dict(REF, sigma_query_cull=True, kernel_octet=False),
+        dict(REF, int4_feat=True, kernel_octet=False),
+        dict(pallas_point=False, frame_mode=True),
+        dict(pallas_point=False, merge_src_feat=True),
+        dict(REF, pallas_point=False, quantize_proj=False),
+        dict(REF, pallas_point=False, frame_mode=True, sigma_query_cull=True),
     ],
 )
 def test_build_render_accepts_the_switches(tpu):
@@ -277,12 +282,13 @@ def test_build_render_accepts_the_switches(tpu):
 @pytest.mark.parametrize(
     "tpu,key",
     [
-        (dict(REF, int4_feat=True, kernel_octet=False), "kernel_octet"),
-        (dict(pallas_point=False, frame_mode=True), "frame_mode"),
+        # combinations whose fused point-stage form has no instantiation
+        (dict(merge_src_feat=True, kernel_octet=False), "kernel_octet"),
+        (dict(REF, quantize_proj=False, frame_mode=True), "frame_mode"),
         (dict(pallas_point=False, dense_slots=False), "dense_slots"),
-        (dict(pallas_point=False, merge_src_feat=True), "merge_src_feat"),
-        (dict(REF, pallas_point=False, quantize_proj=False), "quantize_proj"),
-        (dict(REF, pallas_point=False, frame_mode=True, sigma_query_cull=True), "sigma_query_cull"),
+        (dict(pallas_point=False, merge_coarse_octet=False), "merge_coarse_octet"),
+        (dict(REF, pallas_point=False, fold_coarse_fc=False), "fold_coarse_fc"),
+        (dict(merge_src_feat=True, sigma_query_cull=True), "sigma_query_cull"),
     ],
 )
 def test_build_render_still_raises_for_what_is_not_ported(tpu, key):

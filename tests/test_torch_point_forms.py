@@ -275,12 +275,17 @@ def test_launch_refuses_forms_and_widths_without_instantiation():
     device, so its refusals show on CPU tensors too."""
     P = 64
     before = sum(ps.LAUNCHES.values())
-    tabs, _, vmask, sig_ok, weights, geom = _render_shape_inputs(P, int4=True)
+    tabs8, _, vmask, sig_ok, weights, geom = _render_shape_inputs(P)
+    # bf16 feature rows with occ_geom; one merged bf16 table with a feature
+    # input: forms no library holds
+    bf_feat = (tabs8[0], (torch.zeros(3 * P, 4 * ps.CF, dtype=torch.bfloat16),) + tabs8[1][1:])
     with pytest.raises(NotImplementedError, match="no instantiation"):
-        ps._launch(tabs, None, vmask, sig_ok, weights, geom, True)
-    tabs8, feats, _, _, _, _ = _render_shape_inputs(P, feats=True)
+        ps._launch(bf_feat, None, vmask, sig_ok, weights, geom, True)
+    _, feats, _, _, _, _ = _render_shape_inputs(P, feats=True)
+    merged_bf = ((torch.zeros(3 * P, 4 * ps.C, dtype=torch.bfloat16), tabs8[1][1],
+                  torch.ones(ps.C)),)
     with pytest.raises(NotImplementedError, match="no instantiation"):
-        ps._launch(tabs, feats, vmask, sig_ok, weights, (), False)
+        ps._launch(merged_bf, feats, vmask, sig_ok, weights, (), False)
     with pytest.raises(NotImplementedError, match="geometry features"):
         ps._launch(tabs8, feats[:, :64].contiguous(), vmask, sig_ok, weights, (), False)
     with pytest.raises(NotImplementedError, match="1 or 2 projection tables"):
@@ -296,8 +301,9 @@ def test_launch_refuses_forms_and_widths_without_instantiation():
 @pytest.mark.parametrize("key", sorted(ps.FORMS, key=str))
 def test_build_command_per_form(key):
     cmd, lib = ps.build_command(key)
-    proj, feats, occ = key
-    assert f"-DPS_PROJ={ps.PROJ_CODES[proj]}" in cmd
+    rows, feats, occ = key
+    assert f"-DPS_ROW_A={ps.ROW_CODES[rows[0]]}" in cmd
+    assert f"-DPS_ROW_B={ps.ROW_CODES[rows[1]] if len(rows) == 2 else 0}" in cmd
     assert f"-DPS_FEATS={int(feats)}" in cmd and f"-DPS_OCC={int(occ)}" in cmd
     assert "arch=compute_90a,code=sm_90a" in cmd and cmd[-1] == ps.SOURCE
     others = {ps.build_command(k)[1] for k in ps.FORMS if k != key}

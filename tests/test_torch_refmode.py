@@ -263,18 +263,42 @@ def test_int4_feat_close_to_int8(port_renders):
     assert -10 * np.log10(float(np.mean(diff ** 2))) > 29.0
 
 
+def test_int4_pairs_close_to_int8(port_renders):
+    """The reference mode's variant pairs with int4 feature rows: the
+    windowless frame's in-kernel occupancy cull (form c+d+e) against the
+    same frame over int8 rows (c+e), and the (P, 96) feature input (b+c+d)
+    against the in-kernel lerp of the same int4 rows (c+d), bitwise."""
+    f4, f8 = port_renders(frame_mode=True, int4_feat=True), port_renders(frame_mode=True)
+    for k in ("mask_at_box", "overflows"):
+        np.testing.assert_array_equal(f4[k], f8[k], err_msg=k)
+    # the frame's occupancy verdicts do not read the feature table
+    np.testing.assert_array_equal(f4["counts"][:2], f8["counts"][:2])
+    m = f8["mask_at_box"].reshape(H, W)
+    diff = np.abs(f4["pred_chw"] - f8["pred_chw"])[:, m]
+    # the bounds of test_int4_feat_close_to_int8
+    assert 0 < np.median(diff) < 0.02, np.median(diff)
+    assert np.percentile(diff, 99) < 0.15, np.percentile(diff, 99)
+    assert -10 * np.log10(float(np.mean(diff ** 2))) > 29.0
+    on = port_renders(int4_feat=True)
+    off = port_renders(int4_feat=True, kernel_octet=False)
+    for k in ("mask_at_box", "overflows", "pred_chw"):
+        np.testing.assert_array_equal(on[k], off[k], err_msg=k)
+    np.testing.assert_array_equal(on["counts"][:2], off["counts"][:2])
+
+
 @pytest.mark.parametrize(
     "tpu,key",
     [
         (dict(samples_per_ray=32), "samples_per_ray"),
         (dict(tap_window=16), "tap_window"),
-        (dict(merge_lowres_src=True), "merge_lowres_src"),
+        (dict(quantize_volume=False), "quantize_volume"),
         (dict(dense_slots=False), "dense_slots"),
-        (dict(quantize_proj=False), "quantize_proj"),
-        (dict(frame_mode=True, int4_feat=True), "int4_feat"),
-        (dict(int4_feat=True, kernel_octet=False), "kernel_octet"),
+        # combinations whose fused point-stage form has no instantiation
+        (dict(merge_src_feat=True, frame_mode=True), "merge_src_feat"),
+        (dict(quantize_proj=False, sigma_query_cull=True), "sigma_query_cull"),
+        (dict(quantize_proj=False, kernel_octet=False), "kernel_octet"),
         (dict(tight_cull=True, tap_window=32, samples_per_ray=13,
-              merge_lowres_src=True, int4_feat=True), "int4_feat"),
+              merge_src_feat=True, kernel_octet=False), "kernel_octet"),
     ],
 )
 def test_build_render_raises_outside_the_modes(tpu, key):
@@ -292,6 +316,11 @@ def test_build_render_raises_outside_the_modes(tpu, key):
         dict(kernel_octet=False),
         dict(tight_cull=True, samples_per_ray=13, merge_lowres_src=True),
         dict(tight_cull=True, samples_per_ray=13, merge_lowres_src=True, kernel_octet=False),
+        dict(merge_lowres_src=True),
+        dict(quantize_proj=False),
+        dict(frame_mode=True, int4_feat=True),
+        dict(int4_feat=True, kernel_octet=False),
+        dict(tight_cull=True, samples_per_ray=13, merge_lowres_src=True, int4_feat=True),
     ],
 )
 def test_build_render_accepts_the_modes(tpu):

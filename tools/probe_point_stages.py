@@ -25,7 +25,7 @@ import sys
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 sys.path.insert(0, ROOT)
 
-FORMS = {"a": (("merged_i8", False, False), 319488), "c": (("split_i8", False, False), 3670016)}
+FORMS = {"a": ((("i8",), False, False), 319488), "c": ((("u8", "i8"), False, False), 3670016)}
 MLP = "  // ---- sigma-feat linear + density MLP, on tensor cores ----"
 PROBES = {
     "staging only": [("  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;",
