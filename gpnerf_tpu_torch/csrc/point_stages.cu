@@ -20,15 +20,25 @@
 //               k in bytes [16k, 16k+16), byte j = channel j (low nibble)
 //               and channel j + 16 (high nibble), two's complement,
 //               sign-extended as (n ^ 8) - 8;
-//   PS_FEATS 0  geometry lerped in the kernel from two tables: the u8
-//               level-1 octet rows (8 corners x 32 channels) and the int8
-//               folded-coarse nearest rows (1 row x 64 channels);
-//            1  form (b): the (P, 96) float geometry feature is an input;
+//   PS_G0 .. PS_G3  the geometry tables, in the order their lerped channel
+//               blocks join into the F-channel geometry feature (the TPU
+//               kernel's geom_specs (Tg, Cg) with each table's row type),
+//               each as row type * 10000 + taps * 1000 + channels, 0 = no
+//               table: taps 8 = octet rows (the 8 corners of a trilinear
+//               cell, corner k's channels at [k * Cg, (k + 1) * Cg)), taps
+//               1 = nearest rows; row types 1 int8, 2 uint8, 4 bf16, 5
+//               float32, each with a per-channel dequant scale (unit for
+//               float rows); channels a multiple of 32. The shipped default
+//               is 28032, 11064: the u8 level-1 octet table and the int8
+//               folded-coarse nearest table, F = 96. Row type 6, PS_G0 =
+//               61000 + F, is form (b): the (P, F) float geometry feature is
+//               an input, queried outside;
 //   PS_OCC   1  form (e), occ_geom: sigma is also zeroed where the
-//               dequantized channel sum of the lerped level-1 block is <= 0
-//               (the trilinear occupancy), and that 0/1 verdict is written
-//               to a third output. All terms of the sum are non-negative, so
-//               the verdict does not depend on the order of the sum.
+//               dequantized channel sum of the lerped level-1 block (table
+//               0, 32 channels) is <= 0 (the trilinear occupancy), and that
+//               0/1 verdict is written to a third output. All terms of the
+//               sum are non-negative, so the verdict does not depend on the
+//               order of the sum.
 // V = 3 source views throughout. Float rows are rounded to bf16 before the
 // tap sum, as the TPU kernel casts every row (pallas_point.py _to_bf16);
 // bf16 rows are used as they are.
@@ -37,8 +47,9 @@
 //   rgbfeat[v][c] = (sum_k rows[v*P+p][k*Ct+c] * w4[v][k][p]) * scale[c]
 //     per projection table, channel blocks concatenated
 //   mean/var over the V views
-//   f = [lerp8(level-1 row) * gs0 | lerp1(coarse row) * gs1]      (96)
-//   sigma_feat = ELU(W_sf f + b)            (W_sf = [W[:32] | I_64])
+//   f[g] = (sum_k rows_g[p][k * Cg + c] * wg[k][p]) * gscale_g[c] per
+//     geometry table g, blocks joined: F = 96 (folded coarse tables) or 128
+//   sigma_feat = ELU(W_sf f + b)  (folded: W_sf = [W[:32] | I_64]; else W)
 //   density MLP 134 -> 64 -> 32 -> 16 -> 1 (ELU, ELU, ELU, ReLU) on
 //     [sigma_feat, mean, var]; sigma = 0 where sum(vmask) < 1 or !sig_ok;
 //     alpha = 1 - exp(-sigma)
@@ -55,7 +66,11 @@
 //     bytes, 48 tap weights, 256 + 64 geometry-row bytes, 36 geometry
 //     weights, 12 view-mask bytes, 1 cull byte, 16 output bytes = 853 ->
 //     0.27 GB per frame, 81 us at 3.35 TB/s; with bf16 rows 1,273 bytes,
-//     with float32 rows 2,113;
+//     with float32 rows 2,113. The other geometry layouts change the
+//     geometry part: an int8 coarse octet row 512 + 32 weight bytes (1,330
+//     per point), an unfolded u8 coarse octet 768 + 32 (1,586), four u8
+//     level octets 4 x (256 + 32) (1,650), a u8 level-1 nearest row 32 + 4
+//     (600), float rows bf16 512 + f32 2,048 + 64 (3,121);
 //   form (c) at the reference-mode shape, P = 64 * 57344 = 3,670,016:
 //     3 * (12 + 128) row bytes, 96 tap weights, 356 geometry, 13 masks, 16
 //     out (20 with the occupancy verdict) = 901 -> 3.3 GB per frame, 0.99 ms;
@@ -70,11 +85,12 @@
 // Design: 256 points per block, 8 warps, one point per thread in the front
 // end (the quad lerps, mean/var, the geometry lerp, the masks and the
 // occupancy verdict, all in registers as before). The twelve layers' padded
-// bf16 weights (33,280 values, 65 KB), their float32 biases and the dequant
-// scales are staged once per block in dynamic shared memory. The front end
-// writes each layer input, rounded to bf16, into its warp's shared-memory
-// tiles, one row per point, padding columns zeroed: the geometry feature f
-// (96 columns) and X = [sigma_feat | mean | var | rf_v | 0] (176 columns),
+// bf16 weights (33,280 values, 65 KB; 35,328 at F = 128), their float32
+// biases and the dequant scales are staged once per block in dynamic shared
+// memory. The front end writes each layer input, rounded to bf16, into its
+// warp's shared-memory tiles, one row per point, padding columns zeroed: the
+// geometry feature f (a 96-column tile) and X = [sigma_feat | mean | var |
+// rf_v | 0] (176 columns),
 // which is layer 1's input in columns 0-143 and view v's color input in
 // columns 64-175; rf_v waits in registers as bf16 pairs until its view.
 // Each warp then runs every layer on its 32 points with nvcuda::wmma
@@ -86,7 +102,17 @@
 // and writes the next layer's bf16 input (or keeps the f32 value: hv for
 // the vis_fc residual, in registers). rgb_fc's first layer accumulates view
 // by view, so the view concat is never stored. 19 KB per warp, 219 KB per
-// block: one block per SM. Lanes past P take part in every mma_sync on zero
+// block (223 KB at F = 128): one block per SM.
+// The geometry tables are lerped 32 channels at a time, corner by corner
+// (each corner's channels summed before the next corner is read, as float
+// projection rows are), and each 32-column chunk goes to the f tile at
+// once, so no table's whole row or block waits in registers. At F = 128
+// the tile holds the first 96 columns; layer 0 then accumulates in K
+// slices, as rgb_fc's first layer accumulates over views: the first
+// slice's products go into eight f32 accumulator fragments (the 4 N tiles
+// of both M tiles), the last 32 columns are lerped into the tile's first
+// columns and added, and only then does the epilogue run. The K tiles are
+// summed in the order of one whole-layer walk. Lanes past P take part in every mma_sync on zero
 // rows, and skip their loads and their stores of outputs. Each thread reads
 // its own rows: in 16-byte words where they are 16-byte aligned (octet,
 // coarse and split int8 feature rows), else in 32-bit words (the 140-byte
@@ -119,8 +145,18 @@ namespace {
 #ifndef PS_ROW_B
 #define PS_ROW_B 0
 #endif
-#ifndef PS_FEATS
-#define PS_FEATS 0
+#ifndef PS_G0
+#define PS_G0 28032
+#define PS_G1 11064
+#endif
+#ifndef PS_G1
+#define PS_G1 0
+#endif
+#ifndef PS_G2
+#define PS_G2 0
+#endif
+#ifndef PS_G3
+#define PS_G3 0
 #endif
 #ifndef PS_OCC
 #define PS_OCC 0
@@ -129,21 +165,52 @@ namespace {
 namespace wmma = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
 
-enum Row { NONE = 0, I8 = 1, U8 = 2, I4 = 3, BF16 = 4, F32 = 5 };
+enum Row { NONE = 0, I8 = 1, U8 = 2, I4 = 3, BF16 = 4, F32 = 5, FEAT = 6 };
 
 constexpr int V = 3;
 constexpr int CS = 3;    // source rgb channels
 constexpr int CF = 32;   // encoder feature channels
 constexpr int C = CS + CF;  // [rgb | feat] channels, merged or concatenated
 constexpr int T = 4;     // bilinear taps per quad row
-constexpr int C0 = 32;   // level-1 octet channels (u8), 8 corners
-constexpr int C1 = 64;   // folded-coarse nearest channels (i8), 1 row
 constexpr int NL = 12;   // MLP layers
+
+// The geometry tables (PS_G0 .. PS_G3): row type, taps, channels.
+struct Geom {
+  int row, taps, ch;
+};
+constexpr int GCODE[4] = {PS_G0, PS_G1, PS_G2, PS_G3};
+constexpr Geom GEO[4] = {{GCODE[0] / 10000, GCODE[0] / 1000 % 10, GCODE[0] % 1000},
+                         {GCODE[1] / 10000, GCODE[1] / 1000 % 10, GCODE[1] % 1000},
+                         {GCODE[2] / 10000, GCODE[2] / 1000 % 10, GCODE[2] % 1000},
+                         {GCODE[3] / 10000, GCODE[3] / 1000 % 10, GCODE[3] % 1000}};
+__host__ __device__ constexpr int geo_count(int g = 0) { return g < 4 && GCODE[g] != 0 ? geo_count(g + 1) : g; }
+constexpr int NG = geo_count();
+// first feature column of table g; FT = the geometry feature's width F
+__host__ __device__ constexpr int geo_col(int g) { return g == 0 ? 0 : geo_col(g - 1) + GEO[g - 1].ch; }
+constexpr int FT = geo_col(NG);
+// the table holding feature column `col`
+__host__ __device__ constexpr int geo_table(int col, int g = 0) {
+  return col < geo_col(g + 1) ? g : geo_table(col, g + 1);
+}
+__host__ __device__ constexpr bool geo_ok(int g = 0) {
+  return g == NG ||
+         (GEO[g].ch % 32 == 0 &&
+          (GEO[g].row == FEAT ? NG == 1 && GEO[g].taps == 1
+                              : (GEO[g].taps == 1 || GEO[g].taps == 8) &&
+                                    (GEO[g].row == I8 || GEO[g].row == U8 || GEO[g].row == BF16 ||
+                                     GEO[g].row == F32)) &&
+          geo_ok(g + 1));
+}
+constexpr bool FEATS = GEO[0].row == FEAT;  // form (b)
+static_assert(NG >= 1 && geo_ok(), "geometry tables: 1-4 of 8 or 1 taps, 32k channels");
+static_assert((NG > 1 || GCODE[1] == 0) && (NG > 2 || GCODE[2] == 0) && (NG > 3 || GCODE[3] == 0),
+              "geometry tables are PS_G0 .. PS_G<NG - 1>");
+static_assert(!PS_OCC || (!FEATS && GEO[0].ch == 32), "occ_geom reads table 0's 32 level-1 channels");
 constexpr int WARPS = 8;
 constexpr int BLOCK = 32 * WARPS;  // one point per thread
 
 // layer order: sigma-feat, density d0..d3, base b0 b1, vis v0 v1, rgb r0..r2
-constexpr int CIN[NL] = {C0 + C1, 64 + 2 * C, 64, 32, 16, 3 * C, 64, 32, 32, V * 32, 32, 16};
+constexpr int CIN[NL] = {FT, 64 + 2 * C, 64, 32, 16, 3 * C, 64, 32, 32, V * 32, 32, 16};
 constexpr int COUT[NL] = {64, 64, 32, 16, 1, 64, 32, 32, 32, 32, 16, 3};
 
 __host__ __device__ constexpr int pad16(int n) { return (n + 15) / 16 * 16; }
@@ -157,15 +224,18 @@ __host__ __device__ constexpr int boff(int l) { return l == 0 ? 0 : boff(l - 1) 
 // float32 biases) as the wrapper passes it, the dequant scales, then one
 // set of tiles per warp (19 KB, so 8 warps fit).
 constexpr int WELEMS = woff(NL);                        // 33,280 bf16
-constexpr int WBUF_BYTES = WELEMS * 2 + boff(NL) * 4;   // 68,112
-constexpr int SCALE_OFF = WBUF_BYTES;                   // pscale (C), gs0 (C0), gs1 (C1)
-constexpr int WARP_OFF = (SCALE_OFF + (C + C0 + C1) * 4 + 127) / 128 * 128;
+constexpr int WBUF_BYTES = WELEMS * 2 + boff(NL) * 4;   // 68,112 (72,208 at F = 128)
+constexpr int SCALE_OFF = WBUF_BYTES;                   // pscale (C), the geometry scales (FT)
+constexpr int WARP_OFF = (SCALE_OFF + (C + FT) * 4 + 127) / 128 * 128;
 // A warp's tiles, 32 rows each. X = [sigma_feat | mean | var | rf_v | 0]
 // (bf16): layer 1 reads columns 0-143 (the density input; rf_v's first ten
 // columns meet layer 1's zero padding columns), layer 5 columns 64-175 (view
 // v's color input, rf_v rewritten per view). F = the geometry feature
-// (bf16), later the hidden layers' tiles. Then the f32 scratch of one N tile.
-constexpr int KX = 64 + kp(5), KF = kp(0);             // 176, 96
+// (bf16; at F = 128 its K slices in turn), later the hidden layers' tiles.
+// Then the f32 scratch of one N tile.
+constexpr int KX = 64 + kp(5), KF = 96;                // 176, 96
+constexpr int NT0 = np(0) / 16;                        // layer 0's N tiles
+static_assert(FT <= 2 * KF && KF % 32 == 0, "layer 0 takes at most two K slices");
 constexpr int WARP_BYTES = (32 * KX + 32 * KF) * 2 + 32 * 16 * 4;
 constexpr int SMEM_BYTES = WARP_OFF + WARPS * WARP_BYTES;
 static_assert(WBUF_BYTES % 16 == 0, "weight buffer staged in 16-byte words");
@@ -278,13 +348,9 @@ struct Args {
   const uint8_t* rows_b;  // two tables: the feature rows
   const float* w4_b;
   const float* scale_b;
-  const uint8_t* g0_rows;
-  const float* g0_w;
-  const float* g0_scale;
-  const int8_t* g1_rows;
-  const float* g1_w;
-  const float* g1_scale;
-  const float* feats;
+  const uint8_t* g_rows[4];  // geometry table g's rows (the (P, F) float input for form (b))
+  const float* g_w[4];        // its tap weights (taps, P)
+  const float* g_scale[4];    // its dequant scale (channels)
   const float* vmask;
   const uint8_t* sig_ok;
   const uint4* wbuf;
@@ -391,7 +457,118 @@ __device__ __forceinline__ void lerp_table(const uint8_t* rows, size_t vp, const
   }
 }
 
-template <int RA, int RB, bool FEATS, bool OCC>
+// Table g's dequant scales into gs[geo_col(g) ...], every table in turn.
+template <int G>
+__device__ __forceinline__ void load_geom_scales(const Args& a, float* gs) {
+  if constexpr (G < NG) {
+    if constexpr (GEO[G].row != FEAT) {
+      for (int i = threadIdx.x; i < GEO[G].ch; i += BLOCK) gs[geo_col(G) + i] = a.g_scale[G][i];
+    }
+    load_geom_scales<G + 1>(a, gs);
+  }
+}
+
+// Channels 32J .. 32J + 31 of geometry table G at point p:
+// f[c] = (sum_k row[k * Cg + 32J + c] * w[k][p]) * scale[32J + c], taps in
+// order with explicit roundings (the plain version's order), one corner's
+// 32 channels loaded at a time in 16-byte words (every row and every
+// corner's 32-channel run is 16-byte aligned); float rows rounded to bf16
+// first. The feature input (form (b)) is read as it is.
+template <int G, int J>
+__device__ __forceinline__ void geom_chunk(const Args& a, int P, int p, const float* gs, float (&f)[32]) {
+  constexpr Geom g = GEO[G];
+  constexpr int col = 32 * J;
+  if constexpr (g.row == FEAT) {
+    const float4* fr = reinterpret_cast<const float4*>(
+        reinterpret_cast<const float*>(a.g_rows[G]) + static_cast<size_t>(p) * g.ch + col);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 t = __ldg(fr + j);
+      f[4 * j] = t.x, f[4 * j + 1] = t.y, f[4 * j + 2] = t.z, f[4 * j + 3] = t.w;
+    }
+  } else {
+    constexpr int EB = g.row == BF16 ? 2 : g.row == F32 ? 4 : 1;  // bytes per channel
+    constexpr int NQ = 32 * EB / 16;                               // 16-byte words per run
+    const uint8_t* const row = a.g_rows[G] + static_cast<size_t>(p) * (g.taps * g.ch * EB);
+#pragma unroll
+    for (int k = 0; k < g.taps; ++k) {
+      const float w = __ldg(a.g_w[G] + static_cast<size_t>(k) * P + p);
+      const uint4* src = reinterpret_cast<const uint4*>(row + (k * g.ch + col) * EB);
+      uint32_t wd[4 * NQ];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        const uint4 q = __ldg(src + j);
+        wd[4 * j] = q.x, wd[4 * j + 1] = q.y, wd[4 * j + 2] = q.z, wd[4 * j + 3] = q.w;
+      }
+#pragma unroll
+      for (int c = 0; c < 32; ++c) {
+        float x;
+        if constexpr (g.row == U8) x = ubyte(wd[c >> 2], c & 3);
+        else if constexpr (g.row == I8) x = sbyte(wd[c >> 2], c & 3);
+        else if constexpr (g.row == BF16) x = bf16_bits((wd[c >> 1] >> (16 * (c & 1))) & 0xffffu);
+        else x = __bfloat162float(__float2bfloat16_rn(__uint_as_float(wd[c])));
+        f[c] = k == 0 ? __fmul_rn(x, w) : __fadd_rn(f[c], __fmul_rn(x, w));
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 32; ++c) f[c] = __fmul_rn(f[c], gs[geo_col(G) + col + c]);
+  }
+}
+
+using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+// Layer 0's products over K slice S (feature columns [S * KF, (S + 1) * KF)
+// as they stand in the f tile x) added into every N tile's accumulators.
+template <int S>
+__device__ __forceinline__ void layer0_slice(const bf16* w, const bf16* x, Acc (&acc)[NT0][2]) {
+  constexpr int K = kp(0), k0 = S * KF / 16, k1 = (K < (S + 1) * KF ? K : (S + 1) * KF) / 16;
+#pragma unroll
+  for (int n = 0; n < NT0; ++n) {
+#pragma unroll
+    for (int k = k0; k < k1; ++k) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a0, a1;
+      wmma::load_matrix_sync(b, w + woff(0) + n * 16 * K + k * 16, K);
+      wmma::load_matrix_sync(a0, x + (k - k0) * 16, KF);
+      wmma::load_matrix_sync(a1, x + 16 * KF + (k - k0) * 16, KF);
+      wmma::mma_sync(acc[n][0], a0, b, acc[n][0]);
+      wmma::mma_sync(acc[n][1], a1, b, acc[n][1]);
+    }
+  }
+}
+
+// The geometry feature's 32-column chunks N, N + 1, ... into this lane's
+// row of the f tile (zeros for a lane past P). When a chunk starts a new K
+// slice, the full tile first goes through layer0_slice. occ: the channel
+// sum of chunk 0 (table 0's level-1 block), in channel order.
+template <int N>
+__device__ __forceinline__ void geom_front(const Args& a, int P, int p, bool live, const float* gs,
+                                           bf16* xf, const bf16* W, Acc (&acc)[NT0][2], float& occ) {
+  if constexpr (N < FT / 32) {
+    constexpr int col = 32 * N, G = geo_table(col), J = (col - geo_col(G)) / 32;
+    if constexpr (col > 0 && col % KF == 0) {
+      __syncwarp();
+      layer0_slice<col / KF - 1>(W, xf, acc);
+      __syncwarp();
+    }
+    float f[32];
+    if (live) {
+      geom_chunk<G, J>(a, P, p, gs, f);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 32; ++c) f[c] = 0.f;
+    }
+    if constexpr (N == 0) {
+      occ = f[0];
+#pragma unroll
+      for (int c = 1; c < 32; ++c) occ = __fadd_rn(occ, f[c]);
+    }
+    put_row<32>(xf + (threadIdx.x & 31) * KF + col % KF, [&](int i) { return f[i]; });
+    geom_front<N + 1>(a, P, p, live, gs, xf, W, acc, occ);
+  }
+}
+
+template <int RA, int RB, bool OCC>
 __global__ void __launch_bounds__(BLOCK) point_stages_kernel(const Args a, int P) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int CA = RB == NONE ? C : CS;  // channels of table a
@@ -404,18 +581,14 @@ __global__ void __launch_bounds__(BLOCK) point_stages_kernel(const Args a, int P
   }
   float* const ps = reinterpret_cast<float*>(smem + SCALE_OFF);
   for (int i = threadIdx.x; i < C; i += BLOCK) ps[i] = i < CA ? a.scale_a[i] : a.scale_b[i - CA];
-  if (!FEATS) {
-    for (int i = threadIdx.x; i < C0; i += BLOCK) ps[C + i] = a.g0_scale[i];
-    for (int i = threadIdx.x; i < C1; i += BLOCK) ps[C + C0 + i] = a.g1_scale[i];
-  }
+  load_geom_scales<0>(a, ps + C);
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int p0 = blockIdx.x * BLOCK + warp * 32;
   if (p0 >= P) return;  // the whole warp is past P
   const int p = p0 + lane;
   const bool live = p < P;
-  const float* gs0 = ps + C;
-  const float* gs1 = gs0 + C0;
+  const float* const gs = ps + C;
   const bf16* const W = reinterpret_cast<const bf16*>(smem);
   const float* const B = reinterpret_cast<const float*>(smem + WELEMS * 2);
   bf16* const xx = reinterpret_cast<bf16*>(smem + WARP_OFF + warp * WARP_BYTES);  // (32, KX)
@@ -475,76 +648,47 @@ __global__ void __launch_bounds__(BLOCK) point_stages_kernel(const Args a, int P
         rfp[v][i] = bf16x2(rf[v * C + 2 * i], 2 * i + 1 < C ? rf[v * C + 2 * i + 1] : 0.f);
     }
   }
-  {
-    // geometry: level-1 octet trilerp + coarse nearest, dequantized; or the
-    // (P, 96) feature input
-    float f[C0 + C1];
-    if (!live) {
+  // ---- geometry: each table's dequantized lerp (or the (P, F) feature
+  // input), chunk by chunk into the f tile; at F = 128 layer 0's first K
+  // slice runs as the tile fills ----
+  Acc acc0[NT0][2];
+  if constexpr (FT > KF) {
 #pragma unroll
-      for (int c = 0; c < C0 + C1; ++c) f[c] = 0.f;
-    } else if (FEATS) {
-      const float4* fr = reinterpret_cast<const float4*>(a.feats + static_cast<size_t>(p) * (C0 + C1));
-#pragma unroll
-      for (int j = 0; j < (C0 + C1) / 4; ++j) {
-        const float4 t = __ldg(fr + j);
-        f[4 * j] = t.x;
-        f[4 * j + 1] = t.y;
-        f[4 * j + 2] = t.z;
-        f[4 * j + 3] = t.w;
-      }
-    } else {
-      const uint4* row = reinterpret_cast<const uint4*>(a.g0_rows + static_cast<size_t>(p) * 8 * C0);
-      float gw[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) gw[k] = __ldg(a.g0_w + static_cast<size_t>(k) * P + p);
-      uint4 q[8];  // corner k's words 4h .. 4h + 3, channels 16h .. 16h + 15
-#pragma unroll
-      for (int c4 = 0; c4 < C0 / 4; ++c4) {
-        if (c4 % 4 == 0) {
-#pragma unroll
-          for (int k = 0; k < 8; ++k) q[k] = __ldg(row + k * (C0 / 16) + c4 / 4);
-        }
-        uint32_t wd[8];
-#pragma unroll
-        for (int k = 0; k < 8; ++k)
-          wd[k] = c4 % 4 == 0 ? q[k].x : c4 % 4 == 1 ? q[k].y : c4 % 4 == 2 ? q[k].z : q[k].w;
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          float acc = __fmul_rn(ubyte(wd[0], s), gw[0]);
-#pragma unroll
-          for (int k = 1; k < 8; ++k) acc = __fadd_rn(acc, __fmul_rn(ubyte(wd[k], s), gw[k]));
-          f[c4 * 4 + s] = __fmul_rn(acc, gs0[c4 * 4 + s]);
-        }
-      }
-      const uint4* row1 = reinterpret_cast<const uint4*>(a.g1_rows + static_cast<size_t>(p) * C1);
-      const float w1 = __ldg(a.g1_w + p);
-      uint4 q1;
-#pragma unroll
-      for (int c4 = 0; c4 < C1 / 4; ++c4) {
-        if (c4 % 4 == 0) q1 = __ldg(row1 + c4 / 4);
-        const uint32_t wd = c4 % 4 == 0 ? q1.x : c4 % 4 == 1 ? q1.y : c4 % 4 == 2 ? q1.z : q1.w;
-#pragma unroll
-        for (int s = 0; s < 4; ++s)
-          f[C0 + c4 * 4 + s] = __fmul_rn(__fmul_rn(sbyte(wd, s), w1), gs1[c4 * 4 + s]);
-      }
+    for (int n = 0; n < NT0; ++n) {
+      wmma::fill_fragment(acc0[n][0], 0.f);
+      wmma::fill_fragment(acc0[n][1], 0.f);
     }
+  }
+  {
+    float occ = 0.f;
+    geom_front<0>(a, P, p, live, gs, xf, W, acc0, occ);
     if (live) {
       ok = a.sig_ok[p] != 0;
       if (OCC) {
         // trilinear level-1 occupancy: channel sum of the dequantized lerp
-        float occ = f[0];
-#pragma unroll
-        for (int c = 1; c < C0; ++c) occ = __fadd_rn(occ, f[c]);
         a.occm_out[p] = occ > 0.f ? 1.f : 0.f;
         ok = ok && occ > 0.f;
       }
     }
-    put_row<KF>(xf + lane * KF, [&](int i) { return f[i]; });
   }
   __syncwarp();
 
   // ---- sigma-feat linear + density MLP, on tensor cores ----
-  layer<0>(W, xf, KF, sc, to_tile<0, ELU>(B, xx, KX));  // sigma_feat -> X[:, 0:64]
+  if constexpr (FT <= KF) {
+    layer<0>(W, xf, KF, sc, to_tile<0, ELU>(B, xx, KX));  // sigma_feat -> X[:, 0:64]
+  } else {
+    // the last K slice, then the epilogue of every N tile
+    layer0_slice<(FT - 1) / KF>(W, xf, acc0);
+    const auto epi0 = to_tile<0, ELU>(B, xx, KX);
+#pragma unroll
+    for (int n = 0; n < NT0; ++n) {
+      wmma::store_matrix_sync(sc, acc0[n][0], 16, wmma::mem_row_major);
+      wmma::store_matrix_sync(sc + 16 * 16, acc0[n][1], 16, wmma::mem_row_major);
+      __syncwarp();
+      epi0(n, sc);
+      __syncwarp();
+    }
+  }
   bf16* const h1 = xf;  // the feature tile is dead after layer 0
   layer<1>(W, xx, KX, sc, to_tile<1, ELU>(B, h1, 64));
   layer<2>(W, h1, 64, sc, to_tile<2, ELU>(B, xx, KX));  // -> X[:, 0:32]
@@ -657,7 +801,7 @@ __global__ void __launch_bounds__(BLOCK) point_stages_kernel(const Args a, int P
 }
 
 // the instantiation this library holds
-#define PS_KERNEL point_stages_kernel<PS_ROW_A, PS_ROW_B, PS_FEATS != 0, PS_OCC != 0>
+#define PS_KERNEL point_stages_kernel<PS_ROW_A, PS_ROW_B, PS_OCC != 0>
 
 // Lets the kernel ask for SMEM_BYTES of dynamic shared memory (once).
 cudaError_t configure() {
@@ -685,30 +829,39 @@ int point_stages_blocks_per_sm() {
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
-// The instantiation this library holds:
-// PS_ROW_A | PS_ROW_B << 3 | PS_FEATS << 6 | PS_OCC << 7.
-int point_stages_form() { return PS_ROW_A | (PS_ROW_B << 3) | (PS_FEATS << 6) | (PS_OCC << 7); }
+// The instantiation this library holds: the values of PS_ROW_A PS_ROW_B
+// PS_OCC PS_G0 PS_G1 PS_G2 PS_G3, separated by spaces.
+#define PS_STR_(x) #x
+#define PS_STR(x) PS_STR_(x)
+const char* point_stages_key() {
+  return PS_STR(PS_ROW_A) " " PS_STR(PS_ROW_B) " " PS_STR(PS_OCC) " " PS_STR(PS_G0) " " PS_STR(
+      PS_G1) " " PS_STR(PS_G2) " " PS_STR(PS_G3);
+}
 
+// g_rows, g_w, g_scale: arrays of 4 pointers, table g's at index g (null
+// past the library's tables, and the weights and scale of a feature input).
 int point_stages_launch(const void* rows_a, const void* w4_a, const void* scale_a,
                         const void* rows_b, const void* w4_b, const void* scale_b,
-                        const void* g0_rows, const void* g0_w, const void* g0_scale,
-                        const void* g1_rows, const void* g1_w, const void* g1_scale,
-                        const void* feats, const void* vmask, const void* sig_ok,
+                        const void* const* g_rows, const void* const* g_w,
+                        const void* const* g_scale, const void* vmask, const void* sig_ok,
                         const void* wbuf, void* alpha, void* rgb, void* occm, int P,
                         void* stream) {
   const cudaError_t e = configure();
   if (e != cudaSuccess) return static_cast<int>(e);
   if (P > 0) {
-    const Args a = {
+    Args a = {
         static_cast<const uint8_t*>(rows_a), static_cast<const float*>(w4_a),
         static_cast<const float*>(scale_a), static_cast<const uint8_t*>(rows_b),
         static_cast<const float*>(w4_b), static_cast<const float*>(scale_b),
-        static_cast<const uint8_t*>(g0_rows), static_cast<const float*>(g0_w),
-        static_cast<const float*>(g0_scale), static_cast<const int8_t*>(g1_rows),
-        static_cast<const float*>(g1_w), static_cast<const float*>(g1_scale),
-        static_cast<const float*>(feats), static_cast<const float*>(vmask),
-        static_cast<const uint8_t*>(sig_ok), static_cast<const uint4*>(wbuf),
-        static_cast<float*>(alpha), static_cast<float*>(rgb), static_cast<float*>(occm)};
+        {}, {}, {},
+        static_cast<const float*>(vmask), static_cast<const uint8_t*>(sig_ok),
+        static_cast<const uint4*>(wbuf), static_cast<float*>(alpha), static_cast<float*>(rgb),
+        static_cast<float*>(occm)};
+    for (int g = 0; g < 4; ++g) {
+      a.g_rows[g] = static_cast<const uint8_t*>(g_rows[g]);
+      a.g_w[g] = static_cast<const float*>(g_w[g]);
+      a.g_scale[g] = static_cast<const float*>(g_scale[g]);
+    }
     const int grid = (P + BLOCK - 1) / BLOCK;
     PS_KERNEL<<<grid, BLOCK, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(a, P);
   }

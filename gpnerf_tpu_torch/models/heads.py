@@ -12,7 +12,8 @@
 
 The progressive renderer's fused path runs density/color inside the
 point-stage kernel (ops/point_stages.py); its op-by-op path calls
-`density`, `color` and `query_sigma_feat_octet_folded` here. The training
+`density`, `color` and `query_sigma_feat_octet_folded` (or, with the
+coarse table unfolded, `query_sigma_feat_octet`) here. The training
 renderer (render/base.py) runs `volume(train=)` and `point_forward`. With a `compute_dtype` they round
 where the JAX package's heads, computing in that dtype, round (values stay
 in float32 tensors; models/layers.MLP).
@@ -83,6 +84,25 @@ class NeRFSigmaHead(nn.Module):
         vertex per row, -1 padding) and run the conv stack."""
         code = _gather_rows(fused_codes, vertex_rows)
         return self.xyzc_net.features(code, levels, train=train)
+
+    def query_sigma_feat_octet(self, octet_vols, dhw_vox, out_sh, scales=None,
+                               with_l1_occ=False):
+        """Sigma feature (P, 64) from unfolded tables: two (the level-1
+        table and the merged [l2|l3|l4] coarse table, query_octet2) or four
+        (one per level, query_octet), queried in the compute dtype, then
+        out_geometry_fc on the full (P, 128) feature. `with_l1_occ` also
+        returns the level-1 channel sum of the queried features, the
+        trilinear occupancy."""
+        dt = self.compute_dtype
+        net = self.xyzc_net
+        if len(octet_vols) == 2:
+            feats = net.query_octet2(*octet_vols, dhw_vox, out_sh, scales=scales, out_dtype=dt)
+        else:
+            feats = net.query_octet(octet_vols, dhw_vox, out_sh, scales=scales, out_dtype=dt)
+        sigma_feat = self.out_geometry_fc(feats)
+        if with_l1_occ:
+            return sigma_feat, rounded(feats[..., :self.nch1].sum(dim=-1), dt)
+        return sigma_feat
 
     def query_sigma_feat_octet_folded(self, octet_l1, octet_coarse, dhw_vox,
                                       out_sh, scales=None, with_l1_occ=False):

@@ -7,6 +7,11 @@ net.{2i+1} = stride conv (k3 s2) and net.{2i+2} = double_conv. Each conv is
 SubM/SparseConv3d (bias-free) + BatchNorm1d(eps 1e-3, running statistics)
 + ReLU, run through the host rulebooks (ops/sparse_conv.py). Per-level
 features are taken after each level's double_conv.
+
+`sparse_net_dense_eval` is the eval-only dense-convolution form of the same
+stack (the renderer's `dense_conv`): each level's convs run as dense 3D
+convolutions over the zero-filled level volume, re-masked to the active
+set, with the running-statistics BatchNorm as an affine map.
 """
 
 from __future__ import annotations
@@ -24,9 +29,11 @@ from gpnerf_tpu_torch.ops.grid_sample import (
     trilinear_dense_rows,
     trilinear_octet_rows,
 )
+from gpnerf_tpu_torch.models.layers import rounded
 from gpnerf_tpu_torch.ops.sparse_conv import (
     SparseLevel,
     scatter_channel_sum,
+    scatter_dense,
     stride_conv_tbl,
     subm_conv_tbl,
     trilinear_sparse_rows,
@@ -118,17 +125,30 @@ class SparseConvNet(nn.Module):
             trilinear_dense_rows(dense_vols[i], pos, dyn_size=size)
             for i, pos, size in self._level_positions(dhw_vox, out_sh)], dim=-1)
 
+    def query_octet(self, octet_vols, dhw_vox, out_sh, scales=None, out_dtype=None):
+        """Multi-scale trilinear query through one octet table per level
+        (FlatOctetTable, dense, packed-word or int4 tables). Returns (P,
+        sum(out_dim)); `out_dtype` as in query_octet2."""
+        return torch.cat([
+            trilinear_octet_rows(octet_vols[i], pos, size,
+                                 None if scales is None else scales[i], out_dtype)
+            for i, pos, size in self._level_positions(dhw_vox, out_sh)], dim=-1)
+
     @staticmethod
     def query_octet2(octet_l1, octet_coarse, dhw_vox, out_sh, scales=None,
                      out_dtype=None):
-        """Two-table multi-scale query: the level-1 octet table plus the
-        merged coarse table (octet or nearest). out_sh (3,) int tensor;
+        """Two-table multi-scale query: the level-1 table (octet, or
+        nearest: flat, midpoint-interleaved or lerp-axes) plus the merged
+        coarse table (octet, int4 or nearest). out_sh (3,) int tensor;
         `out_dtype` as in ops/grid_sample.bilinear_quad_nhwc."""
         frac = dhw_vox / out_sh.float()
         outs = []
         for i, tab in enumerate((octet_l1, octet_coarse)):
             if isinstance(tab, NearestTable):
                 size = out_sh // tab.div
+                if tab.interleave > 1:
+                    # a midpoint-doubled grid: s valid points became 2s - 1
+                    size = tab.interleave * (size - 1) + 1
                 fn = nearest_rows
             else:
                 size = out_sh // (2 ** (i + 1))
@@ -136,6 +156,82 @@ class SparseConvNet(nn.Module):
             pos = frac * (size - 1).float()
             outs.append(fn(tab, pos, size, None if scales is None else scales[i], out_dtype))
         return torch.cat(outs, dim=-1)
+
+
+def _bn_affine(x, bn):
+    """Eval BatchNorm as the JAX package's dense stack writes it:
+    (x - mean) * (1 / sqrt(var + eps)) * weight + bias, in float32."""
+    inv = 1.0 / torch.sqrt(bn.running_var + bn.eps)
+    return ((x.float() - bn.running_mean) * inv * bn.weight + bn.bias).to(x.dtype)
+
+
+def _conv3d(vol, w27, stride, compute_dtype=None):
+    """Dense 3x3x3 conv of a (D, H, W, Cin) volume with the sparse tap
+    layout w27 (27, Cin, Cout) (tap k = (kd*3 + kh)*3 + kw at offset (kd-1,
+    kh-1, kw-1)), padding 1: a correlation, as F.conv3d computes. Inputs are
+    rounded to `compute_dtype` and the sums run in float32."""
+    k = w27.reshape(3, 3, 3, w27.shape[-2], w27.shape[-1]).permute(4, 3, 0, 1, 2)
+    x = rounded(vol.float(), compute_dtype).permute(3, 0, 1, 2)[None]
+    y = F.conv3d(x, rounded(k.float(), compute_dtype), stride=stride, padding=1)
+    return y[0].permute(1, 2, 3, 0)
+
+
+def _dense_mask(level):
+    """(D, H, W, 1) float32 mask of a level's active sites."""
+    D, H, W = level.shape
+    c = level.coords
+    m = torch.zeros(D * H * W + 1, device=c.device)
+    m[torch.where(level.valid, (c[:, 0] * H + c[:, 1]) * W + c[:, 2], D * H * W)] = 1.0
+    return m[:-1].reshape(D, H, W, 1)
+
+
+def sparse_net_dense_eval(net: SparseConvNet, code, levels, *, compute_dtype=None):
+    """Eval-only dense-convolution form of `SparseConvNet.features`
+    (gpnerf_tpu/models/sparse_net.py `sparse_net_dense_eval`): the input
+    level's double conv and the first strided conv run in rows form on the
+    host rulebooks, then each level's convs run dense over the zero-filled
+    level volume, re-masked to the active set (a submanifold conv is a dense
+    conv whose output is kept at the active sites; inactive inputs add 0),
+    each BatchNorm the running-statistics affine. `code`: (CAP0, in_dim)
+    fused vertex codes at the level-0 rows. Returns the dense per-level
+    volumes [(D_i, H_i, W_i, out_dim[i-1]) for levels 1..n_layers], zero at
+    inactive sites."""
+    x = code
+    subm0 = net.net[0]
+    for conv, bn in ((subm0[0], subm0[1]), (subm0[3], subm0[4])):
+        x = subm_conv_tbl(x, levels[0], conv.taps(), compute_dtype=compute_dtype)
+        x = F.relu(_bn_affine(x, bn))
+    down0 = net.net[1]
+    x = stride_conv_tbl(x, levels[1], down0[0].taps(), compute_dtype=compute_dtype)
+    x = F.relu(_bn_affine(x, down0[1]))
+    vol = scatter_dense(x, levels[1])
+    vols = []
+    for i in range(net.n_layers):
+        mask = _dense_mask(levels[i + 1])
+        if i > 0:
+            down = net.net[2 * i + 1]
+            vol = _conv3d(vol, down[0].taps(), 2, compute_dtype)
+            vol = F.relu(_bn_affine(vol, down[1])) * mask
+        dc = net.net[2 * i + 2]
+        for conv, bn in ((dc[0], dc[1]), (dc[3], dc[4])):
+            vol = _conv3d(vol, conv.taps(), 1, compute_dtype)
+            vol = F.relu(_bn_affine(vol, bn)) * mask
+        vols.append(vol)
+    return vols
+
+
+def occupancy_volume_dense(vols, *, levels=None):
+    """`occupancy_volume` from dense (masked) level volumes: per-level
+    channel sums, nearest-upsampled to level-1 resolution and summed.
+    Returns (D1, H1, W1) float32."""
+    total = vols[0].new_zeros(vols[0].shape[:3], dtype=torch.float32)
+    use = range(len(vols)) if levels is None else levels
+    for i in use:
+        v = vols[i].sum(dim=-1).float()
+        for _ in range(i):
+            v = v.repeat_interleave(2, 0).repeat_interleave(2, 1).repeat_interleave(2, 2)
+        total = total + v
+    return total
 
 
 def occupancy_volume(level_feats, grids: List[SparseLevel], *, levels=None):

@@ -225,33 +225,79 @@ class FlatOctetTable(NamedTuple):
     shape: Tuple[int, int, int]
 
 
-def build_octet_table_scatter(feats, coords, valid, shape):
+def build_octet_table_scatter(feats, coords, valid, shape, pack_words=False):
     """Corner-scatter octet build for a sparse level: site (a, b, c) lands
     at table row (a+1-dz, b+1-dy, c+1-dx) in corner block k = (dz, dy, dx).
     Each (row, block) pair has at most one writing site, so a plain
     indexed write equals the JAX scatter-add; invalid rows go to the dump
-    row. feats (CAP, C) already zero at invalid rows."""
+    row. feats (CAP, C) already zero at invalid rows. `pack_words`: uint8
+    rows with C % 4 == 0 are written as 32-bit words (the JAX package's
+    word scatter), which gives the same bytes."""
     CAP, C = feats.shape
     D, H, W = shape
     Dp, Hp, Wp = D + 1, H + 1, W + 1
     R = Dp * Hp * Wp
-    table = feats.new_zeros(R + 1, 8, C)
+    packed = pack_words and feats.dtype == torch.uint8 and C % 4 == 0
+    rows_in = feats.contiguous().view(torch.int32) if packed else feats
+    table = rows_in.new_zeros(R + 1, 8, rows_in.shape[-1])
     for k, (dz, dy, dx) in enumerate(itertools.product((0, 1), repeat=3)):
         fl = ((coords[:, 0] + 1 - dz) * Hp + coords[:, 1] + 1 - dy) * Wp + (
             coords[:, 2] + 1 - dx
         )
-        table[torch.where(valid, fl, R), k] = feats
+        table[torch.where(valid, fl, R), k] = rows_in
+    if packed:
+        table = table.view(torch.uint8)
     return FlatOctetTable(table.reshape(R + 1, 8 * C), (Dp, Hp, Wp))
+
+
+def build_octet_table_3d_u32(q):
+    """`build_octet_table_3d` of a uint8 volume (D, H, W, C), C % 4 == 0,
+    stored as packed 32-bit words, 4 channels to a word (little-endian, the
+    JAX package's uint32 table): (D+1, H+1, W+1, 2C), held in an int32
+    tensor (torch's uint32 lacks the ops the build needs); the bytes equal
+    `build_octet_table_3d(q)`'s. `octet_rows_and_weights` and
+    `trilinear_octet_rows` unpack gathered rows back to bytes."""
+    return build_octet_table_3d(q.contiguous().view(torch.int32))
+
+
+class Int4Table(NamedTuple):
+    """Octet table of int4 split-packed channels: uint8 bytes whose low
+    nibble is channel c and high nibble channel c + C/2
+    (`build_octet_table_3d(quantize_volume_i4(vol)[0])`); sign-extended
+    after the gather by `trilinear_octet_rows`."""
+
+    table: torch.Tensor  # (D+1, H+1, W+1, 8 * C/2) uint8
 
 
 class NearestTable(NamedTuple):
     """Flat per-voxel rows (D*H*W, C) sampled nearest-neighbor; `div` is
     the grid's divisor relative to the level-0 voxel extent (2 = the
-    level-1 grid)."""
+    level-1 grid). `interleave` 2 marks a grid midpoint-doubled along each
+    axis (`interleave_midpoints_3d`: a valid extent of s points becomes
+    2s - 1); `lerp_axes` is a d/h/w bitmask (bit 0 = d) of axes sampled
+    linearly instead of rounded (2^popcount row gathers per point)."""
 
     rows: torch.Tensor
     shape: Tuple[int, int, int]
     div: int = 4
+    interleave: int = 1
+    lerp_axes: int = 0
+
+
+def interleave_midpoints_3d(vol):
+    """Midpoint-double a (D, H, W, C) uint8 field along each spatial axis:
+    (2D-1, 2H-1, 2W-1, C), even indices the original points, odd ones the
+    rounded averages of their two neighbours ((a + b + 1) >> 1 in int16)."""
+    for ax in range(3):
+        n = vol.shape[ax]
+        a = vol.narrow(ax, 0, n - 1)
+        b = vol.narrow(ax, 1, n - 1)
+        mid = ((a.to(torch.int16) + b.to(torch.int16) + 1) >> 1).to(torch.uint8)
+        shape = list(vol.shape)
+        shape[ax] = 2 * (n - 1)
+        pairs = torch.stack([a, mid], dim=ax + 1).reshape(shape)
+        vol = torch.cat([pairs, vol.narrow(ax, n - 1, 1)], dim=ax)
+    return vol
 
 
 def _axis_resample_matrix(n_out_max, n_in_max, n_out_dyn, n_in_dyn):
@@ -334,12 +380,34 @@ def quantize_image_i4(img, eps=1e-8):
     return ((q[..., :h] & 0xF) | ((q[..., h:] & 0xF) << 4)).to(torch.uint8), scale
 
 
-def octet_rows_and_weights(table: FlatOctetTable, pos, size, dtype=None):
+def quantize_volume_i4(vol, eps=1e-8):
+    """Per-channel symmetric int4 quantization of a signed field, split-
+    packed two channels to a byte (low nibbles channels [0, C/2), high
+    nibbles [C/2, C)). Returns (packed (..., C/2) uint8, scale (C,)
+    float32)."""
+    C = vol.shape[-1]
+    amax = vol.reshape(-1, C).abs().amax(dim=0).clamp_min(eps)
+    scale = (amax / 7.0).float()
+    q = torch.round(vol / scale).clamp(-7, 7).to(torch.int32) & 0xF
+    return (q[..., : C // 2] | (q[..., C // 2:] << 4)).to(torch.uint8), scale
+
+
+def _octet_flat(table):
+    """(flat rows, (Dp, Hp, Wp)) of an octet table: a FlatOctetTable, or a
+    dense (Dp, Hp, Wp, 8C) one (`build_octet_table_3d`)."""
+    if isinstance(table, FlatOctetTable):
+        return table.rows, table.shape
+    return table.reshape(-1, table.shape[-1]), tuple(table.shape[:3])
+
+
+def octet_rows_and_weights(table, pos, size, dtype=None):
     """Raw octet rows (P, 8C) of the cells holding `pos` (P, 3) dhw voxel
     units, and the 8 trilinear corner weights (P, 8) with the zeros-outside
-    mask of the dynamic extent `size` (3,) folded in. `dtype`: the weights
-    and their products are rounded to it (None: float32)."""
-    Dp, Hp, Wp = table.shape
+    mask of the dynamic extent `size` (3,) folded in. `table`: a
+    FlatOctetTable or a dense 4-D octet table, in its own dtype (packed
+    int32 words as they are). `dtype`: the weights and their products are
+    rounded to it (None: float32)."""
+    flat, (Dp, Hp, Wp) = _octet_flat(table)
     fl = torch.floor(pos)
     base = fl.long()
     w1 = rounded(pos - fl, dtype)
@@ -347,7 +415,7 @@ def octet_rows_and_weights(table: FlatOctetTable, pos, size, dtype=None):
     hi = torch.tensor([Dp - 2, Hp - 2, Wp - 2], device=pos.device)
     bc = torch.clamp(base, min=-1) + 1
     bc = torch.minimum(bc, hi + 1)
-    rows = table.rows[(bc[:, 0] * Hp + bc[:, 1]) * Wp + bc[:, 2]]
+    rows = flat[(bc[:, 0] * Hp + bc[:, 1]) * Wp + bc[:, 2]]
     ws = []
     for sel in itertools.product((0, 1), repeat=3):
         corner = base + torch.tensor(sel, device=pos.device)
@@ -374,28 +442,84 @@ def nearest_row_and_weight(table: NearestTable, pos, size):
 def lerp_rows(rows, w, scale=None, dtype=None):
     """Weighted sum of T packed taps: rows (P, T*C), w (P, T) -> (P, C)
     float32, taps summed in order k = 0..T-1, then dequantized. `dtype`:
-    every product and partial sum is rounded to it (None: float32)."""
+    the rows, every product and partial sum are rounded to it (None:
+    float32)."""
     T = w.shape[-1]
     C = rows.shape[-1] // T
-    out = rounded(rows[:, :C].float() * w[:, :1], dtype)
+    out = rounded(rounded(rows[:, :C].float(), dtype) * w[:, :1], dtype)
     for k in range(1, T):
-        term = rounded(rows[:, k * C : (k + 1) * C].float() * w[:, k : k + 1], dtype)
+        term = rounded(rounded(rows[:, k * C : (k + 1) * C].float(), dtype) * w[:, k : k + 1],
+                       dtype)
         out = rounded(out + term, dtype)
     if scale is not None:
         out = rounded(out * rounded(scale, dtype), dtype)
     return out
 
 
+def _unpack_i4(rows):
+    """Split-packed int4 bytes (P, T*C/2) -> sign-extended values (P, T*C),
+    each tap's low nibbles (channels [0, C/2)) then its high nibbles."""
+    s32 = rows.to(torch.int32)
+    lo, hi = s32 & 0xF, (s32 >> 4) & 0xF
+    return lo - ((lo & 8) << 1), hi - ((hi & 8) << 1)
+
+
 def trilinear_octet_rows(table, pos, size, scale=None, out_dtype=None):
-    """Trilinear sample of an octet table (zeros padding). Returns (P, C);
-    `out_dtype` as in `bilinear_quad_nhwc`."""
-    return lerp_rows(*octet_rows_and_weights(table, pos, size, out_dtype), scale, out_dtype)
+    """Trilinear sample of an octet table (zeros padding): a FlatOctetTable,
+    a dense 4-D table of any dtype, its packed-word form
+    (`build_octet_table_3d_u32`, unpacked to bytes after the gather) or an
+    Int4Table (nibbles sign-extended after the gather). Returns (P, C);
+    `out_dtype` as in `bilinear_quad_nhwc`, by default float32, or a float
+    table's own dtype when it has no dequant (as the JAX package computes
+    in the table's dtype then)."""
+    int4 = isinstance(table, Int4Table)
+    tab = table.table if int4 else table
+    flat, _ = _octet_flat(tab)
+    packed = flat.dtype == torch.int32
+    dt = out_dtype
+    if dt is None and scale is None and not packed and flat.dtype == torch.bfloat16:
+        dt = torch.bfloat16
+    rows, w = octet_rows_and_weights(tab, pos, size, dt)
+    if packed:
+        rows = rows.contiguous().view(torch.uint8)
+    if int4:
+        lo, hi = _unpack_i4(rows)
+        cb = rows.shape[-1] // 8
+        rows = torch.cat([torch.cat([lo[:, k * cb:(k + 1) * cb], hi[:, k * cb:(k + 1) * cb]], dim=-1)
+                          for k in range(8)], dim=-1)
+    return lerp_rows(rows, w, scale, dt)
 
 
 def nearest_rows(table, pos, size, scale=None, out_dtype=None):
-    """Nearest sample of a NearestTable (zeros outside). Returns (P, C);
-    `out_dtype` as in `bilinear_quad_nhwc`."""
-    return lerp_rows(*nearest_row_and_weight(table, pos, size), scale, out_dtype)
+    """Nearest sample of a NearestTable (zeros outside); the axes of
+    `table.lerp_axes` are sampled linearly (floor and ceil corners, each
+    masked zeros-outside). Returns (P, C); `out_dtype` as in
+    `bilinear_quad_nhwc`."""
+    if not table.lerp_axes:
+        return lerp_rows(*nearest_row_and_weight(table, pos, size), scale, out_dtype)
+    D, H, W = table.shape
+    dt = out_dtype
+    axes = [a for a in range(3) if (table.lerp_axes >> a) & 1]
+    fl = torch.floor(pos)
+    base = torch.round(pos).long()
+    base[:, axes] = fl.long()[:, axes]
+    frac = rounded(pos - fl, dt)
+    lim = torch.tensor([D - 1, H - 1, W - 1], device=pos.device)
+    out = None
+    for combo in itertools.product((0, 1), repeat=len(axes)):
+        c = base.clone()
+        w = torch.ones(pos.shape[0], device=pos.device)
+        for a, hi in zip(axes, combo):
+            c[:, a] += hi
+            w = rounded(w * (frac[:, a] if hi else rounded(1.0 - frac[:, a], dt)), dt)
+        inb = ((c >= 0) & (c < size)).all(dim=-1)
+        cc = torch.minimum(c.clamp_min(0), lim)
+        rows = table.rows[(cc[:, 0] * H + cc[:, 1]) * W + cc[:, 2]]
+        term = rounded(rounded(rows.float(), dt) * (w * inb.float())[:, None], dt)
+        out = term if out is None else rounded(out + term, dt)
+    if scale is not None:
+        out = rounded(out * rounded(scale, dt), dt)
+    return out
 
 
 def trilinear_dense_rows(vol, pos, dyn_size=None):

@@ -3,17 +3,19 @@
 
 `fused_point_stages_tabs` takes the raw gathered rows of the projection quad
 tables with their tap weights, the geometry feature — as the raw rows of the
-geometry tables (u8 level-1 octet rows with 8 corner weights, int8
-folded-coarse nearest rows with their in-bounds weight) or as a (P, F)
-tensor already queried — the view mask, the sample-cull mask and the head
-weights, and returns the sigma-masked alpha (P,) and the alpha-culled rgb
-(P, 3), the only tensors the composite needs. Between them: quad lerp +
+geometry tables (octet rows with their 8 corner weights, nearest rows with
+their in-bounds weight; `GEOMS` lists the layouts the renderer's switches
+select) or as a (P, F) tensor already queried — the view mask, the
+sample-cull mask and the head weights, and returns the sigma-masked alpha
+(P,) and the alpha-culled rgb (P, 3), the only tensors the composite
+needs. Between them: quad lerp +
 dequant, mean/var over views, geometry lerp, sigma-feat linear, density MLP,
 color MLP (see csrc/point_stages.cu). Its forms:
 
   (a) one merged int8 [rgb|feat] table, two geometry tables (fast mode);
       or merged bf16 / float32 rows with a unit scale (`a:bf16`, `a:f32`);
-  (b) the geometry feature passed as a (P, F) tensor;
+  (b) the geometry feature passed as a (P, F) tensor, F = 96 (`a+b`) or
+      128 (`a+b@128`);
   (c) split projection tables: u8 full-resolution source rgb rows (dequant
       1/255) + int8 feature-grid rows, lerped and concatenated; or bf16 /
       float32 feature rows (`c:u8/bf16`, `c:u8/f32`), or bf16 / float32
@@ -24,7 +26,10 @@ color MLP (see csrc/point_stages.cu). Its forms:
       sum (the trilinear occupancy) is <= 0, with that 0/1 verdict returned
       as a third output.
 Float rows are rounded to bf16 before the tap sum, as the TPU kernel casts
-them; bf16 rows are used as they are.
+them; bf16 rows are used as they are. A form named `<form>@<layout>` takes
+the geometry tables of layout `<layout>` (`GEOMS`); the others the default
+layout, the u8 level-1 octet table and the int8 folded-coarse nearest
+table.
 
 `fused_point_stages` is the one-table wrapper.
 
@@ -57,31 +62,59 @@ from gpnerf_tpu_torch.ops.grid_sample import lerp_rows
 
 SOURCE = os.path.join(cuda_build.CSRC_DIR, "point_stages.cu")
 
-# the widths the CUDA kernel is written for (csrc/point_stages.cu constants)
+# the widths the CUDA kernel is written for (csrc/point_stages.cu constants):
+# views, [rgb | feat] channels, their split, and the default layout's
+# level-1 and folded-coarse geometry channels
 V, C, CS, CF, C0, C1 = 3, 35, 3, 32, 32, 64
 
-# instantiations of the CUDA kernel: (the projection tables' row types, (P,
-# F) feature input, occ_geom) -> form name. Row types: "i8", "u8", "i4"
+# Geometry layouts: name -> the geometry tables ((taps, channels, row type),
+# ...) whose lerped blocks join, in order, into the geometry feature; taps 8
+# are octet rows, 1 nearest rows; "feat" is a (P, F) float input queried
+# outside the kernel. Which switches select each: render/demo.py
+# `geometry_layout`.
+GEOMS = {
+    "default": ((8, 32, "u8"), (1, 64, "i8")),       # coarse_nearest 1 or 2
+    "coarse-octet": ((8, 32, "u8"), (8, 64, "i8")),  # coarse_nearest 0
+    "unfolded": ((8, 32, "u8"), (8, 96, "u8")),      # fold_coarse_fc off
+    "four-level": ((8, 32, "u8"),) * 4,              # merge_coarse_octet off
+    "l1-nearest": ((1, 32, "u8"), (1, 64, "i8")),    # l1_nearest 1 or 2
+    "float": ((8, 32, "bf16"), (8, 64, "f32")),      # quantize_volume off
+    "float32": ((8, 32, "f32"), (8, 64, "f32")),     # the same under float32
+    "feats96": ((1, 96, "feat"),),
+    "feats128": ((1, 128, "feat"),),
+}
+
+# instantiations of the CUDA kernel: (the projection tables' row types, the
+# geometry layout, occ_geom) -> form name. Row types: "i8", "u8", "i4"
 # (split-packed int8 pairs), "bf16", "f32"; one type is the merged table,
 # two are the (source, feature) pair. The macros of csrc/point_stages.cu
-# follow (ROW_CODES).
-ROW_CODES = {"i8": 1, "u8": 2, "i4": 3, "bf16": 4, "f32": 5}
+# follow (ROW_CODES, `_geom_code`).
+ROW_CODES = {"i8": 1, "u8": 2, "i4": 3, "bf16": 4, "f32": 5, "feat": 6}
 FORMS = {
-    (("i8",), False, False): "a",
-    (("i8",), True, False): "a+b",
-    (("i8",), False, True): "a+e",
-    (("bf16",), False, False): "a:bf16",
-    (("f32",), False, False): "a:f32",
-    (("u8", "i8"), False, False): "c",
-    (("u8", "i8"), False, True): "c+e",
-    (("u8", "i8"), True, False): "b+c",
-    (("u8", "i4"), False, False): "c+d",
-    (("u8", "i4"), False, True): "c+d+e",
-    (("u8", "i4"), True, False): "b+c+d",
-    (("u8", "bf16"), False, False): "c:u8/bf16",
-    (("u8", "f32"), False, False): "c:u8/f32",
-    (("bf16", "i8"), False, False): "c:bf16/i8",
-    (("f32", "i8"), False, False): "c:f32/i8",
+    (("i8",), "default", False): "a",
+    (("i8",), "feats96", False): "a+b",
+    (("i8",), "default", True): "a+e",
+    (("bf16",), "default", False): "a:bf16",
+    (("f32",), "default", False): "a:f32",
+    (("u8", "i8"), "default", False): "c",
+    (("u8", "i8"), "default", True): "c+e",
+    (("u8", "i8"), "feats96", False): "b+c",
+    (("u8", "i4"), "default", False): "c+d",
+    (("u8", "i4"), "default", True): "c+d+e",
+    (("u8", "i4"), "feats96", False): "b+c+d",
+    (("u8", "bf16"), "default", False): "c:u8/bf16",
+    (("u8", "f32"), "default", False): "c:u8/f32",
+    (("bf16", "i8"), "default", False): "c:bf16/i8",
+    (("f32", "i8"), "default", False): "c:f32/i8",
+    # the geometry-table switches (render/demo.py geometry_layout)
+    **{((rows,), layout, False): f"{name}@{layout}"
+       for rows, name in (("i8", "a"),)
+       for layout in ("coarse-octet", "unfolded", "four-level", "l1-nearest", "float",
+                      "float32")},
+    **{(("u8", "i8"), layout, False): f"c@{layout}"
+       for layout in ("coarse-octet", "unfolded", "four-level", "l1-nearest", "float")},
+    (("i8",), "l1-nearest", True): "a+e@l1-nearest",
+    (("i8",), "feats128", False): "a+b@128",
 }
 _DTYPE_ROWS = {torch.int8: "i8", torch.uint8: "u8", torch.bfloat16: "bf16", torch.float32: "f32"}
 LAUNCHES = collections.Counter()
@@ -193,7 +226,9 @@ def point_stages_tabs_plain(tabs, feats, vmask, sig_ok, weights: PointWeights, *
     var = var / float(nv_)
     ok = sig_ok.bool()
     if feats is None:
-        gparts = [lerp_rows(g, w.T, s) for g, w, s in geom_tabs]
+        # float rows are rounded to bf16 first, as the TPU kernel casts them
+        gparts = [lerp_rows(rounded(g, torch.bfloat16) if g.is_floating_point() else g, w.T, s)
+                  for g, w, s in geom_tabs]
         f = torch.cat(gparts, dim=-1)
         if occ_geom:
             occ = gparts[0].sum(dim=-1) > 0
@@ -246,12 +281,25 @@ def _row_codes(rows):
     return ROW_CODES[rows[0]], ROW_CODES[rows[1]] if len(rows) > 1 else 0
 
 
+def _geom_codes(layout):
+    """(PS_G0, .., PS_G3) of a geometry layout: row type * 10000 + taps *
+    1000 + channels per table, 0 past its tables."""
+    codes = [ROW_CODES[kind] * 10000 + taps * 1000 + ch for taps, ch, kind in GEOMS[layout]]
+    return tuple(codes + [0] * (4 - len(codes)))
+
+
+def _key_values(form):
+    """The macro values of one instantiation, in csrc/point_stages.cu's
+    `point_stages_key` order."""
+    rows, layout, occ = form
+    return (*_row_codes(rows), int(occ), *_geom_codes(layout))
+
+
 def _build_args(form):
-    rows, use_feats, occ = form
-    ra, rb = _row_codes(rows)
-    code = f"{ra}{rb}{int(use_feats)}{int(occ)}"
-    defines = (f"PS_ROW_A={ra}", f"PS_ROW_B={rb}", f"PS_FEATS={int(use_feats)}",
-               f"PS_OCC={int(occ)}")
+    vals = _key_values(form)
+    names = ("PS_ROW_A", "PS_ROW_B", "PS_OCC", "PS_G0", "PS_G1", "PS_G2", "PS_G3")
+    defines = tuple(f"{n}={v}" for n, v in zip(names, vals))
+    code = "_".join(str(v) for v in vals)
     return "point_stages.cu", f"point_stages_{code}", defines
 
 
@@ -267,6 +315,18 @@ def start_build(form):
     return cuda_build.start_build(*_build_args(form))
 
 
+def bind_library(lib):
+    """Declare the C entry points of a loaded point_stages.cu library."""
+    vp, arr = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
+    lib.point_stages_launch.argtypes = [vp] * 6 + [arr] * 3 + [vp] * 6 + [ctypes.c_int, vp]
+    lib.point_stages_launch.restype = ctypes.c_int
+    for fn in (lib.point_stages_wbuf_bytes, lib.point_stages_smem_bytes,
+               lib.point_stages_blocks_per_sm):
+        fn.argtypes, fn.restype = [], ctypes.c_int
+    lib.point_stages_key.argtypes, lib.point_stages_key.restype = [], ctypes.c_char_p
+    return lib
+
+
 def load_library(form, proc=None):
     """Build (unless the hashed library exists) and load one instantiation.
     `proc`: an already started `start_build(form)` to wait on."""
@@ -274,17 +334,9 @@ def load_library(form, proc=None):
         return _libs[form]
     if form not in FORMS:
         raise NotImplementedError(f"point-stage kernel: no instantiation for {form}")
-    lib = cuda_build.load(*_build_args(form), proc=proc, build_log=BUILD_LOG,
-                          log_key=form)
-    vp = ctypes.c_void_p
-    lib.point_stages_launch.argtypes = [vp] * 19 + [ctypes.c_int, vp]
-    lib.point_stages_launch.restype = ctypes.c_int
-    for fn in (lib.point_stages_wbuf_bytes, lib.point_stages_form,
-               lib.point_stages_smem_bytes, lib.point_stages_blocks_per_sm):
-        fn.argtypes, fn.restype = [], ctypes.c_int
-    rows, use_feats, occ = form
-    ra, rb = _row_codes(rows)
-    if lib.point_stages_form() != ra | rb << 3 | int(use_feats) << 6 | int(occ) << 7:
+    lib = bind_library(cuda_build.load(*_build_args(form), proc=proc, build_log=BUILD_LOG,
+                                       log_key=form))
+    if tuple(int(v) for v in lib.point_stages_key().split()) != _key_values(form):
         raise RuntimeError(f"{build_command(form)[1]} holds another instantiation than {form}")
     _libs[form] = lib
     return lib
@@ -323,9 +375,35 @@ def _row_type(rows, P, width, name, packed_width=None):
     return kind
 
 
+def _geom_layout(geom_tabs, feats, P):
+    """The GEOMS layout of a call's geometry input, its tensors checked:
+    (layout, [(rows, weights, scale) per table]); the feature input is one
+    table whose weights and scale are None."""
+    if feats is not None:
+        layout = f"feats{feats.shape[-1]}"
+        if layout not in GEOMS:
+            raise NotImplementedError(
+                f"point-stage kernel: geometry features must be float32 (P, 96) or (P, 128), "
+                f"got {feats.dtype} {tuple(feats.shape)}")
+        _check(feats, torch.float32, (P, feats.shape[-1]), "geometry features")
+        return layout, [(feats, None, None)]
+    specs = tuple((w.shape[0], g.shape[-1] // max(w.shape[0], 1), _DTYPE_ROWS.get(g.dtype))
+                  for g, w, _ in geom_tabs)
+    layout = next((k for k, v in GEOMS.items() if v == specs), None)
+    if layout is None:
+        raise NotImplementedError(
+            f"point-stage kernel: no instantiation for the geometry tables (taps, channels, "
+            f"rows) {specs}; it takes {sorted(GEOMS)}")
+    for i, ((taps, ch, kind), (g, w, sc)) in enumerate(zip(specs, geom_tabs)):
+        _check(g, g.dtype, (P, taps * ch), f"geometry table {i} rows")
+        _check(w, torch.float32, (taps, P), f"geometry table {i} weights")
+        _check(sc, torch.float32, (ch,), f"geometry table {i} scale")
+    return layout, list(geom_tabs)
+
+
 def _launch(tabs, feats, vmask, sig_ok, weights, geom_tabs, occ_geom):
     P = vmask.shape[-1]
-    f32, u8, i8 = torch.float32, torch.uint8, torch.int8
+    f32, u8 = torch.float32, torch.uint8
     if len(tabs) == 1:
         rows = (_row_type(tabs[0][0], P, 4 * C, "merged [rgb|feat] rows"),)
         _check(tabs[0][2], f32, (C,), "merged scale")
@@ -340,27 +418,13 @@ def _launch(tabs, feats, vmask, sig_ok, weights, geom_tabs, occ_geom):
     for _, w4, _ in tabs:
         if w4 is not None:
             _check(w4, f32, (V, 4, P), "tap weights")
-    if feats is None:
-        if len(geom_tabs) != 2:
-            raise NotImplementedError(
-                "point-stage kernel takes 2 geometry tables or a (P, F) feature input")
-        (g0, gw0, gs0), (g1, gw1, gs1) = geom_tabs
-        _check(g0, u8, (P, 8 * C0), "level-1 octet rows")
-        _check(gw0, f32, (8, P), "level-1 octet weights")
-        _check(gs0, f32, (C0,), "level-1 scale")
-        _check(g1, i8, (P, C1), "coarse nearest rows")
-        _check(gw1, f32, (1, P), "coarse nearest weight")
-        _check(gs1, f32, (C1,), "coarse scale")
-        geom = (g0, gw0, gs0, g1, gw1, gs1, None)
-    else:
-        if geom_tabs or occ_geom:
-            raise ValueError("point-stage kernel: a feature input excludes "
-                             "geometry tables and occ_geom")
-        _check(feats, f32, (P, C0 + C1), "geometry features")
-        geom = (None,) * 6 + (feats,)
+    if feats is not None and (geom_tabs or occ_geom):
+        raise ValueError("point-stage kernel: a feature input excludes "
+                         "geometry tables and occ_geom")
+    layout, geom = _geom_layout(geom_tabs, feats, P)
     _check(vmask, f32, (V, P), "vmask")
     _check(sig_ok, u8, (P,), "sig_ok")
-    form = (rows, feats is not None, bool(occ_geom))
+    form = (rows, layout, bool(occ_geom))
     lib = load_library(form)
     flat = weights.flat
     _check(flat, u8, (lib.point_stages_wbuf_bytes(),), "packed weights")
@@ -368,11 +432,19 @@ def _launch(tabs, feats, vmask, sig_ok, weights, geom_tabs, occ_geom):
     alpha = torch.empty(P, dtype=f32, device=dev)
     rgb = torch.empty(P, 3, dtype=f32, device=dev)
     occm = torch.empty(P, dtype=f32, device=dev) if occ_geom else None
-    tensors = (*tabs[0], *tabs[1], *geom, vmask, sig_ok, flat, alpha, rgb, occm)
+    geom += [(None, None, None)] * (4 - len(geom))
+    tensors = (*tabs[0], *tabs[1], *(t for g in geom for t in g), vmask, sig_ok, flat,
+               alpha, rgb, occm)
     if any(t is not None and t.device != dev for t in tensors):
         raise ValueError("point-stage kernel: inputs on different devices")
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    table_ptrs = [(ctypes.c_void_p * 4)(*(ptr(g[j]) for g in geom)) for j in range(3)]
     err = lib.point_stages_launch(
-        *(None if t is None else t.data_ptr() for t in tensors), P,
+        *(ptr(t) for t in (*tabs[0], *tabs[1])), *table_ptrs,
+        *(ptr(t) for t in (vmask, sig_ok, flat, alpha, rgb, occm)), P,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:

@@ -5,12 +5,17 @@ reference-semantics mode.
 
 Per frame:
   1. encode the V source views (ResUNet);
-  2. fuse the SMPL vertex codes, run the sparse conv stack once, derive the
-     occupancy field `masks3d`;
-  3. build the gather tables: the u8 level-1 octet table (corner-scattered
-     from the active rows), the folded merged-coarse field (out_geometry_fc's
-     coarse block pre-applied) resampled onto the level-1 grid as an int8
-     nearest table, and the projection tables, chosen apart from the cull
+  2. fuse the SMPL vertex codes, run the sparse conv stack once (in rows
+     form on the host rulebooks, or with `dense_conv` as dense 3D
+     convolutions over the level volumes), derive the occupancy field
+     `masks3d`;
+  3. build the gather tables. The geometry tables by default: the u8
+     level-1 octet table (corner-scattered from the active rows) and the
+     folded merged-coarse field (out_geometry_fc's coarse block
+     pre-applied) resampled onto the level-1 grid as an int8 nearest table;
+     the geometry-table switches choose others as the JAX package does
+     (`_geometry_tables`; `geometry_layout` names what the kernel gets).
+     The projection tables, chosen apart from the cull
      as the JAX package chooses them (`projection_rows`): one [rgb|feat]
      quad table at the source resolution in the compute dtype
      (`merge_src_feat`); one at the feature grid (`merge_lowres_src`, the
@@ -46,7 +51,10 @@ Per frame:
      back and scatter the rays into the image.
 
 `build_render` accepts the fast mode and the reference mode under every
-projection-table choice, each with any of `frame_mode`, `sigma_query_cull`,
+projection-table choice and every geometry-table switch (`quantize_volume`,
+`merge_coarse_octet`, `fold_coarse_fc`, `int4_coarse`, `coarse_nearest`,
+`l1_nearest`, `pack_octet_u32`, `dense_conv`, narrowed as the JAX package
+narrows them), each with any of `frame_mode`, `sigma_query_cull`,
 `int4_feat` and `kernel_octet` and `pallas_point` either way (`pallas_lerp`
 and `proj_vp_order` choose the op-by-op route of the merged table), where
 the fused path has the point-stage instantiation the combination needs;
@@ -86,22 +94,33 @@ from torch import nn
 from gpnerf_tpu_torch.models.encoder import ResUNet
 from gpnerf_tpu_torch.models.heads import NeRFHead, fused_mean_variance
 from gpnerf_tpu_torch.models.layers import rounded
-from gpnerf_tpu_torch.models.sparse_net import SparseConvNet, occupancy_volume
+from gpnerf_tpu_torch.models.sparse_net import (
+    occupancy_volume,
+    occupancy_volume_dense,
+    sparse_net_dense_eval,
+)
 from gpnerf_tpu_torch.ops.grid_sample import (
+    FlatOctetTable,
+    Int4Table,
     NearestTable,
+    build_octet_table_3d,
+    build_octet_table_3d_u32,
     build_octet_table_scatter,
     build_quad_table_2d,
+    interleave_midpoints_3d,
     lerp_dtype,
     nearest_row_and_weight,
     octet_rows_and_weights,
     quantize_image_i4,
     quantize_image_i8,
+    quantize_volume_i4,
     quantize_volume_u8,
     resample_volume_to,
     upsample_image_align_corners,
 )
 from gpnerf_tpu_torch.ops.point_stages import (
     FORMS,
+    GEOMS,
     V as PS_V,
     fused_point_stages_tabs,
     pack_head_weights,
@@ -112,7 +131,7 @@ from gpnerf_tpu_torch.ops.projection import (
     project_gather_rows_merged,
 )
 from gpnerf_tpu_torch.ops.rays import pixel_rays, ray_aabb_near_far
-from gpnerf_tpu_torch.ops.sparse_conv import scatter_dense
+from gpnerf_tpu_torch.ops.sparse_conv import _gather_rows, scatter_dense, scatter_dense_rows
 from gpnerf_tpu_torch.registry import register
 from gpnerf_tpu_torch.render.base import points_to_dhw_vox, prepare_frame, src_norm
 
@@ -121,22 +140,16 @@ from gpnerf_tpu_torch.render.base import points_to_dhw_vox, prepare_frame, src_n
 # tight_cull on; REF_MODE (the reference-semantics mode: blanket cull, all
 # samples kept, no tap window) with it off. The projection tables follow
 # `merge_src_feat`, `merge_lowres_src`, `quantize_proj` and `int4_feat` in
-# either mode (`projection_rows`); `frame_mode`, `sigma_query_cull`,
-# `kernel_octet`, `pallas_point`, `pallas_lerp` and `proj_vp_order` are free
-# in both, where the fused path needs a point-stage instantiation for the
-# form they select (`Renderer.kernel_form`). `splat_bins` is inert without
+# either mode (`projection_rows`), the geometry tables the switches of
+# GEOMETRY_SWITCHES (`Renderer._geometry_tables`); `frame_mode`,
+# `sigma_query_cull`, `kernel_octet`, `pallas_point`, `pallas_lerp` and
+# `proj_vp_order` are free in both, where the fused path needs a
+# point-stage instantiation for the form and the geometry layout they
+# select (`Renderer.kernel_form`). `splat_bins` is inert without
 # tight_cull, and `frame_mode` with it, as in the JAX package.
-COMMON = {
-    "quantize_volume": True,
-    "merge_coarse_octet": True,
-    "fold_coarse_fc": True,
-    "int4_coarse": False,
-    "coarse_nearest": 2,
-    "l1_nearest": 0,
-    "dense_conv": False,
-    "dense_slots": True,
-    "pack_octet_u32": False,
-}
+COMMON = {"dense_slots": True}
+GEOMETRY_SWITCHES = ("quantize_volume", "merge_coarse_octet", "fold_coarse_fc", "int4_coarse",
+                     "coarse_nearest", "l1_nearest", "pack_octet_u32", "dense_conv")
 FAST_MODE = {"splat_bins": True}
 REF_MODE = {"tap_window": 0}
 
@@ -212,7 +225,9 @@ class Renderer(nn.Module):
                  sigma_query_cull=False, int4_feat=False, kernel_octet=True,
                  pallas_point=True, pallas_lerp=True, proj_vp_order=False,
                  merge_src_feat=False, merge_lowres_src=False, quantize_proj=True,
-                 neg_ray_val=False):
+                 quantize_volume=True, merge_coarse_octet=True, fold_coarse_fc=True,
+                 int4_coarse=False, coarse_nearest=2, l1_nearest=0, pack_octet_u32=False,
+                 dense_conv=False, neg_ray_val=False):
         super().__init__()
         if not tight_cull and samples_per_ray != n_samples:
             raise NotImplementedError(
@@ -240,6 +255,30 @@ class Renderer(nn.Module):
         self.merge_src_feat = bool(merge_src_feat)
         self.merge_lowres_src = bool(merge_lowres_src)
         self.quantize_proj = bool(quantize_proj)
+        # the geometry tables (`_geometry_tables`), narrowed as the JAX
+        # package narrows them (gpnerf_tpu/render/demo.py:181-219):
+        # quantize_volume: u8 / int8 tables with per-channel scales, else
+        # float tables; merge_coarse_octet: levels 2-4 resampled onto the
+        # level-2 grid as one table, else one table per level;
+        # fold_coarse_fc: out_geometry_fc's coarse block pre-applied to the
+        # merged table (its rows are signed, so not with the unsigned
+        # word-packed tables of pack_octet_u32); int4_coarse: that folded
+        # table int4 split-packed; coarse_nearest 1 / 2: it sampled nearest
+        # on its own grid / on the level-1 grid; l1_nearest 1 / 2 / 10 + d/h/w
+        # bitmask: the level-1 table sampled nearest on its grid / on the
+        # midpoint-doubled grid / linearly along the masked axes;
+        # pack_octet_u32: octet tables built in 32-bit words; dense_conv: the
+        # conv stack as dense 3D convolutions (eval only)
+        self.quantize_volume = bool(quantize_volume)
+        self.merge_coarse_octet = bool(merge_coarse_octet)
+        self.pack_octet_u32 = bool(pack_octet_u32)
+        self.fold_coarse_fc = (bool(fold_coarse_fc) and self.merge_coarse_octet
+                               and not self.pack_octet_u32)
+        self.int4_coarse = bool(int4_coarse) and self.fold_coarse_fc and self.quantize_volume
+        self.coarse_nearest = (int(coarse_nearest) if self.fold_coarse_fc and self.quantize_volume
+                               and not self.int4_coarse else 0)
+        self.l1_nearest = int(l1_nearest) if self.quantize_volume else 0
+        self.dense_conv = bool(dense_conv)
         # THuman's convention (see the module docstring)
         self.neg_ray_val = bool(neg_ray_val)
         self.encoder = encoder
@@ -254,7 +293,7 @@ class Renderer(nn.Module):
         form = self.kernel_form()
         if self.pallas_point and form not in FORMS:
             switches = ("merge_src_feat", "merge_lowres_src", "quantize_proj", "int4_feat",
-                        "frame_mode", "sigma_query_cull", "kernel_octet")
+                        "frame_mode", "sigma_query_cull", "kernel_octet") + GEOMETRY_SWITCHES
             raise NotImplementedError(
                 ", ".join(f"tpu.{k}={getattr(self, k)!r}" for k in switches)
                 + f": the point-stage kernel has no instantiation for the form {form} these "
@@ -263,13 +302,46 @@ class Renderer(nn.Module):
     def kernel_form(self, src_uint8=True):
         """The point-stage kernel form (a key of ops/point_stages.FORMS) the
         fused path launches for uint8 (or float) source images: the
-        projection tables' row types, the (P, F) feature input (kernel_octet
-        off) and the in-kernel occupancy cull (`occ_geom`: the windowless
-        frame or sigma_query_cull, with kernel_octet on)."""
+        projection tables' row types, the geometry layout
+        (`geometry_layout`) and the in-kernel occupancy cull (`occ_geom`:
+        the windowless frame or sigma_query_cull, with geometry tables in
+        the kernel)."""
         rows = projection_rows(self.merge_src_feat, self.merge_lowres_src, self.quantize_proj,
                                self.int4_feat, self.compute_dtype, src_uint8)
+        layout = self.geometry_layout()
         mask_from_query = self._frame_mode_on() or self.sigma_query_cull
-        return rows, not self.kernel_octet, mask_from_query and self.kernel_octet
+        return rows, layout, mask_from_query and layout not in ("feats96", "feats128")
+
+    def geometry_layout(self):
+        """The geometry input the fused path hands the kernel, as a key of
+        ops/point_stages.GEOMS: the tables `_geometry_tables` builds, where
+        the kernel lerps them all (octet and plain nearest rows; JAX
+        render/demo.py:689-731), else the queried (P, F) feature, "feats96"
+        (folded coarse) or "feats128" (int4, word-packed and lerp-axes
+        tables, or kernel_octet off). Tables no layout holds are returned as
+        their ((taps, channels, row type), ...) specs."""
+        feats = "feats96" if self.fold_coarse_fc else "feats128"
+        q = self.quantize_volume
+        if (not self.kernel_octet or self.int4_coarse or (q and self.pack_octet_u32)
+                or (self.l1_nearest >= 10 and not self.dense_conv)):
+            return feats
+        flt = "bf16" if self.compute_dtype == torch.bfloat16 else "f32"
+        if not q:
+            l1 = (8, 32, flt)
+        elif self.l1_nearest and not self.dense_conv:
+            l1 = (1, 32, "u8")
+        else:
+            l1 = (8, 32, "u8")
+        if not self.merge_coarse_octet:
+            coarse = ((8, 32, "u8" if q else flt),) * 3
+        elif self.coarse_nearest:
+            coarse = ((1, 64, "i8"),)
+        elif not q:
+            coarse = ((8, 64 if self.fold_coarse_fc else 96, "f32"),)
+        else:
+            coarse = ((8, 64, "i8") if self.fold_coarse_fc else (8, 96, "u8"),)
+        specs = (l1,) + coarse
+        return next((k for k, v in GEOMS.items() if v == specs), specs)
 
     def _frame_mode_on(self):
         """JAX's windowless frame (gpnerf_tpu/render/demo.py:459-461: no
@@ -463,6 +535,90 @@ class Renderer(nn.Module):
         pts_w = can_pts @ batch["Rh"].T + batch["Th"].reshape(1, 3)
         return pts_w, (masks3d > OCCUPANCY_THRESHOLD).reshape(-1)
 
+    def _geometry_tables(self, vols, level_feats, flat1, g1, o):
+        """The geometry gather tables, as the JAX package builds them
+        (render/demo.py:1201-1370): the level-1 table and either the merged
+        coarse table (levels 2-4 resampled onto the level-2 grid, with
+        out_geometry_fc's coarse block folded in under fold_coarse_fc) or
+        one table per coarse level. vols: the dense level volumes in the
+        compute dtype (level 1 None on the rows path, where its table is
+        corner-scattered from the active rows `level_feats[0]`, or built from
+        the dense rows `flat1` when unquantized); o: out_sh. Returns
+        {"octet_vols": [tables], "octet_scales": [per-channel dequant
+        scales] or None (float tables), "folded": fold_coarse_fc}."""
+        head = self.nerfhead
+        if self.merge_coarse_octet:
+            sh2 = tuple(vols[1].shape[:3])
+            combined = torch.cat(
+                [
+                    vols[1].float(),
+                    resample_volume_to(vols[2], sh2, o // 4, o // 8),
+                    resample_volume_to(vols[3], sh2, o // 4, o // 16),
+                ],
+                dim=-1,
+            )
+            if self.fold_coarse_fc:
+                # trilinear commutes with the linear map: the coarse block of
+                # out_geometry_fc applied once per frame; the folded field is
+                # signed, so its quantization is int8
+                nch1 = head.spconv_out_dim[0]
+                w_coarse = head.sigmahead.out_geometry_fc[0].weight[:, nch1:].T
+                combined = torch.einsum("dhwc,co->dhwo", combined, w_coarse.float())
+            dense_list = [vols[0], combined]
+        else:
+            dense_list = vols
+        octet_vols = []
+        if not self.quantize_volume:
+            if flat1 is not None:
+                v1 = flat1.reshape(tuple(g1.shape) + (flat1.shape[-1],))
+                dense_list = [v1 if self.compute_dtype is None else v1.to(self.compute_dtype)
+                              ] + list(dense_list[1:])
+            return {"octet_vols": [build_octet_table_3d(v) for v in dense_list],
+                    "octet_scales": None, "folded": self.fold_coarse_fc}
+        build = build_octet_table_3d_u32 if self.pack_octet_u32 else build_octet_table_3d
+        scales = []
+        for i, vol in enumerate(dense_list):
+            if i == 0 and vol is None:
+                # level 1 from its active rows: quantized (their max is the
+                # dense volume's, post-ReLU) and corner-scattered into a flat
+                # octet table, or scattered once into flat nearest rows
+                rows0 = torch.where(g1.valid[:, None], level_feats[0], 0.0)
+                q_rows, sc = quantize_volume_u8(rows0)
+                shape = tuple(g1.shape)
+                if not self.l1_nearest:
+                    tab = build_octet_table_scatter(q_rows, g1.coords, g1.valid, shape)
+                else:
+                    flat = scatter_dense_rows(q_rows, g1)
+                    if self.l1_nearest >= 10:
+                        # linear along the bitmask's axes, nearest on the rest
+                        tab = NearestTable(flat, shape, 2, 1, self.l1_nearest - 10)
+                    elif self.l1_nearest >= 2:
+                        # the exact u8 midpoint-doubled grid
+                        up = interleave_midpoints_3d(flat.reshape(shape + (flat.shape[-1],)))
+                        tab = NearestTable(up.reshape(-1, up.shape[-1]), tuple(up.shape[:3]), 2, 2)
+                    else:
+                        tab = NearestTable(flat, shape, 2)
+            elif i == 1 and self.coarse_nearest:
+                # the folded field nearest-sampled: on the level-1 grid
+                # (resampled once per frame) or on its own level-2 grid
+                if self.coarse_nearest >= 2:
+                    vol = resample_volume_to(vol, tuple(g1.shape), o // 2, o // 4)
+                    div = 2
+                else:
+                    div = 4
+                q, sc = quantize_image_i8(vol)
+                tab = NearestTable(q.reshape(-1, q.shape[-1]), tuple(vol.shape[:3]), div)
+            elif i == 1 and self.int4_coarse:
+                q, sc = quantize_volume_i4(vol)
+                tab = Int4Table(build_octet_table_3d(q))
+            else:
+                q, sc = (quantize_image_i8 if i == 1 and self.fold_coarse_fc
+                         else quantize_volume_u8)(vol)
+                tab = build(q)
+            octet_vols.append(tab)
+            scales.append(sc)
+        return {"octet_vols": octet_vols, "octet_scales": scales, "folded": self.fold_coarse_fc}
+
     def _frame_stage(self, batch, featmaps, stop_stage=None):
         """Volume, occupancy, gather tables, AABB of the occupied voxels,
         splats, rays and near/far. Returns (pre, tables, rays), or None
@@ -480,42 +636,34 @@ class Renderer(nn.Module):
             self.nerfhead.sigmahead.fuse_codes(pre["smpl_feat"])
             return None
 
-        # (2) volume + occupancy
-        level_feats = self.nerfhead.volume(pre["smpl_feat"], pre["vertex_rows"], grids)
-        vols = [None] + [scatter_dense(level_feats[i], grids[i + 1]) for i in (1, 2, 3)]
+        # (2) volume + occupancy: dense per-level volumes (zero at inactive
+        # sites), the level-1 one only where a table needs it dense
+        head = self.nerfhead
+        g1 = grids[1]
+        if self.dense_conv:
+            # the eval-only dense-convolution stack (JAX demo.py:1118-1133)
+            code = _gather_rows(head.sigmahead.fuse_codes(pre["smpl_feat"]), pre["vertex_rows"])
+            vols = sparse_net_dense_eval(head.sigmahead.xyzc_net, code, grids, compute_dtype=dt)
+            level_feats = flat1 = None
+        else:
+            level_feats = head.volume(pre["smpl_feat"], pre["vertex_rows"], grids)
+            flat1 = None if self.quantize_volume else scatter_dense_rows(level_feats[0], g1)
+            vols = [None] + [scatter_dense(level_feats[i], grids[i + 1]) for i in (1, 2, 3)]
         if stop_stage == "fuse":
             return None
-        masks3d = occupancy_volume(level_feats, grids)
+        masks3d = (occupancy_volume_dense(vols) if self.dense_conv
+                   else occupancy_volume(level_feats, grids))
         if stop_stage == "occv":
             return None
         featmaps = rounded(featmaps, dt)
         src_unnorm = rounded(src_unnorm, dt)
-        vols = [None] + [rounded(v, dt) for v in vols[1:]]
+        # the tables are built from the volumes in the compute dtype, as JAX
+        # casts them (quantization scales are then computed in that dtype)
+        if dt is not None:
+            vols = [None if v is None else v.to(dt) for v in vols]
 
-        # (3) gather tables. Coarse levels 2-4 merge onto the level-2 grid,
-        # out_geometry_fc's coarse block is folded in (trilinear commutes
-        # with the linear map), and the folded field is resampled onto the
-        # level-1 grid and int8-quantized as a nearest table.
-        sh2 = tuple(vols[1].shape[:3])
-        combined = torch.cat(
-            [
-                vols[1].float(),
-                resample_volume_to(vols[2], sh2, o // 4, o // 8),
-                resample_volume_to(vols[3], sh2, o // 4, o // 16),
-            ],
-            dim=-1,
-        )
-        nch1 = self.nerfhead.spconv_out_dim[0]
-        w_coarse = self.nerfhead.sigmahead.out_geometry_fc[0].weight[:, nch1:].T
-        combined = torch.einsum("dhwc,co->dhwo", combined, w_coarse.float())
-        g1 = grids[1]
-        rows0 = torch.where(g1.valid[:, None], level_feats[0], 0.0)
-        q_rows, sc0 = quantize_volume_u8(rows0)
-        octet_l1 = build_octet_table_scatter(q_rows, g1.coords, g1.valid, g1.shape)
-        vol = resample_volume_to(combined, g1.shape, o // 2, o // 4)
-        q, sc1 = quantize_image_i8(vol)
-        coarse = NearestTable(q.reshape(-1, q.shape[-1]), tuple(vol.shape[:3]), 2)
-        tables = {"octet_l1": octet_l1, "coarse": coarse, "octet_scales": (sc0, sc1)}
+        # (3) gather tables
+        tables = self._geometry_tables(vols, level_feats, flat1, g1, o)
         # projection quad tables (projection_rows). A table with no dequant
         # gets a unit scale (JAX render/demo.py:757-759): multiplying by 1 is
         # exact, so the op-by-op samplers also round as with none.
@@ -773,9 +921,13 @@ class Renderer(nn.Module):
         # density; the level-1 trilinear occupancy (the reference's
         # `sp_feats > 0` cull) comes off the same query
         out_sh = torch.tensor(pre["out_sh"], device=dhw_c.device)
-        q = head.sigmahead.query_sigma_feat_octet_folded(
-            tables["octet_l1"], tables["coarse"], dhw_c, out_sh,
-            scales=tables["octet_scales"], with_l1_occ=mask_from_query)
+        octet_vols, scales = tables["octet_vols"], tables["octet_scales"]
+        if tables["folded"]:
+            q = head.sigmahead.query_sigma_feat_octet_folded(
+                *octet_vols, dhw_c, out_sh, scales=scales, with_l1_occ=mask_from_query)
+        else:
+            q = head.sigmahead.query_sigma_feat_octet(
+                octet_vols, dhw_c, out_sh, scales=scales, with_l1_occ=mask_from_query)
         if mask_from_query:
             sigma_feat, occ_l1 = q
             sig_ok = sig_ok & (occ_l1 > 0)
@@ -811,25 +963,54 @@ class Renderer(nn.Module):
         """Geometry-row and projection-row gathers, then the point-stage
         kernel. Returns as `_point_stages`."""
         out_sh = torch.tensor(pre["out_sh"], device=dhw_c.device)
-        sc0, sc1 = tables["octet_scales"]
-        coarse = tables["coarse"]
-        geom_tabs, feats = (), None
+        octet_vols, scales = tables["octet_vols"], tables["octet_scales"]
+        nch = self.nerfhead.spconv_out_dim[0]
+        frac = dhw_c / out_sh.float()
+
+        def geom_tab(i, tab):
+            # raw rows + tap weights (Tg, P) + scale (unit for float tables),
+            # which the kernel lerps; None for a table it does not (JAX
+            # render/demo.py:689-714)
+            if isinstance(tab, NearestTable):
+                if tab.lerp_axes:
+                    return None
+                size = out_sh // tab.div
+                if tab.interleave > 1:
+                    size = tab.interleave * (size - 1) + 1
+                rows, w = nearest_row_and_weight(tab, frac * (size - 1).float(), size)
+            elif isinstance(tab, Int4Table) or (
+                    tab.rows if isinstance(tab, FlatOctetTable) else tab).dtype == torch.int32:
+                return None  # int4 and word-packed tables
+            else:
+                size = out_sh // (2 ** (i + 1))
+                rows, w = octet_rows_and_weights(tab, frac * (size - 1).float(), size)
+            sc = (torch.ones(rows.shape[-1] // w.shape[-1], device=rows.device)
+                  if scales is None else scales[i])
+            return rows, w.T.contiguous(), sc
+
+        geom_tabs = None
         if self.kernel_octet:
-            # raw quantized rows + corner weights: the kernel lerps them
-            frac = dhw_c / out_sh.float()
-            size0 = out_sh // 2
-            g0, gw0 = octet_rows_and_weights(tables["octet_l1"], frac * (size0 - 1).float(), size0)
-            size1 = out_sh // coarse.div
-            g1, gw1 = nearest_row_and_weight(coarse, frac * (size1 - 1).float(), size1)
-            geom_tabs = (
-                (g0, gw0.T.contiguous(), sc0),
-                (g1, gw1.T.contiguous(), sc1),
-            )
-        else:
-            feats = SparseConvNet.query_octet2(
-                tables["octet_l1"], coarse, dhw_c, out_sh, scales=(sc0, sc1))
+            geom_tabs = [geom_tab(i, t) for i, t in enumerate(octet_vols)]
+            if any(g is None for g in geom_tabs):
+                geom_tabs = None
+        # mask_from_query: the kernel derives the reference's `sp_feats > 0`
+        # cull (demo_render.py:294) from the lerped level-1 block, where
+        # table 0 is the nch-channel level-1 table; else the queried
+        # features give it
+        occ_geom = False
+        if geom_tabs is not None and mask_from_query:
+            if geom_tabs[0][0].shape[-1] // geom_tabs[0][1].shape[0] == nch:
+                occ_geom = True
+            else:
+                geom_tabs = None
+        feats = None
+        if geom_tabs is None:
+            net = self.nerfhead.sigmahead.xyzc_net
+            if len(octet_vols) == 2:
+                feats = net.query_octet2(*octet_vols, dhw_c, out_sh, scales=scales)
+            else:
+                feats = net.query_octet(octet_vols, dhw_c, out_sh, scales=scales)
             if mask_from_query:
-                nch = self.nerfhead.spconv_out_dim[0]
                 sig_ok = sig_ok & (feats[:, :nch].sum(dim=-1) > 0)
         Hs, Ws = batch["src_imgs"].shape[1:3]
         rows, w4, vmask = project_gather_rows_merged(
@@ -845,15 +1026,10 @@ class Renderer(nn.Module):
             tabs = ((rows, w4, tables["src_scale"]), (rows_f, w4_f, tables["feat_scale"]))
         else:
             tabs = ((rows, w4, tables["proj_scale"]),)
-        weights = pack_head_weights(
-            self.nerfhead, fold_nch=self.nerfhead.spconv_out_dim[0]
-        )
-        # mask_from_query: the kernel derives the reference's `sp_feats > 0`
-        # cull (demo_render.py:294) from the lerped level-1 block; with a
-        # feature input the cull is taken from the queried features above
-        occ_geom = mask_from_query and self.kernel_octet
+        # the folded coarse rows are out_geometry_fc's coarse block already
+        weights = pack_head_weights(self.nerfhead, fold_nch=nch if tables["folded"] else None)
         outs = fused_point_stages_tabs(
-            tabs, feats, vmask, sig_ok, weights, geom_tabs=geom_tabs,
+            tabs, feats, vmask, sig_ok, weights, geom_tabs=geom_tabs or (),
             occ_geom=occ_geom,
         )
         if occ_geom:
@@ -932,6 +1108,7 @@ def build_render(cfg, device="cuda"):
         merge_src_feat=cfg.tpu.merge_src_feat,
         merge_lowres_src=cfg.tpu.merge_lowres_src,
         quantize_proj=cfg.tpu.quantize_proj,
+        **{k: cfg.tpu[k] for k in GEOMETRY_SWITCHES},
         neg_ray_val="thuman" in cfg.dataset.test.name,
     )
     return r.to(device).eval()

@@ -127,5 +127,9 @@ def test_port_render_is_deterministic(renders):
      ("int4_coarse", True)],
 )
 def test_switches_outside_fast_mode_raise(key, value):
+    # the geometry-table switches are ported; beside merged float32 rows
+    # (merge_src_feat) the layout they select has no point-stage library,
+    # and the refusal names them
+    extra = {} if key in ("dense_slots", "splat_bins") else {"merge_src_feat": True}
     with pytest.raises(NotImplementedError, match=key):
-        port_get("render", "demo_render")(_cfg(port_cfg, **{key: value}), device="cpu")
+        port_get("render", "demo_render")(_cfg(port_cfg, **{key: value}, **extra), device="cpu")

@@ -108,10 +108,37 @@ def test_kernel_refuses_other_forms():
         ps.fused_point_stages(rows, w4, pscale, geom[:1], vmask, sig_ok, weights)
 
 
+def _geom_inputs(rs, layout, P, occ):
+    """Seeded geometry tables of one ps.GEOMS layout as numpy: (feats,
+    geom_tabs); occ empties table 0's rows of 40% of the points, so the
+    occupancy cull bites."""
+    tables = ps.GEOMS[layout]
+    if tables[0][2] == "feat":
+        return (rs.randn(P, tables[0][1]) * 0.5).astype(np.float32), ()
+    geom = []
+    for i, (taps, ch, kind) in enumerate(tables):
+        if kind in ("u8", "i8"):
+            lo, hi = (0, 256) if kind == "u8" else (-127, 128)
+            g = rs.randint(lo, hi, size=(P, taps * ch)).astype(np.uint8 if kind == "u8" else np.int8)
+            sc = (0.01 + rs.rand(ch) * 0.03).astype(np.float32)
+        else:  # float rows (bf16 ones are cast on the device), unit scale
+            g = (rs.rand(P, taps * ch) * 0.5).astype(np.float32)
+            sc = np.ones((ch,), np.float32)
+        if occ and i == 0:
+            g[rs.rand(P) > 0.6] = 0
+        if taps == 8:
+            w = rs.rand(8, P).astype(np.float32)
+            w /= w.sum(0)
+        else:
+            w = (rs.rand(1, P) > 0.05).astype(np.float32)
+        geom.append((g, w, sc))
+    return None, tuple(geom)
+
+
 def _form_inputs(form, P, seed, dev):
     """Seeded inputs of one instantiation (a key of ps.FORMS) at the widths
     the kernel is written for."""
-    rows, use_feats, occ = form
+    rows, layout, occ = form
     rs = np.random.RandomState(seed)
     V, C, CS, CF, C0, C1 = ps.V, ps.C, ps.CS, ps.CF, ps.C0, ps.C1
 
@@ -133,20 +160,10 @@ def _form_inputs(form, P, seed, dev):
                 np.ones((Ct,), np.float32))
 
     tabs = (table(rows[0], C),) if len(rows) == 1 else (table(rows[0], CS), table(rows[1], CF))
-    feats, kw = None, {}
-    if use_feats:
-        feats = (rs.randn(P, C0 + C1) * 0.5).astype(np.float32)
-    else:
-        gw0 = rs.rand(8, P).astype(np.float32)
-        g0 = rs.randint(0, 256, size=(P, 8 * C0)).astype(np.uint8)
-        if occ:
-            g0[rs.rand(P) > 0.6] = 0  # empty cells, so the cull bites
-        kw["geom_tabs"] = (
-            (g0, gw0 / gw0.sum(0), (0.01 + rs.rand(C0) * 0.03).astype(np.float32)),
-            (rs.randint(-127, 128, size=(P, C1)).astype(np.int8),
-             (rs.rand(1, P) > 0.05).astype(np.float32),
-             (0.01 + rs.rand(C1) * 0.03).astype(np.float32)),
-        )
+    kw = {}
+    feats, geom = _geom_inputs(rs, layout, P, occ)
+    if geom:
+        kw["geom_tabs"] = geom
     vmask = (rs.rand(V, P) > 0.15).astype(np.float32)
     sig_ok = rs.rand(P) > 0.2
 
@@ -157,19 +174,29 @@ def _form_inputs(form, P, seed, dev):
 
     torch.manual_seed(seed)
     head = NeRFHead(in_feat_ch=C - 3, n_smpl=8, code_dim=8).to(dev)
-    kw = {k: to(v) for k, v in kw.items()}
+    if geom:
+        kw["geom_tabs"] = tuple((g.to(torch.bfloat16) if spec[2] == "bf16" else g, w, sc)
+                                for spec, (g, w, sc) in zip(ps.GEOMS[layout], to(geom)))
     if occ:
         kw["occ_geom"] = True
     t_tabs = tuple((r.to(torch.bfloat16) if kind == "bf16" else r, w, sc)
                    for kind, (r, w, sc) in zip(rows, to(tabs)))
-    return (t_tabs, to(feats), to(vmask), to(sig_ok), ps.pack_head_weights(head, fold_nch=C0)), kw
+    # the 96-wide geometry feature is [level 1 | folded coarse]: the folded
+    # sigma-feat weight; 128 wide, the checkpoint's own
+    fold = C0 if sum(t[1] for t in ps.GEOMS[layout]) == C0 + C1 else None
+    return (t_tabs, to(feats), to(vmask), to(sig_ok), ps.pack_head_weights(head, fold_nch=fold)), kw
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("P", [1, *RAGGED, 257, 70001])
 @pytest.mark.parametrize("name", ["a+b", "c", "c+e", "c+d", "b+c", "a+e", "c+d+e", "b+c+d",
                                   "a:bf16", "a:f32", "c:u8/bf16", "c:u8/f32", "c:bf16/i8",
-                                  "c:f32/i8"])
+                                  "c:f32/i8",
+                                  # the geometry layouts
+                                  "a@coarse-octet", "a@unfolded", "a@four-level", "a@l1-nearest",
+                                  "a@float", "a@float32", "c@coarse-octet", "c@unfolded",
+                                  "c@four-level", "c@l1-nearest", "c@float", "a+e@l1-nearest",
+                                  "a+b@128"])
 def test_form_kernel_matches_plain(name, P):
     dev = _cuda()
     form = {v: k for k, v in ps.FORMS.items()}[name]
@@ -200,19 +227,86 @@ def test_kernel_refuses_forms_without_instantiation():
     before = sum(ps.LAUNCHES.values())
     # float feature rows with occ_geom, a merged bf16 table with a feature
     # input, int4 rows beside float source rows: no library holds them
-    for form in ((("u8", "bf16"), False, True), (("bf16",), True, False),
-                 (("f32", "i4"), False, False)):
+    # and merged float rows or split tables with the four-level tables'
+    # occupancy cull, beside a geometry layout no library takes
+    for form in ((("u8", "bf16"), "default", True), (("bf16",), "feats96", False),
+                 (("f32", "i4"), "default", False), (("f32",), "coarse-octet", False),
+                 (("u8", "i8"), "four-level", True)):
         assert form not in ps.FORMS
         args, kw = _form_inputs(form, 300, 0, dev)
         with pytest.raises(NotImplementedError, match="no instantiation"):
             ps.fused_point_stages_tabs(*args, **kw)
-    (tabs, feats, vmask, sig_ok, weights), kw = _form_inputs((("u8", "i8"), True, False), 300, 0, dev)
+    args, kw = _form_inputs((("i8",), "default", False), 300, 0, dev)
+    g0, g1 = kw["geom_tabs"]
+    with pytest.raises(NotImplementedError, match="geometry tables"):
+        ps.fused_point_stages_tabs(*args, geom_tabs=(g0, g0, g1))
+    (tabs, feats, vmask, sig_ok, weights), kw = _form_inputs((("u8", "i8"), "feats96", False),
+                                                             300, 0, dev)
     with pytest.raises(NotImplementedError, match="geometry features"):
         ps.fused_point_stages_tabs(tabs, feats[:, :64].contiguous(), vmask, sig_ok, weights)
     with pytest.raises(NotImplementedError, match="tap weights"):
         ps.fused_point_stages_tabs(
             ((tabs[0][0], tabs[0][1][:2].contiguous(), tabs[0][2]), tabs[1]), feats, vmask, sig_ok, weights)
     assert sum(ps.LAUNCHES.values()) == before
+
+
+# geometry-table switch settings of the fast mode -> the layout the fused
+# path hands the kernel (float32 renders, as the CPU's)
+GEOMETRY_CASES = {
+    "coarse_nearest 0": (dict(coarse_nearest=0), "coarse-octet"),
+    "fold_coarse_fc off": (dict(fold_coarse_fc=False), "unfolded"),
+    "merge_coarse_octet off": (dict(merge_coarse_octet=False), "four-level"),
+    "l1_nearest 2": (dict(l1_nearest=2), "l1-nearest"),
+    "quantize_volume off": (dict(quantize_volume=False), "float32"),
+    "pack_octet_u32": (dict(pack_octet_u32=True), "feats128"),
+    "dense_conv": (dict(dense_conv=True), "default"),
+    "l1_nearest 1, sigma_query_cull": (dict(l1_nearest=1, sigma_query_cull=True), "l1-nearest"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(GEOMETRY_CASES))
+def test_geometry_layout_render_on_card_matches_cpu(case):
+    """128^2 renders of a geometry-table switch on the card (its point-stage
+    library) against the CPU (the plain version): the ray set and the ray
+    and sample counts identical, the images within the fast mode's bounds."""
+    dev = _cuda()
+    from gpnerf_tpu_torch.config import cfg as base
+    from gpnerf_tpu_torch.registry import get
+    from gpnerf_tpu_torch.render.base import batch_to_device
+    from gpnerf_tpu_torch.train.checkpoint import load_eval_model
+
+    tpu, layout = GEOMETRY_CASES[case]
+    cfg = base.clone()
+    cfg.defrost()
+    cfg.merge_from_file("configs/synthetic.yaml")
+    cfg.dataset.H = cfg.dataset.W = 128
+    cfg.head.sigma.code_dim = 32
+    cfg.render.file = "demo_render"
+    cfg.tpu.matmul_dtype = "float32"
+    cfg.tpu.ray_cap = 16384
+    for k, v in tpu.items():
+        cfg.tpu[k] = v
+    cfg.freeze()
+    np.random.seed(0)
+    random.seed(0)
+    batch = get("dataset", cfg.dataset.test.file)(cfg, is_train=False)[0]
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        r = load_eval_model(CKPT, get("render", "demo_render")(cfg, device=d))
+        assert r.kernel_form()[1] == layout
+        before = dict(ps.LAUNCHES)
+        outs[d.type] = {k: v.cpu() for k, v in r.render_demo_fn()(batch_to_device(batch, d)).items()}
+        name = ps.FORMS[r.kernel_form()]
+        assert ps.LAUNCHES[name] == before.get(name, 0) + (d.type == "cuda")
+    g, c = outs["cuda"], outs["cpu"]
+    assert torch.equal(g["mask_at_box"], c["mask_at_box"])
+    assert torch.equal(g["counts"][:2], c["counts"][:2]) and torch.equal(g["overflows"], c["overflows"])
+    assert abs(int(g["counts"][2]) - int(c["counts"][2])) <= 0.001 * int(c["counts"][2])
+    m = g["mask_at_box"]
+    d = (g["pred_chw"].reshape(3, -1)[:, m] - c["pred_chw"].reshape(3, -1)[:, m]).abs()
+    assert float(d.median()) < 2e-3 and float((d > 0.05).float().mean()) <= 1e-3
+    assert float(d.max()) < 0.05
 
 
 @pytest.mark.gpu

@@ -286,8 +286,10 @@ def test_build_render_accepts_the_switches(tpu):
         (dict(merge_src_feat=True, kernel_octet=False), "kernel_octet"),
         (dict(REF, quantize_proj=False, frame_mode=True), "frame_mode"),
         (dict(pallas_point=False, dense_slots=False), "dense_slots"),
-        (dict(pallas_point=False, merge_coarse_octet=False), "merge_coarse_octet"),
-        (dict(REF, pallas_point=False, fold_coarse_fc=False), "fold_coarse_fc"),
+        # the geometry-table switches render op by op; on the fused path
+        # beside float rows their layouts have no library
+        (dict(merge_src_feat=True, merge_coarse_octet=False), "merge_coarse_octet"),
+        (dict(REF, quantize_proj=False, fold_coarse_fc=False), "fold_coarse_fc"),
         (dict(merge_src_feat=True, sigma_query_cull=True), "sigma_query_cull"),
     ],
 )

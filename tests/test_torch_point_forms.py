@@ -301,10 +301,16 @@ def test_launch_refuses_forms_and_widths_without_instantiation():
 @pytest.mark.parametrize("key", sorted(ps.FORMS, key=str))
 def test_build_command_per_form(key):
     cmd, lib = ps.build_command(key)
-    rows, feats, occ = key
+    rows, layout, occ = key
     assert f"-DPS_ROW_A={ps.ROW_CODES[rows[0]]}" in cmd
     assert f"-DPS_ROW_B={ps.ROW_CODES[rows[1]] if len(rows) == 2 else 0}" in cmd
-    assert f"-DPS_FEATS={int(feats)}" in cmd and f"-DPS_OCC={int(occ)}" in cmd
+    assert f"-DPS_OCC={int(occ)}" in cmd
+    # each geometry table as row type * 10000 + taps * 1000 + channels
+    tables = ps.GEOMS[layout]
+    for i in range(4):
+        code = (ps.ROW_CODES[tables[i][2]] * 10000 + tables[i][0] * 1000 + tables[i][1]
+                if i < len(tables) else 0)
+        assert f"-DPS_G{i}={code}" in cmd
     assert "arch=compute_90a,code=sm_90a" in cmd and cmd[-1] == ps.SOURCE
     others = {ps.build_command(k)[1] for k in ps.FORMS if k != key}
     assert lib not in others and lib.startswith(ps.BUILD_DIR)

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from gpnerf_tpu_torch.config import cfg as port_cfg
+from gpnerf_tpu_torch.ops import point_stages as ps
 from gpnerf_tpu_torch.registry import get as port_get
 from gpnerf_tpu_torch.render.base import batch_to_device
 from gpnerf_tpu_torch.train.checkpoint import load_eval_model
@@ -116,7 +117,7 @@ def test_build_render_takes_the_paper_configs(config):
     cfg.freeze()
     assert not cfg.tpu.merge_lowres_src and not cfg.tpu.merge_src_feat and cfg.tpu.tight_cull
     r = port_get("render", "demo_render")(cfg, device="cpu")
-    assert r.kernel_form() == (("u8", "i8"), False, False)
+    assert r.kernel_form() == (("u8", "i8"), "default", False)
     assert r.tight_cull and not r.merge_lowres_src
 
 
@@ -146,6 +147,15 @@ ACCEPTED = [
     # the op-by-op stages take every form
     dict(merge_src_feat=True, sigma_query_cull=True, pallas_point=False),
     dict(REF, quantize_proj=False, frame_mode=True, pallas_point=False),
+    # 3g: the geometry-table layouts (tests/test_torch_geom_layouts.py)
+    dict(quantize_volume=False),
+    dict(merge_coarse_octet=False),
+    dict(fold_coarse_fc=False),
+    dict(coarse_nearest=0),
+    dict(l1_nearest=1),
+    dict(int4_coarse=True),
+    dict(pack_octet_u32=True),
+    dict(dense_conv=True),
 ]
 
 
@@ -153,6 +163,8 @@ ACCEPTED = [
 def test_build_render_accepts_the_switch_combinations(tpu):
     r = port_get("render", "demo_render")(_cfg(**tpu), device="cpu")
     assert r.tight_cull == tpu.get("tight_cull", True)
+    if r.pallas_point:
+        assert r.kernel_form() in ps.FORMS
 
 
 @pytest.mark.parametrize(
@@ -163,18 +175,11 @@ def test_build_render_accepts_the_switch_combinations(tpu):
         # 3f: the windowed tap without bins
         (dict(splat_bins=False), "splat_bins"),
         (dict(REF, tap_window=16), "tap_window"),
-        # 3g: geometry-table layouts
-        (dict(quantize_volume=False), "quantize_volume"),
-        (dict(merge_coarse_octet=False), "merge_coarse_octet"),
-        (dict(fold_coarse_fc=False), "fold_coarse_fc"),
-        (dict(coarse_nearest=0), "coarse_nearest"),
-        (dict(l1_nearest=1), "l1_nearest"),
-        (dict(int4_coarse=True), "int4_coarse"),
-        (dict(pack_octet_u32=True), "pack_octet_u32"),
-        (dict(dense_conv=True), "dense_conv"),
         # a combination whose fused form has no instantiation
         (dict(merge_src_feat=True, sigma_query_cull=True), "sigma_query_cull"),
         (dict(REF, quantize_proj=False, frame_mode=True), "quantize_proj"),
+        # a (projection form, geometry layout) pair without a library
+        (dict(merge_src_feat=True, coarse_nearest=0), "coarse_nearest"),
     ],
 )
 def test_build_render_refuses_naming_the_key(tpu, key):

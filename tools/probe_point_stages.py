@@ -25,7 +25,8 @@ import sys
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 sys.path.insert(0, ROOT)
 
-FORMS = {"a": ((("i8",), False, False), 319488), "c": ((("u8", "i8"), False, False), 3670016)}
+FORMS = {"a": ((("i8",), "default", False), 319488),
+         "c": ((("u8", "i8"), "default", False), 3670016)}
 MLP = "  // ---- sigma-feat linear + density MLP, on tensor cores ----"
 PROBES = {
     "staging only": [("  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;",
@@ -90,12 +91,7 @@ def main():
     vp = ctypes.c_void_p
     libs = {}
     for key, (args, proc) in builds.items():
-        lib = cuda_build.load(*args, proc=proc)
-        lib.point_stages_launch.argtypes = [vp] * 19 + [ctypes.c_int, vp]
-        lib.point_stages_launch.restype = ctypes.c_int
-        for fn in (lib.point_stages_wbuf_bytes, lib.point_stages_form):
-            fn.argtypes, fn.restype = [], ctypes.c_int
-        libs[key] = lib
+        libs[key] = ps.bind_library(cuda_build.load(*args, proc=proc))
     dev = torch.device("cuda")
     torch.manual_seed(0)
     weights = ps.pack_head_weights(NeRFHead(in_feat_ch=32, n_smpl=8, code_dim=8).to(dev), fold_nch=32)
