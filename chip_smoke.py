@@ -47,6 +47,14 @@ Phases, each fatal on failure:
      frame's PSNR, overflows, colored points, ms per frame and the form
      launched, its library held against plain on the captured inputs,
      timed beside its bound;
+  3h. the global sigma compaction (dense_slots off) on 3 frames each: at
+     configs/synthetic.yaml's caps (sig_cap 294,912 against 319,488 slots),
+     every frame without a drop equal to phase 3's dense-slot frame; at
+     sigma_cap 98304, which must overflow on every frame (PSNR beside the
+     uncapped frames'); and the blanket cull with samples_per_ray 32 < 64,
+     dense and compacted (equal where nothing drops): overflows, counts,
+     PSNR, ms per frame and form (a) or (c) held against its plain version
+     on each path's captured inputs and timed beside its bound;
   3b. the op-by-op point stages (pallas_point off): 3 frames of the fast
      mode through the quad-lerp kernel (exactly one launch per frame, no
      point-stage launch), held against the fused fast mode's image; the
@@ -713,12 +721,15 @@ def main():
     batches = [batch_to_device(b, dev) for b in host]
     pos_batches, pos_host = batches, host
     kernels, images = [], {}  # one `kernels` entry per instantiation
+    frame_out = {}  # title -> [(pred_chw, overflows, counts)] per frame
 
-    def run_mode(title, form_name, n_frames, render, stages=False, frames=None, min_psnr=20.0):
+    def run_mode(title, form_name, n_frames, render, stages=False, frames=None, min_psnr=20.0,
+                 sig_overflow=False):
         """Drive one render mode over the first n_frames bench frames (of
         `frames`, (device batches, host batches), else the positive ones),
-        check it (every frame's PSNR >= min_psnr), compare and time its
-        kernel instantiation on the inputs captured from frame 0. Appends to
+        check it (every frame's PSNR >= min_psnr; no sigma overflow, or with
+        `sig_overflow` one on every frame), compare and time its kernel
+        instantiation on the inputs captured from frame 0. Appends to
         `kernels`; returns (frame ms, PSNRs)."""
         batches, host = frames or (pos_batches, pos_host)
         fn = render.render_demo_fn()
@@ -747,8 +758,9 @@ def main():
         for i, (r, hb) in enumerate(zip(rets, host)):
             ov = r["overflows"].tolist()
             counts = r["counts"].tolist()
-            check(ov[0] == 0 and ov[2] == 0 and ov[3] == 0, f"{title} frame {i}: overflows {ov}")
-            if not render.tight_cull:
+            check(ov[0] == 0 and (ov[2] > 0) == sig_overflow and ov[3] == 0,
+                  f"{title} frame {i}: overflows {ov}")
+            if not render.tight_cull and render.samples_per_ray == render.n_samples:
                 check(ov[1] == 0, f"{title} frame {i}: K = S drops nothing, got {ov}")
             check(bool(torch.isfinite(r["pred_chw"]).all()), f"{title} frame {i}: non-finite image")
             check(tuple(r["pred_chw"].shape) == (3, 512, 512), f"{title} frame {i}: shape")
@@ -757,6 +769,8 @@ def main():
                 f"counts(rays,sigma,rgb)={counts} PSNR {psnrs[-1]:.3f} dB")
             check(psnrs[-1] >= min_psnr, f"{title} frame {i}: PSNR {psnrs[-1]:.3f} < {min_psnr} dB")
         images[title] = rets[0]["pred_chw"]
+        frame_out[title] = [(r["pred_chw"], r["overflows"].tolist(), r["counts"].tolist())
+                            for r in rets]
 
         # kernel vs plain on the inputs captured from frame 0, then timings
         call = captured[0]
@@ -916,6 +930,56 @@ def main():
         run_mode(f"geometry layouts, {title}", form_name, 1, r, min_psnr=floor)
         del r
         torch.cuda.empty_cache()
+
+    # ---- phase 3h: the global sigma compaction and the blanket cull with K < S ----
+    def same_as_dense(title, dense_title):
+        """Each frame of `title` against the same frame of `dense_title`:
+        equal (|d| <= 1e-6, bitwise expected: the kernel works point by
+        point) wherever the compaction dropped nothing."""
+        for i, ((img, ov, _), (ref, _, _)) in enumerate(zip(frame_out[title], frame_out[dense_title])):
+            d = float((img - ref).abs().max())
+            log(f"# {title} frame {i} vs {dense_title}: sig_overflow {ov[2]}, |d pred| max {d:.3e}, "
+                f"bitwise {bool(torch.equal(img, ref))}")
+            check(ov[2] > 0 or d <= 1e-6, f"{title} frame {i}: differs from {dense_title} by {d}")
+
+    # synthetic.yaml's caps: sig_cap 294,912 against K * R = 319,488 slots
+    comp = make_render(512, "bfloat16", "cuda", dense_slots=False)[1]
+    check(not comp.dense_slots and comp.sigma_cap == 294912 and comp.ray_cap == 24576,
+          f"dense_slots off: sigma_cap {comp.sigma_cap}, ray_cap {comp.ray_cap}")
+    _, psnr_comp = run_mode("fast mode, dense_slots off", "a", 3, comp)
+    same_as_dense("fast mode, dense_slots off", "fast mode")
+    # dense and compacted in turns (dense, compacted, compacted, dense), each
+    # over the 3 frames 3 times: the host sets the fast frame's time and
+    # drifts between phases
+    turns = {"dense": [], "compacted": []}
+    for name in ("dense", "compacted", "compacted", "dense"):
+        fn = (render_fast if name == "dense" else comp).render_demo_fn()
+        it = iter(range(10**9))
+        turns[name].append(cuda_ms(lambda: fn(batches[next(it) % 3]), 9))
+    log(f"# timing on {card}: fast mode in turns, ms/frame: dense slots "
+        + " / ".join(f"{t:.3f}" for t in turns["dense"]) + ", dense_slots off "
+        + " / ".join(f"{t:.3f}" for t in turns["compacted"]))
+    # 4 points per ray: the bench frames' ~100,000 colored points overflow it,
+    # so the drop path runs; the deepest slots of every ray go first
+    capped = "fast mode, dense_slots off, sigma_cap 98304"
+    _, psnr_capped = run_mode(capped, "a", 3,
+                              make_render(512, "bfloat16", "cuda", dense_slots=False,
+                                          sigma_cap=98304)[1], min_psnr=15.0, sig_overflow=True)
+    log(f"# {capped}: sig_overflow per frame {[o[1][2] for o in frame_out[capped]]}, PSNR "
+        + " ".join(f"{a:.3f}" for a in psnr_capped) + " dB against the uncapped "
+        + " ".join(f"{b:.3f}" for b in psnr_comp) + " dB")
+    del comp
+    torch.cuda.empty_cache()
+    # the blanket cull keeping each ray's nearest 32 of its 64 samples, over
+    # the dense (K, R) slots and compacted (sig_cap 2,293,760 at the
+    # reference caps, above K * R = 1,835,008)
+    for title, extra in (("reference mode, samples_per_ray 32", {}),
+                         ("reference mode, samples_per_ray 32, dense_slots off", {"dense_slots": False})):
+        run_mode(title, "c", 3, make_render(512, "bfloat16", "cuda",
+                                            **{**REF_MODE, "samples_per_ray": 32}, **extra)[1])
+        torch.cuda.empty_cache()
+    same_as_dense("reference mode, samples_per_ray 32, dense_slots off",
+                  "reference mode, samples_per_ray 32")
 
     # ---- phase 3b: the op-by-op point stages ----
     def run_opbyop(title, n_frames, render, lerp_launches, frames=None):

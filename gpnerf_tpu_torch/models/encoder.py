@@ -96,3 +96,15 @@ class ResUNet(nn.Module):
         y = self.iconv2(torch.cat([y, x1], dim=1))
         y = self.out_conv(y)
         return y.permute(0, 2, 3, 1).contiguous()
+
+
+def build_encoder(cfg, compute_dtype=None):
+    """The encoder of `cfg` (JAX models/encoder.py `build_encoder`,
+    UNet.py:237-243); `compute_dtype` rounds as the JAX package's clone with
+    that dtype does."""
+    return ResUNet(cfg.encoder.out_ch, cfg.encoder.name, compute_dtype)
+
+
+from gpnerf_tpu_torch.registry import register  # noqa: E402
+
+register("encoder", "UNet", build_encoder)

@@ -209,3 +209,23 @@ class NeRFHead(nn.Module):
             occ = feats[..., : self.spconv_out_dim[0]].sum(dim=-1) > 0
             sigma = torch.where(occ.reshape(n_rays, n_samples, 1), sigma, 0.0)
         return torch.cat([rgb, sigma], dim=-1), rgb_in
+
+
+def build_head(cfg, compute_dtype=None):
+    """The heads of `cfg` (JAX models/heads.py `build_head`,
+    trainhead.py:166-177); `compute_dtype` rounds as the JAX package's clone
+    with that dtype does."""
+    return NeRFHead(
+        in_feat_ch=cfg.encoder.out_ch,
+        n_smpl=cfg.head.sigma.n_smpl,
+        code_dim=cfg.head.sigma.code_dim,
+        attn_n_heads=cfg.head.sigma.n_heads,
+        spconv_n_layers=cfg.head.sigma.n_layers,
+        spconv_out_dim=tuple(cfg.head.sigma.outdims),
+        compute_dtype=compute_dtype,
+    )
+
+
+from gpnerf_tpu_torch.registry import register  # noqa: E402
+
+register("head", "trainhead", build_head)

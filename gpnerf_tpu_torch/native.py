@@ -30,12 +30,18 @@ def _load():
         if (not os.path.exists(_LIB)) or (
             os.path.getmtime(_LIB) < os.path.getmtime(_SRC)
         ):
+            # built under a name of this process's own, then renamed into
+            # place: processes that start together each build, and none
+            # loads a half-written library or rewrites one another has
+            # loaded (GNU ld rewrites an existing output file in place)
             os.makedirs(os.path.dirname(_LIB), exist_ok=True)
+            tmp = f"{_LIB}.{os.getpid()}.tmp"
             subprocess.run(
-                ["g++", "-O3", "-shared", "-fPIC", _SRC, "-o", _LIB],
+                ["g++", "-O3", "-shared", "-fPIC", _SRC, "-o", tmp],
                 check=True,
                 capture_output=True,
             )
+            os.replace(tmp, _LIB)
         lib = ctypes.CDLL(_LIB)
         dp = ctypes.POINTER(ctypes.c_double)
         fp = ctypes.POINTER(ctypes.c_float)

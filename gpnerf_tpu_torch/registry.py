@@ -9,7 +9,10 @@ from typing import Callable, Dict
 _REGISTRY: Dict[str, Dict[str, Callable]] = {}
 
 # reference module-name aliases -> canonical registry names
-_ALIASES = {("render", "demo_render"): "DemoRender"}
+_ALIASES = {
+    ("head", "BaseNeRFHead"): "trainhead",
+    ("render", "demo_render"): "DemoRender",
+}
 
 
 def register(kind: str, name: str, builder: Callable) -> Callable:
@@ -22,6 +25,8 @@ def get(kind: str, name: str) -> Callable:
     import gpnerf_tpu_torch.data.synthetic_dataset  # noqa: F401
     import gpnerf_tpu_torch.data.thuman  # noqa: F401
     import gpnerf_tpu_torch.data.zjumocap  # noqa: F401
+    import gpnerf_tpu_torch.models.encoder  # noqa: F401
+    import gpnerf_tpu_torch.models.heads  # noqa: F401
     import gpnerf_tpu_torch.render.base  # noqa: F401
     import gpnerf_tpu_torch.render.demo  # noqa: F401
     import gpnerf_tpu_torch.train.criterion  # noqa: F401

@@ -35,8 +35,6 @@ import torch
 from torch import nn
 
 from gpnerf_tpu_torch.models.attention import MultiHeadAttention
-from gpnerf_tpu_torch.models.encoder import ResUNet
-from gpnerf_tpu_torch.models.heads import NeRFHead
 from gpnerf_tpu_torch.models.layers import InstanceNorm, MaskedBatchNorm
 from gpnerf_tpu_torch.models.sparse_net import SparseConvWeight
 from gpnerf_tpu_torch.ops.compositing import raw2outputs
@@ -47,7 +45,7 @@ from gpnerf_tpu_torch.ops.sparse_conv import (
     build_index_volume,
     scatter_dense,
 )
-from gpnerf_tpu_torch.registry import register
+from gpnerf_tpu_torch.registry import get, register
 
 
 def batch_to_device(batch, device):
@@ -213,7 +211,7 @@ class Renderer(nn.Module):
 
     def sparse_query_ctx(self, level_feats, levels):
         """Per-level index volumes over the sparse level rows: the query
-        context of `NeRFHead.point_forward` that keeps autograd on the rows."""
+        context of `models/heads.NeRFHead.point_forward` that keeps autograd on the rows."""
         index_vols = [
             build_index_volume(levels[i + 1].coords, levels[i + 1].valid, levels[i + 1].shape)
             for i in range(len(level_feats))
@@ -329,17 +327,9 @@ def build_render(cfg, device="cuda"):
     """BaseRender for `cfg` on `device`, float32, with untrained parameters
     (call `init_variables(seed)` or load a state dict)."""
     check_train_scope(cfg)
-    nerfhead = NeRFHead(
-        in_feat_ch=cfg.encoder.out_ch,
-        n_smpl=cfg.head.sigma.n_smpl,
-        code_dim=cfg.head.sigma.code_dim,
-        attn_n_heads=cfg.head.sigma.n_heads,
-        spconv_n_layers=cfg.head.sigma.n_layers,
-        spconv_out_dim=tuple(cfg.head.sigma.outdims),
-    )
     r = Renderer(
-        ResUNet(cfg.encoder.out_ch, cfg.encoder.name),
-        nerfhead,
+        get("encoder", cfg.encoder.file)(cfg),
+        get("head", cfg.head.file)(cfg),
         voxel_size=tuple(cfg.dataset.voxel_size),
         max_out_sh=tuple(cfg.tpu.max_out_sh),
         n_samples=cfg.train.n_samples,

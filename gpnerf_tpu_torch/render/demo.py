@@ -33,12 +33,16 @@ Per frame:
      first), no pixel dilation, and a one-voxel-dilated u8 occupancy volume
      `occb` for the per-sample tap;
   5. cull the 64 samples of each ray (bin masks, or a nearest tap of `occb`)
-     and keep the first K occupied ones in a slot-major (K, R) frame, all
-     K*R slots evaluated; reference mode has K = 64, so nothing is dropped.
-     Its windowless `frame_mode` skips tap and slots: the frame is the
-     whole sample grid and the cull is the kernel's trilinear level-1
-     occupancy (`occ_geom`), which `sigma_query_cull` also applies on top
-     of the tap;
+     and keep the first K (`samples_per_ray`) occupied ones in a slot-major
+     (K, R) frame (the reference mode, at K = 64, keeps every survivor).
+     With `dense_slots` (the default) all K*R slots are evaluated; without,
+     the valid slots are compacted globally, slot-major, to `sigma_cap`
+     points (an overflow drops the deepest slots of every ray first and is
+     counted as `sig_overflow`), each point recomputed from one packed
+     [o, d, near, far, s] row. The windowless `frame_mode` (K = 64) skips
+     tap, slots and compaction: the frame is the whole sample grid and the
+     cull is the kernel's trilinear level-1 occupancy (`occ_geom`), which
+     `sigma_query_cull` also applies on top of the tap;
   6. the point stages, fused (`pallas_point`, the default) or op by op:
      fused, project + gather the quad rows and geometry rows (or, with
      `kernel_octet` off, query the geometry feature in torch ops) and run
@@ -48,9 +52,11 @@ Per frame:
      with `proj_vp_order`, (V, P) order; split: in torch ops), query the
      folded sigma feature, take mean/variance over the views and run the
      density and color heads (models/heads.py). Then composite front to
-     back and scatter the rays into the image.
+     back (compacted points scattered back into their slots first) and
+     scatter the rays into the image.
 
-`build_render` accepts the fast mode and the reference mode under every
+`build_render` accepts the fast mode and the reference mode, each with the
+dense slots or the global compaction and any `samples_per_ray`, under every
 projection-table choice and every geometry-table switch (`quantize_volume`,
 `merge_coarse_octet`, `fold_coarse_fc`, `int4_coarse`, `coarse_nearest`,
 `l1_nearest`, `pack_octet_u32`, `dense_conv`, narrowed as the JAX package
@@ -91,8 +97,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from gpnerf_tpu_torch.models.encoder import ResUNet
-from gpnerf_tpu_torch.models.heads import NeRFHead, fused_mean_variance
+from gpnerf_tpu_torch.models.heads import fused_mean_variance
 from gpnerf_tpu_torch.models.layers import rounded
 from gpnerf_tpu_torch.models.sparse_net import (
     occupancy_volume,
@@ -132,22 +137,21 @@ from gpnerf_tpu_torch.ops.projection import (
 )
 from gpnerf_tpu_torch.ops.rays import pixel_rays, ray_aabb_near_far
 from gpnerf_tpu_torch.ops.sparse_conv import _gather_rows, scatter_dense, scatter_dense_rows
-from gpnerf_tpu_torch.registry import register
+from gpnerf_tpu_torch.registry import get, register
 from gpnerf_tpu_torch.render.base import points_to_dhw_vox, prepare_frame, src_norm
 
 # Renderer switches (configs/synthetic.yaml over config/default.py) and the
-# values the port implements: COMMON in every mode; FAST_MODE with
-# tight_cull on; REF_MODE (the reference-semantics mode: blanket cull, all
-# samples kept, no tap window) with it off. The projection tables follow
-# `merge_src_feat`, `merge_lowres_src`, `quantize_proj` and `int4_feat` in
-# either mode (`projection_rows`), the geometry tables the switches of
-# GEOMETRY_SWITCHES (`Renderer._geometry_tables`); `frame_mode`,
+# values the port implements: FAST_MODE with tight_cull on; REF_MODE (the
+# reference-semantics mode: blanket cull, no tap window) with it off;
+# `dense_slots` and `samples_per_ray` are free in both. The projection
+# tables follow `merge_src_feat`, `merge_lowres_src`, `quantize_proj` and
+# `int4_feat` in either mode (`projection_rows`), the geometry tables the
+# switches of GEOMETRY_SWITCHES (`Renderer._geometry_tables`); `frame_mode`,
 # `sigma_query_cull`, `kernel_octet`, `pallas_point`, `pallas_lerp` and
 # `proj_vp_order` are free in both, where the fused path needs a
 # point-stage instantiation for the form and the geometry layout they
 # select (`Renderer.kernel_form`). `splat_bins` is inert without
 # tight_cull, and `frame_mode` with it, as in the JAX package.
-COMMON = {"dense_slots": True}
 GEOMETRY_SWITCHES = ("quantize_volume", "merge_coarse_octet", "fold_coarse_fc", "int4_coarse",
                      "coarse_nearest", "l1_nearest", "pack_octet_u32", "dense_conv")
 FAST_MODE = {"splat_bins": True}
@@ -192,6 +196,14 @@ def _compact(mask_flat, cap):
     return idx[:cap], ok, (total - cap).clamp_min(0)
 
 
+def _scatter_rows(v, idx, n):
+    """(n, ...) zeros with v's rows at idx; indices >= n are dropped (JAX's
+    `.at[idx].set(v, mode="drop")` for the fill index n)."""
+    out = v.new_zeros((n + 1,) + v.shape[1:])
+    out[idx.clamp_max(n)] = v
+    return out[:n]
+
+
 def projection_rows(merge_src_feat, merge_lowres_src, quantize_proj, int4_feat,
                     compute_dtype, src_uint8=True):
     """Row types of the projection tables the switches select, as
@@ -227,18 +239,18 @@ class Renderer(nn.Module):
                  merge_src_feat=False, merge_lowres_src=False, quantize_proj=True,
                  quantize_volume=True, merge_coarse_octet=True, fold_coarse_fc=True,
                  int4_coarse=False, coarse_nearest=2, l1_nearest=0, pack_octet_u32=False,
-                 dense_conv=False, neg_ray_val=False):
+                 dense_conv=False, dense_slots=True, sigma_cap=319488, neg_ray_val=False):
         super().__init__()
-        if not tight_cull and samples_per_ray != n_samples:
-            raise NotImplementedError(
-                "the blanket cull (tight_cull off) is ported with all "
-                f"{n_samples} samples kept, not samples_per_ray={samples_per_ray}")
         # tight_cull: splat and cull against the level-1 occupancy (fast
         # mode); off: against the sum-over-levels blanket, compacted to
         # splat_cap voxels (0 = dense walk), with split projection tables
         self.tight_cull = bool(tight_cull)
         self.splat_cap = int(splat_cap)
         self.frame_mode = bool(frame_mode)
+        # dense_slots: evaluate every slot of the (K, R) frame; off, compact
+        # the valid slots globally to sigma_cap points per ray_cap rays
+        self.dense_slots = bool(dense_slots)
+        self.sigma_cap = int(sigma_cap)
         self.sigma_query_cull = bool(sigma_query_cull)
         self.int4_feat = bool(int4_feat)
         self.kernel_octet = bool(kernel_octet)
@@ -387,8 +399,9 @@ class Renderer(nn.Module):
             "mask_at_box": mask[:oob],
             "ray_pix_idx": rd["pix_idx"],
             "ray_ok": ray_ok,
+            # the color head is alpha-masked and has no cap: rgb never drops
             "overflows": torch.stack(
-                [rd["ray_overflow"], stats["perray_overflow"], zero, zero]
+                [rd["ray_overflow"], stats["perray_overflow"], stats["sig_overflow"], zero]
             ),
             "counts": torch.stack(
                 [ray_ok.sum(), stats["n_sigma"], stats["n_rgb"]]
@@ -811,10 +824,11 @@ class Renderer(nn.Module):
 
     def _ray_pipeline(self, batch, pre, tables, rd, stop_stage=None):
         """Sample cull (splat bins, or the occupancy tap), per-ray K-slot
-        compaction over the dense (K, R) slot frame — or, in frame mode, the
-        whole (S, R) sample grid with the cull left to the point stages —
-        then point stages and composite. Returns (rgb_map, stats), or None
-        after a `stop_stage` of RAY_STOPS or POINT_STOPS."""
+        compaction over the (K, R) slot frame — or, in frame mode, the whole
+        (S, R) sample grid with the cull left to the point stages — then,
+        without `dense_slots`, the global compaction of the valid slots to
+        sigma_cap points, point stages and composite. Returns (rgb_map,
+        stats), or None after a `stop_stage` of RAY_STOPS or POINT_STOPS."""
         S, K = self.n_samples, self.samples_per_ray
         rays_o, rays_d, ray_ok = rd["rays_o"], rd["rays_d"], rd["ray_ok"]
         nr = rays_o.shape[0]
@@ -822,8 +836,10 @@ class Renderer(nn.Module):
         s_max = torch.full((), float(S - 1), device=dev)
         n_sigma = None
         neg = self.neg_ray_val
+        sig_idx = None
+        sig_overflow = torch.zeros((), dtype=torch.long, device=dev)
         if self._frame_mode_on():
-            # windowless frame (no bins, K == S): no tap, no rank
+            # windowless frame (no bins, K == S): no tap, no rank or global
             # compaction; the trilinear level-1 occupancy cull comes from
             # the kernel
             slot = torch.arange(K, dtype=torch.float32, device=dev)[:, None].expand(K, nr)
@@ -852,15 +868,31 @@ class Renderer(nn.Module):
             perray_overflow = (cum[-1] - K).clamp_min(0).sum()
             if stop_stage == "cull_slots":
                 return None
+            # the absolute sample index of each slot, in traversal order
             slot = slot_rel.clamp_max(S - 1).float()
             if neg:
                 slot = (S - 1) - slot
             mask_from_query = self.sigma_query_cull
-        t = slot / s_max
-        z = rd["near"][None, :] * (1.0 - t) + rd["far"][None, :] * t
-        pts_c = torch.stack(
-            [rays_o[None, :, i] + rays_d[None, :, i] * z for i in range(3)], dim=-1
-        ).reshape(-1, 3)
+            if not self.dense_slots:
+                # global compaction, slot-major: an overflow drops the
+                # deepest slots of every ray first (JAX render/demo.py:608-638)
+                P = K * nr
+                sig_cap = max(1, self.sigma_cap * nr // self.ray_cap)
+                sig_idx, sig_ok, sig_overflow = _compact(sig_ok.reshape(-1), sig_cap)
+                # each point recomputed from one packed row [o, d, near, far, s]
+                # of the (K, R, 9) frame
+                ray_tab = torch.cat([rays_o, rays_d, rd["near"][:, None], rd["far"][:, None]], 1)
+                packed = torch.cat([ray_tab[None].expand(K, nr, 8), slot[:, :, None]], -1)
+                rows9 = packed.reshape(P, 9)[sig_idx.clamp_max(P - 1)]
+                t = rows9[:, 8] / s_max
+                z = rows9[:, 6] * (1.0 - t) + rows9[:, 7] * t
+                pts_c = rows9[:, 0:3] + rows9[:, 3:6] * z[:, None]
+        if sig_idx is None:
+            t = slot / s_max
+            z = rd["near"][None, :] * (1.0 - t) + rd["far"][None, :] * t
+            pts_c = torch.stack(
+                [rays_o[None, :, i] + rays_d[None, :, i] * z for i in range(3)], dim=-1
+            ).reshape(-1, 3)
         dhw_c = points_to_dhw_vox(pts_c, batch, self.voxel_size)
         if stop_stage in RAY_STOPS:  # the frame has no tap and no slots
             return None
@@ -870,6 +902,11 @@ class Renderer(nn.Module):
         if out is None:
             return None
         alpha, rgb, sig_ok = out
+        if sig_idx is not None:
+            # the compacted points back into their slots (zeros elsewhere;
+            # the tail's index K*R lands in the spare row). A point's rgb is
+            # zero wherever its alpha is, so one target serves both.
+            alpha, rgb = (_scatter_rows(v, sig_idx, K * nr) for v in (alpha, rgb))
         alpha_kr = alpha.reshape(K, nr)
         trans = torch.cat(
             [alpha_kr.new_ones(1, nr),
@@ -882,7 +919,9 @@ class Renderer(nn.Module):
         rgb_map = torch.where(ray_ok[:, None], rgb_map, 0.0)
         stats = {
             "perray_overflow": perray_overflow,
-            # frame mode counts the samples that passed the kernel's cull
+            "sig_overflow": sig_overflow,
+            # frame mode counts the samples that passed the kernel's cull,
+            # the slot paths every valid slot (dropped ones included)
             "n_sigma": sig_ok.sum() if n_sigma is None else n_sigma,
             "n_rgb": (alpha > 1e-14).sum(),
         }
@@ -1039,7 +1078,7 @@ class Renderer(nn.Module):
 
 def check_mode(cfg):
     """Raise NotImplementedError, naming the key, for a renderer switch
-    outside the modes the port implements (see COMMON above). The Renderer
+    outside the modes the port implements (see FAST_MODE above). The Renderer
     constructor refuses, naming the keys, a combination whose point-stage
     form the fused path has no instantiation for."""
     t = cfg.tpu
@@ -1050,15 +1089,10 @@ def check_mode(cfg):
                 raise NotImplementedError(
                     f"tpu.{key}={t[key]!r}: the port's {mode} needs {key}={val!r}")
 
-    need(COMMON, "renderer")
     if t.tight_cull:
         need(FAST_MODE, "fast mode (tight_cull on)")
     else:
         need(REF_MODE, "reference mode (tight_cull off)")
-        if t.samples_per_ray != cfg.train.n_samples:
-            raise NotImplementedError(
-                f"tpu.samples_per_ray={t.samples_per_ray}: the port's reference mode "
-                f"keeps all train.n_samples={cfg.train.n_samples} samples")
     if t.pallas_point and cfg.src_view_num != PS_V:
         raise NotImplementedError(
             f"src_view_num={cfg.src_view_num}: the point-stage kernel is built for {PS_V} "
@@ -1067,8 +1101,9 @@ def check_mode(cfg):
 
 def build_render(cfg, device="cuda"):
     """The progressive renderer for `cfg` on `device` in the mode its
-    switches select, with untrained parameters (load weights with
-    train/checkpoint.py)."""
+    switches select, its encoder and heads built through the registry
+    (`encoder.file`, `head.file`), with untrained parameters (load weights
+    with train/checkpoint.py)."""
     check_mode(cfg)
     if not cfg.head.rgb.use_rgbhead:
         raise NotImplementedError("the mesh path (use_rgbhead False) is not ported")
@@ -1076,19 +1111,9 @@ def build_render(cfg, device="cuda"):
     if cfg.tpu.matmul_dtype not in dtypes:
         raise NotImplementedError(f"tpu.matmul_dtype={cfg.tpu.matmul_dtype!r}")
     dt = dtypes[cfg.tpu.matmul_dtype]
-    encoder = ResUNet(cfg.encoder.out_ch, cfg.encoder.name, dt)
-    nerfhead = NeRFHead(
-        in_feat_ch=cfg.encoder.out_ch,
-        n_smpl=cfg.head.sigma.n_smpl,
-        code_dim=cfg.head.sigma.code_dim,
-        attn_n_heads=cfg.head.sigma.n_heads,
-        spconv_n_layers=cfg.head.sigma.n_layers,
-        spconv_out_dim=tuple(cfg.head.sigma.outdims),
-        compute_dtype=dt,
-    )
     r = Renderer(
-        encoder,
-        nerfhead,
+        get("encoder", cfg.encoder.file)(cfg, compute_dtype=dt),
+        get("head", cfg.head.file)(cfg, compute_dtype=dt),
         voxel_size=tuple(cfg.dataset.voxel_size),
         n_samples=cfg.train.n_samples,
         samples_per_ray=cfg.tpu.samples_per_ray,
@@ -1109,6 +1134,8 @@ def build_render(cfg, device="cuda"):
         merge_lowres_src=cfg.tpu.merge_lowres_src,
         quantize_proj=cfg.tpu.quantize_proj,
         **{k: cfg.tpu[k] for k in GEOMETRY_SWITCHES},
+        dense_slots=cfg.tpu.dense_slots,
+        sigma_cap=cfg.tpu.sigma_cap,
         neg_ray_val="thuman" in cfg.dataset.test.name,
     )
     return r.to(device).eval()

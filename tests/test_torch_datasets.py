@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 from test_dataset_fixtures import thuman_root  # noqa: F401  (a fixture)
 
+import gpnerf_tpu.native as jax_native
+import gpnerf_tpu_torch.native as port_native
 from gpnerf_tpu.config import cfg as jax_cfg
 from gpnerf_tpu.registry import get as jax_get
 from gpnerf_tpu.utils.bench_frames import get_bench_frames as jax_bench_frames
@@ -24,6 +26,24 @@ from gpnerf_tpu_torch.registry import get as port_get
 from gpnerf_tpu_torch.utils.bench_frames import get_bench_frames
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def same_host_kernels():
+    """Both packages take the same route through their host kernels
+    (native/gpnerf_host.cpp via ctypes, else numpy), whose results differ in
+    the last bits (ray near/far) or more (the synthetic scene's z-splat).
+
+    The JAX package builds its library in place on first use, and the test
+    workers collect tests/test_native.py together, so in a fresh checkout
+    several processes build it at once: one may load a half-written file,
+    take numpy for the rest of its life, and then compare numpy batches with
+    the port's native ones. Such a failed load is retried here, once the
+    concurrent builds are done (the port builds under a name of its own and
+    renames it into place, gpnerf_tpu_torch/native.py)."""
+    if not jax_native.available():
+        jax_native._tried = False
+    assert jax_native.available() == port_native.available()
 
 
 def _zju_cfg(base, root, **extra):
@@ -134,7 +154,11 @@ def test_mesh_grid_and_inside_match_jax(zju_root, thuman_root, dataset):  # noqa
                   else (_thu_cfg, thuman_root))
     jc = make(jax_cfg, root, **{"head.rgb.use_rgbhead": False})
     pc = make(port_cfg, root, **{"head.rgb.use_rgbhead": False})
+    np.random.seed(0)
+    random.seed(0)
     jds = jax_get("dataset", dataset)(jc, is_train=False)
+    np.random.seed(0)
+    random.seed(0)
     pds = port_get("dataset", dataset)(pc, is_train=False)
     pb = _item(pds, 0, 3)
     _assert_same_batch(pb, _item(jds, 0, 3), f"{dataset} test[0] with the mesh grid")

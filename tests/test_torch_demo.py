@@ -122,7 +122,7 @@ def test_port_render_is_deterministic(renders):
 
 @pytest.mark.parametrize(
     "key,value",
-    [("l1_nearest", 1), ("dense_slots", False), ("splat_bins", False),
+    [("l1_nearest", 1), ("splat_bins", False),
      ("quantize_volume", False), ("coarse_nearest", 0),
      ("int4_coarse", True)],
 )
@@ -130,6 +130,25 @@ def test_switches_outside_fast_mode_raise(key, value):
     # the geometry-table switches are ported; beside merged float32 rows
     # (merge_src_feat) the layout they select has no point-stage library,
     # and the refusal names them
-    extra = {} if key in ("dense_slots", "splat_bins") else {"merge_src_feat": True}
+    extra = {} if key == "splat_bins" else {"merge_src_feat": True}
     with pytest.raises(NotImplementedError, match=key):
         port_get("render", "demo_render")(_cfg(port_cfg, **{key: value}, **extra), device="cpu")
+
+
+def test_dense_slots_off_renders_the_dense_frame(renders):
+    """`dense_slots False` compacts the valid slots globally to sigma_cap
+    (262,144, above this frame's 212,992 slots): nothing drops, and the
+    render is the dense-slot render bit for bit, whose integers are JAX's."""
+    jret, pret = renders
+    cfg = _cfg(port_cfg, dense_slots=False)
+    np.random.seed(0)
+    random.seed(0)
+    batch = port_get("dataset", cfg.dataset.test.file)(cfg, is_train=False)[0]
+    port = port_get("render", "demo_render")(cfg, device="cpu")
+    assert not port.dense_slots
+    load_eval_model(CKPT, port)
+    comp = {k: v.numpy() for k, v in port.render_demo_fn()(batch_to_device(batch, "cpu")).items()}
+    assert comp["overflows"][2] == 0
+    for k in ("pred_chw", "mask_at_box", "ray_pix_idx", "overflows", "counts"):
+        np.testing.assert_array_equal(comp[k], pret[k], err_msg=k)
+    np.testing.assert_array_equal(comp["overflows"], jret["overflows"])

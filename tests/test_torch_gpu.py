@@ -8,7 +8,9 @@ point-stage, quad-lerp and row-gather CUDA kernels against their plain
 versions at ragged sizes (for the point stages, sizes that end inside a
 16-row tile and inside a warp), the
 wrappers' refusal of other forms, 128^2 renders on the card against the
-same render on the CPU, and one train step on the card against the CPU."""
+same render on the CPU, the kernel on a compacted render's points and the
+compacted render against the dense-slot one, and one train step on the card
+against the CPU."""
 
 import os
 import random
@@ -367,6 +369,114 @@ def test_render_on_card_matches_cpu(mode):
     # fast mode as before; the blanket's rays of image row 0 project onto a
     # source image's border row to the last bit, where a view flips in or out
     assert float(d.max()) < (0.05 if mode in ("fast", "paper") else 0.15)
+
+
+# --- the global sigma compaction (render/demo.py, dense_slots off)
+
+
+def _compaction_cfg(mode, **tpu):
+    """The 128^2 synthetic config of test_render_on_card_matches_cpu, fast
+    mode or the reference mode with samples_per_ray 32 < 64."""
+    from gpnerf_tpu_torch.config import cfg as base
+
+    cfg = base.clone()
+    cfg.defrost()
+    cfg.merge_from_file("configs/synthetic.yaml")
+    cfg.dataset.H = cfg.dataset.W = 128
+    cfg.head.sigma.code_dim = 32
+    cfg.render.file = "demo_render"
+    cfg.tpu.matmul_dtype = "float32"
+    cfg.tpu.ray_cap = 16384
+    if mode == "reference K32":
+        cfg.tpu.tight_cull = False
+        cfg.tpu.samples_per_ray = 32
+        cfg.tpu.tap_window = 0
+        cfg.tpu.merge_lowres_src = False
+        cfg.tpu.ray_cap = 9216
+        cfg.tpu.sigma_cap = 327680
+    for k, v in tpu.items():
+        cfg.tpu[k] = v
+    cfg.freeze()
+    return cfg
+
+
+def _frame(cfg):
+    from gpnerf_tpu_torch.registry import get
+
+    np.random.seed(0)
+    random.seed(0)
+    return get("dataset", cfg.dataset.test.file)(cfg, is_train=False)[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["fast", "reference K32"])
+def test_kernel_matches_plain_on_compacted_points(mode, monkeypatch):
+    """The point-stage kernel on the inputs a compacted 128^2 render hands
+    it (P = sig_cap points: the valid slots, then a tail with sig_ok off),
+    against its plain version, with the tolerances of
+    test_kernel_matches_plain."""
+    dev = _cuda()
+    from gpnerf_tpu_torch.registry import get
+    from gpnerf_tpu_torch.render import demo
+    from gpnerf_tpu_torch.render.base import batch_to_device
+    from gpnerf_tpu_torch.train.checkpoint import load_eval_model
+
+    cfg = _compaction_cfg(mode, dense_slots=False)
+    r = load_eval_model(CKPT, get("render", "demo_render")(cfg, device=dev))
+    calls = []
+    real = demo.fused_point_stages_tabs
+    monkeypatch.setattr(demo, "fused_point_stages_tabs",
+                        lambda *a, **k: calls.append((a, k)) or real(*a, **k))
+    ret = r.render_demo_fn()(batch_to_device(_frame(cfg), dev))
+    assert len(calls) == 1 and int(ret["overflows"][2]) == 0
+    args, kw = calls[0]
+    sig_ok = args[3]
+    P = sig_ok.shape[0]
+    assert P == cfg.tpu.sigma_cap
+    n = int(sig_ok.sum())
+    assert 0 < n < P and not bool(sig_ok[n:].any())  # the tail is masked
+    name = ps.FORMS[r.kernel_form()]
+    before = ps.LAUNCHES[name]
+    out = ps.fused_point_stages_tabs(*args, **kw)
+    torch.cuda.synchronize()
+    assert ps.LAUNCHES[name] == before + 1
+    out_p = ps.point_stages_tabs_plain(*args, **kw)
+    a, rgb, a_p, rgb_p = (t.cpu().numpy() for t in (*out[:2], *out_p[:2]))
+    assert np.isfinite(a).all() and np.isfinite(rgb).all()
+    assert not a[n:].any() and not rgb[n:].any()
+    _assert_near(np.abs(a - a_p), P)
+    agree = (a > 1e-14) == (a_p > 1e-14)
+    assert (~agree).sum() <= max(1, 0.001 * P)
+    _assert_near(np.abs(rgb - rgb_p)[agree], P)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["fast", "reference K32"])
+def test_compacted_render_on_card_equals_dense_slots(mode):
+    """On the card, the compacted render of a 128^2 frame without a drop is
+    the dense-slot render bit for bit (the kernel works point by point);
+    with a cap that overflows, its integers equal the CPU's."""
+    dev = _cuda()
+    from gpnerf_tpu_torch.registry import get
+    from gpnerf_tpu_torch.render.base import batch_to_device
+    from gpnerf_tpu_torch.train.checkpoint import load_eval_model
+
+    batch = _frame(_compaction_cfg(mode))
+
+    def render(d, **tpu):
+        r = load_eval_model(CKPT, get("render", "demo_render")(_compaction_cfg(mode, **tpu),
+                                                                device=d))
+        return {k: v.cpu() for k, v in r.render_demo_fn()(batch_to_device(batch, d)).items()}
+
+    dense, comp = render(dev), render(dev, dense_slots=False)
+    assert int(comp["overflows"][2]) == 0
+    for k in ("pred_chw", "overflows", "counts", "mask_at_box"):
+        assert torch.equal(comp[k], dense[k]), k
+    # 2 points per ray: below the frame's valid slots
+    capped = dict(dense_slots=False, sigma_cap=2 * _compaction_cfg(mode).tpu.ray_cap)
+    g, c = render(dev, **capped), render(torch.device("cpu"), **capped)
+    assert int(g["overflows"][2]) > 0
+    assert torch.equal(g["overflows"], c["overflows"]) and torch.equal(g["counts"][:2], c["counts"][:2])
 
 
 # --- the quad-lerp kernels and the row gather (ops/quad_lerp.py, row_gather.py)

@@ -8,6 +8,7 @@ which runs the JAX CLI): each run exits 0 and prints the metric means and
 the render time; `test.is_vis` writes the frames' images. Without a CUDA
 device and without `device cpu` the CLI fails, naming the way out."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -66,6 +67,23 @@ def test_synthetic_small(tmp_path, ckpt):
     res = tmp_path / "results" / "synthetic"
     assert {"0.jpg", "1.jpg", "metrics.npy"} <= set(os.listdir(res))
     assert os.path.isdir(tmp_path / "work_dirs")
+
+
+def test_synthetic_compacted(tmp_path):
+    """`tpu.dense_slots False` on the command line with the trained
+    checkpoint at 128^2: the global sigma compaction, at a sigma_cap of one
+    point per ray, which the frames' valid slots overflow; the overflow
+    line's sigma column counts the dropped slots."""
+    out = run_cli(tmp_path, "--cfg", os.path.join(ROOT, "configs", "synthetic.yaml"), *SMALL[4:],
+                  "head.sigma.code_dim", "32", "dataset.H", "128", "dataset.W", "128",
+                  "tpu.ray_cap", "16384", "tpu.dense_slots", "False", "tpu.sigma_cap", "16384",
+                  "render.resume_path", os.path.join(ROOT, "artifacts", "bench_ckpt.pth"),
+                  "result_dir", str(tmp_path / "results"))
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    assert 0 < _metric(out.stdout, "psnr") < 60
+    line = [s for s in out.stdout.splitlines() if s.startswith("overflows(ray,perrayK,sigma,rgb)")][-1]
+    ray, _, sigma, rgb = ast.literal_eval(line.split("max=")[1].split(" mean=")[0])
+    assert ray == 0 and sigma > 0 and rgb == 0, line
 
 
 @pytest.mark.parametrize("config,tables", [

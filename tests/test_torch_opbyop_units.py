@@ -28,6 +28,9 @@ from gpnerf_tpu_torch.train.checkpoint import load_eval_model
 CKPT = os.path.join(os.path.dirname(__file__), "..", "artifacts", "bench_ckpt.pth")
 REF = dict(tight_cull=False, samples_per_ray=64, tap_window=0, merge_lowres_src=False,
            ray_cap=3072)
+# the global compaction at 10 points per ray of ray_cap (4096 rays: the
+# 64^2 frame's valid slots fit)
+COMPACT = dict(dense_slots=False, sigma_cap=40960)
 DTYPES = {"float32": (None, None), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
@@ -211,11 +214,12 @@ def small_renders(batch):
     return get, b, featmaps
 
 
-@pytest.mark.parametrize("mode", ["fast", "reference", "frame_mode"])
+@pytest.mark.parametrize("mode", ["fast", "reference", "frame_mode", "compacted"])
 @pytest.mark.parametrize("stage", port_demo.STOP_STAGES)
 def test_every_stop_stage_returns(small_renders, stage, mode):
     get, b, featmaps = small_renders
-    tpu = {} if mode == "fast" else dict(REF, frame_mode=mode == "frame_mode")
+    tpu = {"fast": {}, "compacted": COMPACT}.get(
+        mode, dict(REF, frame_mode=mode == "frame_mode"))
     r = get(**tpu)  # pallas_point on: a stop still takes the op-by-op stages
     with torch.no_grad():
         assert r._demo_impl(b, featmaps, stop_stage=stage) is None
@@ -279,13 +283,28 @@ def test_build_render_accepts_the_switches(tpu):
         assert getattr(r, k) == tpu.get(k, k != "proj_vp_order")
 
 
+@pytest.mark.parametrize("tpu,sigma_cap", [({}, 40960), (dict(REF, samples_per_ray=32), 98304)],
+                         ids=["fast", "reference-K32"])
+def test_op_by_op_compacted_render_equals_dense_slots(small_renders, tpu, sigma_cap):
+    """`dense_slots False` on the op-by-op path: the valid slots compacted to
+    sigma_cap (above the 64^2 frame's valid slots) evaluate to the
+    dense-slot render bit for bit."""
+    get, b, featmaps = small_renders
+    with torch.no_grad():
+        dense = get(pallas_point=False, **tpu)._demo_impl(b, featmaps)
+        comp = get(pallas_point=False, **tpu, dense_slots=False,
+                   sigma_cap=sigma_cap)._demo_impl(b, featmaps)
+    assert int(comp["overflows"][2]) == 0 and int(comp["counts"][1]) > 0
+    for k in ("pred_chw", "overflows", "counts"):
+        assert torch.equal(comp[k], dense[k]), k
+
+
 @pytest.mark.parametrize(
     "tpu,key",
     [
         # combinations whose fused point-stage form has no instantiation
         (dict(merge_src_feat=True, kernel_octet=False), "kernel_octet"),
         (dict(REF, quantize_proj=False, frame_mode=True), "frame_mode"),
-        (dict(pallas_point=False, dense_slots=False), "dense_slots"),
         # the geometry-table switches render op by op; on the fused path
         # beside float rows their layouts have no library
         (dict(merge_src_feat=True, merge_coarse_octet=False), "merge_coarse_octet"),

@@ -286,13 +286,39 @@ def test_int4_pairs_close_to_int8(port_renders):
     np.testing.assert_array_equal(on["counts"][:2], off["counts"][:2])
 
 
+def test_fewer_slots_keep_each_ray_s_nearest_samples(port_renders):
+    """samples_per_ray 32 < n_samples 64 under the blanket cull: the tap
+    walks all 64 samples and each ray keeps its nearest 32 survivors. The
+    same rays; the kept slots and the dropped ones (perray_overflow) add up
+    to the K = 64 frame's survivors; the dropped far samples lie behind the
+    surface and move the image little."""
+    full, k32 = port_renders(), port_renders(samples_per_ray=32)
+    for k in ("mask_at_box", "ray_pix_idx"):
+        np.testing.assert_array_equal(k32[k], full[k], err_msg=k)
+    assert full["overflows"][1] == 0 < k32["overflows"][1]
+    assert k32["counts"][1] + k32["overflows"][1] == full["counts"][1]
+    assert k32["counts"][2] < full["counts"][2]
+    m = full["mask_at_box"].reshape(H, W)
+    diff = np.abs(k32["pred_chw"] - full["pred_chw"])[:, m]
+    # measured 32.4 dB between the two renders
+    assert -10 * np.log10(float(np.mean(diff ** 2))) > 30.0
+
+
+def test_dense_slots_off_renders_the_dense_frame(port_renders):
+    """`dense_slots False`: the valid slots compacted globally to sigma_cap
+    (327,680, above the frame's 323,307 valid slots): nothing drops, and the
+    image and counts are the dense-slot render's, bit for bit."""
+    comp, dense = port_renders(dense_slots=False, sigma_cap=327680), port_renders()
+    assert comp["overflows"][2] == 0
+    for k in ("pred_chw", "mask_at_box", "overflows", "counts"):
+        np.testing.assert_array_equal(comp[k], dense[k], err_msg=k)
+
+
 @pytest.mark.parametrize(
     "tpu,key",
     [
-        (dict(samples_per_ray=32), "samples_per_ray"),
         (dict(tap_window=16), "tap_window"),
         (dict(quantize_volume=False), "quantize_volume"),
-        (dict(dense_slots=False), "dense_slots"),
         # combinations whose fused point-stage form has no instantiation
         (dict(merge_src_feat=True, frame_mode=True), "merge_src_feat"),
         (dict(quantize_proj=False, sigma_query_cull=True), "sigma_query_cull"),

@@ -84,6 +84,16 @@ def test_frame_mode_is_inert_in_the_fast_mode(renders):
         np.testing.assert_array_equal(on[k], off[k], err_msg=k)
 
 
+def test_dense_slots_off_composes_with_frame_mode(renders):
+    """The global compaction (sigma_cap 294,912 above the frame's 212,992
+    slots: nothing drops) with frame_mode, which the fast mode's bins leave
+    inert: the default render, bit for bit."""
+    comp, dense = renders(dense_slots=False, frame_mode=True), renders()
+    assert comp["overflows"][2] == 0
+    for k in dense:
+        np.testing.assert_array_equal(comp[k], dense[k], err_msg=k)
+
+
 def test_int4_split_tables_close_to_int8(renders):
     """Form c+d under the tight cull (split tables, the paper configs'
     choice) against the int8 render (c); the reference mode's int4 pairs are
@@ -147,6 +157,12 @@ ACCEPTED = [
     # the op-by-op stages take every form
     dict(merge_src_feat=True, sigma_query_cull=True, pallas_point=False),
     dict(REF, quantize_proj=False, frame_mode=True, pallas_point=False),
+    # 3e: global compaction, and the blanket cull with K < S (frame_mode
+    # then inert), tests/test_torch_sigma_compaction.py
+    dict(dense_slots=False),
+    dict(dense_slots=False, merge_lowres_src=False, sigma_query_cull=True),
+    dict(REF, samples_per_ray=32),
+    dict(REF, samples_per_ray=32, dense_slots=False, frame_mode=True),
     # 3g: the geometry-table layouts (tests/test_torch_geom_layouts.py)
     dict(quantize_volume=False),
     dict(merge_coarse_octet=False),
@@ -170,8 +186,6 @@ def test_build_render_accepts_the_switch_combinations(tpu):
 @pytest.mark.parametrize(
     "tpu,key",
     [
-        # item 3e: global compaction
-        (dict(dense_slots=False), "dense_slots"),
         # 3f: the windowed tap without bins
         (dict(splat_bins=False), "splat_bins"),
         (dict(REF, tap_window=16), "tap_window"),
