@@ -5,18 +5,27 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py              # the smoke test
     python3 chip_smoke.py --profile    # plus a torch.profiler kernel table
+    python3 chip_smoke.py --all-keys   # plus every point-stage key the
+                                       # renderer's switches reach (~10 min)
 
 Phases, each fatal on failure:
   1. device and power limit; build every CUDA kernel from
-     gpnerf_tpu_torch/csrc/: the 28 instantiations of the point-stage
-     kernel (ops/point_stages.FORMS: projection forms by geometry layouts),
-     the quad-lerp kernels and the row gather (one nvcc each, all started
-     together);
+     gpnerf_tpu_torch/csrc/: the point-stage kernel for FORMS' 28 keys
+     (ops/point_stages.py: projection row types by geometry layouts, 3
+     views) and the cover set (`cover_keys`: every row type, geometry table
+     spec and occ_geom pairing the renderer's switch space reaches, forms
+     (a) and (c) at 2, 4 and 8 views), with --all-keys also the other keys
+     of that space (`reachable_kernel_keys`, 330 in all); the quad-lerp
+     kernels and the row gather (one nvcc each, up to 6 per core at once);
+     each library's ptxas registers and spills, blocks per SM, threads and
+     shared memory per block;
   2. each kernel against its plain PyTorch version on the card: seeded
      random inputs (the quad lerps at a ragged P for int8 and float32 rows
-     and the row gather at the microbenchmark's shape, bitwise), then the
-     inputs captured from one rendered frame at the main-path shape (the
-     point-stage plain version runs in chunks of points);
+     and the row gather at the microbenchmark's shape, bitwise; the keys
+     beyond FORMS at the fast mode's P = 319,488, timed beside their
+     bounds, with --all-keys written to results/chip_smoke/all_keys.json), then
+     the inputs captured from one rendered frame at the main-path shape
+     (the point-stage plain version runs in chunks of points);
   3. end to end at 512^2 (configs/synthetic.yaml, trained checkpoint)
      through `render_demo_fn`, with launch counts, zero-overflow and PSNR
      checks: 3 frames of the bench protocol in the fast mode, 2 in the
@@ -55,6 +64,17 @@ Phases, each fatal on failure:
      dense and compacted (equal where nothing drops): overflows, counts,
      PSNR, ms per frame and form (a) or (c) held against its plain version
      on each path's captured inputs and timed beside its bound;
+  3k. switch sets and view counts whose kernel is built from the key: 3
+     frames each of the paper tables with sigma_query_cull and
+     coarse_nearest 0 (c+e@coarse-octet) and of merge_src_feat with
+     sigma_query_cull (a:bf16+e), one frame each of l1_nearest 1 with
+     coarse_nearest 0 (a mixed geometry layout) and quantize_proj off with
+     coarse_nearest 0 (merged bf16 rows beside the coarse octet table), all
+     >= 20 dB; the fast mode at 4 views (3 frames), 2 and 8 (1 each) with
+     the checkpoint's heads and a seeded first rgb_fc layer (no PSNR gate),
+     frame 0 against the op-by-op render of the same weights on the card
+     (integers bitwise, |d pred| median <= 2e-3); each key's library held
+     against plain on its frame's captured inputs and timed;
   3b. the op-by-op point stages (pallas_point off): 3 frames of the fast
      mode through the quad-lerp kernel (exactly one launch per frame, no
      point-stage launch), held against the fused fast mode's image; the
@@ -175,9 +195,11 @@ def cuda_ms(fn, reps, with_host=False):
     return (dev_ms, host_ms) if with_host else dev_ms
 
 
-def compare_point_stages(kern, plain, what):
+def compare_point_stages(kern, plain, what, max_outliers=0):
     """Hold the kernel's (alpha, rgb[, occm]) against the plain version's
-    with the tolerances of tests/test_pallas_point.py:83-103; the occupancy
+    with the tolerances of tests/test_pallas_point.py:83-103, every point
+    within the per-point bounds (alpha, rgb, alive where the other side's
+    alpha is decisive) but `max_outliers` of them for each; the occupancy
     verdict must agree exactly. Returns stats."""
     import torch
 
@@ -186,22 +208,26 @@ def compare_point_stages(kern, plain, what):
     check(len(kern) == len(plain), f"{what}: output count")
     check(torch.isfinite(a).all() and torch.isfinite(rgb).all(), f"{what}: non-finite")
     da = (a - a_ref).abs()
-    check(bool((da <= 0.08 + 0.3 * a_ref.abs()).all()), f"{what}: alpha beyond atol 0.08 rtol 0.3")
+    outliers = int((~(da <= 0.08 + 0.3 * a_ref.abs())).sum())
+    check(outliers <= max_outliers, f"{what}: alpha beyond atol 0.08 rtol 0.3 at {outliers} points")
     check(float(da.mean()) < 5e-3, f"{what}: mean |d alpha| {float(da.mean())}")
     alive, alive_ref = a > 1e-14, a_ref > 1e-14
     agree = alive == alive_ref
     flips = int((~agree).sum())
     check(flips < 0.01 * a.numel(), f"{what}: {flips} alive-boundary flips")
     dr = (rgb - rgb_ref).abs()[agree]
-    check(bool((dr <= 0.08).all()), f"{what}: rgb beyond atol 0.08")
+    rgb_outliers = int((~(dr <= 0.08)).any(dim=-1).sum())
+    check(rgb_outliers <= max_outliers, f"{what}: rgb beyond atol 0.08 at {rgb_outliers} points")
     check(float(dr.mean()) < 5e-3, f"{what}: mean |d rgb| {float(dr.mean())}")
-    check(bool(alive[a_ref > 0.05].all() and alive_ref[a > 0.05].all()),
-          f"{what}: decisively-alive points disagree")
+    decisive = int((~alive[a_ref > 0.05]).sum() + (~alive_ref[a > 0.05]).sum())
+    check(decisive <= max_outliers, f"{what}: {decisive} decisively-alive points disagree")
     stats = {
         "max_abs_d_alpha": float(da.max()), "mean_abs_d_alpha": float(da.mean()),
         "max_abs_d_rgb": float(dr.max()), "mean_abs_d_rgb": float(dr.mean()),
         "alive_flips": flips, "points": a.numel(),
     }
+    if max_outliers:
+        stats["outliers"] = outliers + rgb_outliers
     if len(kern) == 3:
         check(bool((kern[2] == plain[2]).all()), f"{what}: occupancy verdicts differ")
         stats["occ_pass_share"] = float(kern[2].mean())
@@ -209,15 +235,154 @@ def compare_point_stages(kern, plain, what):
     return stats
 
 
-def random_point_inputs(form, P, device, seed=0):
-    """Seeded random inputs of one instantiation (a key of
-    gpnerf_tpu_torch.ops.point_stages.FORMS) at P points, made on the
-    device. Returns (tabs, feats, vmask, sig_ok, kwargs)."""
+def cover_keys():
+    """Point-stage keys beyond FORMS that phase 1 builds and phase 2a holds
+    against plain, so that with FORMS every projection row type stands in
+    table position A and B, every geometry table spec the renderer's switch
+    space reaches (`reachable_kernel_keys`) stands in every table position
+    where it occurs there, occ_geom meets every table-0 spec, and forms (a)
+    and (c) run at 2, 4 and 8 views (tests/test_torch_point_keys.py checks
+    the cover). Phase 3k renders five of them."""
+    from gpnerf_tpu_torch.ops.point_stages import Key
+
+    bf4, f4 = ((8, 32, "bf16"),) * 4, ((8, 32, "f32"),) * 4
+    return [
+        *(Key(("i8",), "default", False, v) for v in (2, 4, 8)),
+        *(Key(("u8", "i8"), "default", False, v) for v in (2, 4, 8)),
+        Key(("i8",), "feats128", False, 8),  # F = 128 at 8 views: 7 warps fit
+        Key(("u8", "i8"), "coarse-octet", True),
+        Key(("bf16",), "default", True),
+        Key(("i8",), ((1, 32, "u8"), (8, 64, "i8")), False),
+        Key(("bf16",), "coarse-octet", False),
+        Key(("u8", "f32"), "l1-nearest", False),
+        Key(("f32",), "float32", True),
+        Key(("bf16", "i4"), "default", False),
+        Key(("i8",), "float", True),
+        Key(("i8",), bf4, False),
+        Key(("f32", "f32"), f4, False),
+        Key(("i8",), ((8, 32, "bf16"), (8, 96, "f32")), False),
+        Key(("u8", "u8"), "default", False),  # u8 feature rows: no switch forms them
+    ]
+
+
+SWITCHES = ("tight_cull", "frame_mode", "sigma_query_cull", "int4_feat", "kernel_octet",
+            "merge_src_feat", "merge_lowres_src", "quantize_proj", "quantize_volume",
+            "merge_coarse_octet", "fold_coarse_fc", "int4_coarse", "pack_octet_u32", "dense_conv")
+
+
+def reachable_kernel_keys():
+    """Every point-stage key (3 views) the Renderer constructor's switches
+    select: the boolean SWITCHES, coarse_nearest 0-2, l1_nearest 0, 1, 2
+    and 11, bfloat16 or float32, uint8 or float source images (330 keys,
+    ~50 s of host time)."""
+    import itertools
+
     import torch
 
-    from gpnerf_tpu_torch.ops.point_stages import C, CF, CS, GEOMS, V
+    from gpnerf_tpu_torch.render.demo import Renderer
 
-    rows, layout, occ = form
+    keys = set()
+    for bits in itertools.product((False, True), repeat=len(SWITCHES)):
+        sw = dict(zip(SWITCHES, bits))
+        for cn, l1, dt in itertools.product((0, 1, 2), (0, 1, 2, 11), (torch.bfloat16, None)):
+            r = Renderer(None, None, voxel_size=(0.005,) * 3, n_samples=64,
+                         samples_per_ray=13 if sw["tight_cull"] else 64, compute_dtype=dt,
+                         coarse_nearest=cn, l1_nearest=l1, **sw)
+            keys.update((r.kernel_form(True), r.kernel_form(False)))
+    return sorted(keys, key=str)
+
+
+def build_point_keys(keys, jobs=32):
+    """Build every key's library from csrc/point_stages.cu, `jobs` nvcc
+    processes at a time, and load them; returns the seconds taken."""
+    from gpnerf_tpu_torch.ops import point_stages as ps
+
+    t0 = time.perf_counter()
+    todo, running = list(keys), []
+    while todo or running:
+        while todo and len(running) < jobs:
+            key = todo.pop(0)
+            running.append((key, ps.start_build(key)))
+        done = [(k, p) for k, p in running if p is None or p.poll() is not None]
+        if not done:
+            time.sleep(0.05)
+        for k, p in done:
+            running.remove((k, p))
+            ps.load_library(k, p)
+    return time.perf_counter() - t0
+
+
+def log_builds(keys):
+    """Each key's ptxas registers / spills and its blocks per SM, threads
+    and shared memory per block; fails where no block fits. Returns
+    {name: {...}}."""
+    from gpnerf_tpu_torch.ops import point_stages as ps
+
+    out = {}
+    for key in keys:
+        name = ps.form_name(key)
+        entry = {"ptxas": [line.strip() for line in ps.BUILD_LOG.get(key, {}).get("output", "")
+                           .splitlines() if "registers" in line or "spill" in line]}
+        entry["blocks_per_sm"], entry["smem_bytes"], entry["threads"] = ps.occupancy(key)
+        for line in entry["ptxas"]:
+            log(f"#   ptxas [{name}] {line}")
+        log(f"#   occupancy [{name}] {entry['blocks_per_sm']} block(s) per SM of "
+            f"{entry['threads']} threads, {entry['smem_bytes']} bytes of dynamic shared memory "
+            "per block")
+        check(entry["blocks_per_sm"] >= 1,
+              f"point_stages[{name}]: no block fits on an SM ({entry['blocks_per_sm']})")
+        out[name] = entry
+    return out
+
+
+def make_views_render(size, matmul_dtype, device, views, **tpu):
+    """make_render at `views` source views (cam_num -1: the datasets offer
+    every training camera): the trained checkpoint, with rgb_fc's first
+    layer (views * 32 -> 32) seeded (normal, std 1 / sqrt(fan-in), as flax
+    initialises Dense kernels) where the checkpoint's 3 views do not fit."""
+    import torch
+
+    from gpnerf_tpu_torch.registry import get
+
+    cfg = make_cfg(size, matmul_dtype)
+    cfg.defrost()
+    cfg.src_view_num = views
+    cfg.cam_num = -1
+    for k, v in tpu.items():
+        cfg.tpu[k] = v
+    cfg.freeze()
+    render = get("render", cfg.render.file)(cfg, device=device)
+    ckpt = torch.load(CKPT, map_location="cpu", weights_only=False)
+    state = dict(ckpt["state_dict"] if "state_dict" in ckpt else ckpt)
+    if views != 3:
+        g = torch.Generator().manual_seed(views)
+        state["nerfhead.rgbhead.rgb_fc.0.weight"] = (
+            torch.randn(32, views * 32, generator=g) / math.sqrt(views * 32))
+    render.load_state_dict(state, strict=True)
+    return cfg, render
+
+
+def head_weights_of(render):
+    """{F: PointWeights} of a render's heads: the sigma-feat weight of a
+    96-wide geometry feature (folded coarse table) and of a 128-wide one
+    (the checkpoint's own)."""
+    from gpnerf_tpu_torch.ops import point_stages as ps
+
+    nch = render.nerfhead.spconv_out_dim[0]
+    return {96: ps.pack_head_weights(render.nerfhead, fold_nch=nch),
+            128: ps.pack_head_weights(render.nerfhead)}
+
+
+def random_point_inputs(form, P, device, seed=0):
+    """Seeded random inputs of one instantiation (a
+    gpnerf_tpu_torch.ops.point_stages.Key, or a tuple of its fields) at P
+    points, made on the device. Returns (tabs, feats, vmask, sig_ok,
+    kwargs)."""
+    import torch
+
+    from gpnerf_tpu_torch.ops.point_stages import C, CF, CS, geom_specs, make_key
+
+    rows, layout, occ, V = make_key(*form)
     g = torch.Generator(device=device).manual_seed(seed)
 
     def rand(*s):
@@ -244,7 +409,7 @@ def random_point_inputs(form, P, device, seed=0):
 
     tabs = (table(rows[0], C),) if len(rows) == 1 else (table(rows[0], CS), table(rows[1], CF))
     kw, feats = {}, None
-    specs = GEOMS[layout]
+    specs = geom_specs(layout)
     if specs[0][2] == "feat":
         feats = torch.randn(P, specs[0][1], generator=g, device=device) * 0.5
     else:
@@ -616,6 +781,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.perf_counter()
     profile = "--profile" in sys.argv[1:]
+    all_keys = "--all-keys" in sys.argv[1:]
 
     from gpnerf_tpu_torch.ops import point_stages as ps
     from gpnerf_tpu_torch.ops import quad_lerp as ql
@@ -635,47 +801,81 @@ def main():
     log(f"# device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}, "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    builds = {form: ps.start_build(form) for form in ps.FORMS}
+    # every key the switch space reaches (--all-keys) or FORMS' and the cover
+    cover = cover_keys()
+    point_keys = list(ps.FORMS) + cover
+    if all_keys:
+        point_keys += [k for k in reachable_kernel_keys() if k not in point_keys]
     lerp_build, gather_build = ql.start_build(), rg.start_build()
-    for form, proc in builds.items():
-        ps.load_library(form, proc)
+    build_point_keys(point_keys, jobs=(os.cpu_count() or 8) * 6)
     ql.load_library(lerp_build)
     rg.load_library(gather_build)
-    log(f"# built {len(builds)} instantiation(s) of csrc/point_stages.cu, csrc/quad_lerp.cu and "
+    log(f"# built {len(point_keys)} instantiation(s) of csrc/point_stages.cu, csrc/quad_lerp.cu and "
         f"csrc/row_gather.cu in {time.perf_counter() - t0:.1f} s")
-    build_logs = [(name, ps.BUILD_LOG.get(form)) for form, name in ps.FORMS.items()]
-    build_logs += [("quad_lerp", ql.BUILD_LOG.get("quad_lerp")),
-                   ("row_gather", rg.BUILD_LOG.get("row_gather"))]
-    for name, entry in build_logs:
+    for name, entry in (("quad_lerp", ql.BUILD_LOG.get("quad_lerp")),
+                        ("row_gather", rg.BUILD_LOG.get("row_gather"))):
         for line in (entry or {}).get("output", "").splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"#   ptxas [{name}] {line.strip()}")
-    for form, name in ps.FORMS.items():
-        blocks, smem = ps.occupancy(form)
-        log(f"#   occupancy [{name}] {blocks} block(s) per SM, "
-            f"{smem} bytes of dynamic shared memory per block")
-        check(blocks >= 1, f"point_stages[{name}]: no block fits on an SM ({blocks})")
+    build_info = log_builds(point_keys)
 
     # ---- phase 2a: every instantiation vs plain on seeded random inputs ----
     cfg, render = make_render(512, "bfloat16", "cuda")
-    nch = render.nerfhead.spconv_out_dim[0]
-    # the sigma-feat weight of a 96-wide geometry feature (folded coarse
-    # table) and of a 128-wide one (the checkpoint's own)
-    head_weights = {96: ps.pack_head_weights(render.nerfhead, fold_nch=nch),
-                    128: ps.pack_head_weights(render.nerfhead)}
-    for form, name in ps.FORMS.items():
-        # the fast-mode shape for its form, a ragged size for the others
-        # (their main-path shape is checked on captured inputs below)
-        P = cfg.tpu.samples_per_ray * cfg.tpu.ray_cap if name == "a" else 500003
-        weights = head_weights[sum(t[1] for t in ps.GEOMS[form[1]])]
-        tabs, feats, vmask, sig_ok, kw = random_point_inputs(form, P, dev)
+    fast_P = cfg.tpu.samples_per_ray * cfg.tpu.ray_cap
+    head_weights = {3: head_weights_of(render)}
+    key_rows = []  # the keys beyond FORMS at the fast-mode P: time, bound, error
+    for key in point_keys:
+        name = ps.form_name(key)
+        if key.views not in head_weights:
+            head_weights[key.views] = head_weights_of(
+                make_views_render(512, "bfloat16", "cuda", key.views)[1])
+        # FORMS' keys: the fast-mode shape for form (a), a ragged size for
+        # the others (their main-path shape is checked on captured inputs
+        # below); the other keys at the fast-mode shape, timed there
+        P = fast_P if name == "a" or key not in ps.FORMS else 500003
+        weights = head_weights[key.views][sum(t[1] for t in ps.geom_specs(key.geom))]
+        tabs, feats, vmask, sig_ok, kw = random_point_inputs(key, P, dev)
+        call = (tabs, feats, vmask, sig_ok, weights, kw)
         before = ps.LAUNCHES[name]
         k_out = ps.fused_point_stages_tabs(tabs, feats, vmask, sig_ok, weights, **kw)
         torch.cuda.synchronize()
         check(ps.LAUNCHES[name] == before + 1, f"form {name}: wrapper did not launch its kernel")
-        compare_point_stages(k_out, plain_in_chunks((tabs, feats, vmask, sig_ok, weights, kw)),
-                             f"point_stages[{name}] vs plain, random inputs, P={P}")
-        del tabs, feats, vmask, sig_ok, kw, k_out
+        # the switch space's other keys (--all-keys) may each have 2 points
+        # beyond the per-point bounds: on these random rows (geometry
+        # features up to ~10) a bf16 rounding flip of one large activation
+        # can move a point's alpha past them, whichever key runs
+        extra = key not in ps.FORMS and key not in cover
+        stats = compare_point_stages(k_out, plain_in_chunks(call),
+                                     f"point_stages[{name}] vs plain, random inputs, P={P}",
+                                     max_outliers=2 if extra else 0)
+        if key not in ps.FORMS:
+            kern_ms = cuda_ms(lambda: ps.fused_point_stages_tabs(
+                tabs, feats, vmask, sig_ok, weights, **kw), 10)
+            plain_ms = cuda_ms(lambda: plain_in_chunks(call), 2)
+            nb, bound_ms, bound_by = point_stage_cost(call, k_out)
+            row = {"name": name, "views": key.views, "ms": kern_ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by, "mbytes": nb / 1e6,
+                   "max_abs_err": max(stats["max_abs_d_alpha"], stats["max_abs_d_rgb"]),
+                   "outliers": stats.get("outliers", 0), **build_info[name]}
+            key_rows.append(row)
+            log(f"# timing on {card}: point_stages[{name}] kernel {kern_ms:.3f} ms at P={P} "
+                f"(seeded inputs), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+                f"{nb / 1e6:.1f} MB)")
+        del tabs, feats, vmask, sig_ok, kw, k_out, call
+    ps.LAUNCHES.clear()
+    if key_rows:
+        ms = [r["ms"] for r in key_rows]
+        log(f"# keys beyond FORMS on {card}: {len(key_rows)} built and held against plain; "
+            f"{min(ms):.3f}-{max(ms):.3f} ms at P={fast_P}, max |d| "
+            f"{max(r['max_abs_err'] for r in key_rows):.3e}; keys with a point beyond the "
+            f"per-point bounds {sum(r['outliers'] > 0 for r in key_rows)}")
+    if all_keys:
+        out_dir = os.path.join(ROOT, "results", "chip_smoke")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "all_keys.json"), "w") as f:
+            json.dump({"card": smi, "keys": key_rows}, f, indent=1)
+        log(f"# --all-keys: {len(point_keys)} keys built and held against plain; per-key rows "
+            "in results/chip_smoke/all_keys.json")
 
     # ---- phase 2b: quad lerps and row gather vs plain, seeded random inputs ----
     g = torch.Generator(device=dev).manual_seed(1)
@@ -919,7 +1119,7 @@ def main():
     )
     for title, form_name, dtype, extra in geometry_frames:
         r = make_render(512, dtype, "cuda", **extra)[1]
-        check(ps.FORMS[r.kernel_form()] == form_name,
+        check(ps.form_name(r.kernel_form()) == form_name,
               f"{title}: the renderer selects {r.kernel_form()}, not {form_name}")
         # the nearest level-1 occupancy on its own grid culls every sample
         # whose nearest level-1 voxel is inactive: 70% of the colored points
@@ -980,6 +1180,54 @@ def main():
         torch.cuda.empty_cache()
     same_as_dense("reference mode, samples_per_ray 32, dense_slots off",
                   "reference mode, samples_per_ray 32")
+
+    # ---- phase 3k: switch sets and view counts whose kernel is built from the key ----
+    key_modes = []  # the names of the keys beyond FORMS that the main path launched
+    for title, extra, n_frames in (
+        ("paper tables, sigma_query_cull, coarse_nearest 0",
+         {"merge_lowres_src": False, "sigma_query_cull": True, "coarse_nearest": 0}, 3),
+        ("merge_src_feat, sigma_query_cull", {"merge_src_feat": True, "sigma_query_cull": True}, 3),
+        # a nearest level-1 table beside the coarse octet table: a mixed
+        # geometry layout no GEOMS name holds
+        ("l1_nearest 1, coarse_nearest 0", {"l1_nearest": 1, "coarse_nearest": 0}, 1),
+        # merged bf16 projection rows beside the coarse octet table
+        ("quantize_proj off, coarse_nearest 0", {"quantize_proj": False, "coarse_nearest": 0}, 1),
+    ):
+        r = make_render(512, "bfloat16", "cuda", **extra)[1]
+        key = r.kernel_form()
+        check(key not in ps.FORMS, f"{title}: {key} is one of FORMS")
+        key_modes.append(ps.form_name(key))
+        run_mode(f"built from the key, {title}", key_modes[-1], n_frames, r)
+        del r
+        torch.cuda.empty_cache()
+    # other view counts: the checkpoint's heads with a seeded first rgb_fc
+    # layer (its own takes 3 views), so no PSNR gate; the fused frame 0
+    # against the op-by-op frame 0 of the same weights on the card
+    for views, n_frames in ((4, 3), (2, 1), (8, 1)):
+        vcfg, fused = make_views_render(512, "bfloat16", "cuda", views)
+        host_v = get_bench_frames(vcfg, n_frames)
+        frames_v = ([batch_to_device(b, dev) for b in host_v], host_v)
+        check(all(b["src_imgs"].shape[0] == views for b in frames_v[0]),
+              f"{views} views: the bench frames hold other view counts")
+        title = f"fast mode, {views} views"
+        key_modes.append(ps.form_name(fused.kernel_form()))
+        check(fused.kernel_form() == ps.Key(("i8",), "default", False, views), title)
+        run_mode(title, key_modes[-1], n_frames, fused, frames=frames_v, min_psnr=-math.inf)
+        op = make_views_render(512, "bfloat16", "cuda", views, pallas_point=False)[1]
+        ret_f = fused.render_demo_fn()(frames_v[0][0])
+        ret_o = op.render_demo_fn()(frames_v[0][0])
+        for k in ("mask_at_box", "ray_pix_idx", "ray_ok", "overflows"):
+            check(torch.equal(ret_f[k], ret_o[k]), f"{title}: fused and op-by-op {k} differ")
+        check(torch.equal(ret_f["counts"][:2], ret_o["counts"][:2]),
+              f"{title}: fused and op-by-op counts differ")
+        m = ret_f["mask_at_box"]
+        d = (ret_f["pred_chw"].reshape(3, -1)[:, m] - ret_o["pred_chw"].reshape(3, -1)[:, m]).abs()
+        log(f"# {title}, frame 0: fused vs op-by-op on the card: integers bitwise, counts "
+            f"{ret_f['counts'].tolist()} vs {ret_o['counts'].tolist()}, |d pred| median "
+            f"{float(d.median()):.2e} max {float(d.max()):.2e}")
+        check(float(d.median()) <= 2e-3, f"{title}: fused and op-by-op images differ")
+        del vcfg, fused, op, host_v, frames_v, ret_f, ret_o
+        torch.cuda.empty_cache()
 
     # ---- phase 3b: the op-by-op point stages ----
     def run_opbyop(title, n_frames, render, lerp_launches, frames=None):
@@ -1265,10 +1513,10 @@ def main():
     check(cli_psnr >= 20.0, f"inference CLI PSNR {cli_psnr:.3f} < 20 dB")
 
     log(f"# total {time.perf_counter() - t_all:.1f} s")
-    want = {f"point_stages[{n}]" for n in ps.FORMS.values()} | {
+    want = {f"point_stages[{n}]" for n in [*ps.FORMS.values(), *key_modes]} | {
         "quad_lerp_rows_vcp", "quad_lerp_rows_vcp[bf16 rows]", "quad_lerp_rows_cm", "row_gather"}
-    check(len(kernels) == len(want) == len(ps.FORMS) + 4 and {k["name"] for k in kernels} == want
-          and all(k["launches"] >= 1 for k in kernels),
+    check(len(kernels) == len(want) == len(ps.FORMS) + len(key_modes) + 4
+          and {k["name"] for k in kernels} == want and all(k["launches"] >= 1 for k in kernels),
           f"kernels line: {[(k['name'], k['launches']) for k in kernels]}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

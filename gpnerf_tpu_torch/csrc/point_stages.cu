@@ -1,9 +1,9 @@
 // Point-stage megakernel of the progressive renderer, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel gpnerf_tpu/ops/pallas_point.py::_point_kernel
-// (called through fused_point_stages_tabs) in the forms the renderer
-// reaches. One source, one instantiation per compilation, chosen by four
-// macros:
+// (called through fused_point_stages_tabs). One source, one instantiation
+// per compilation, chosen by five macros (ops/point_stages.py derives them
+// from the key of a call and builds each key at its first use):
 //   PS_ROW_A, PS_ROW_B  the element type of each projection table's quad
 //               rows (enum Row: 1 int8, 2 uint8, 3 int4 split-packed, 4
 //               bf16, 5 float32); PS_ROW_B 0 means one table.
@@ -26,22 +26,23 @@
 //               each as row type * 10000 + taps * 1000 + channels, 0 = no
 //               table: taps 8 = octet rows (the 8 corners of a trilinear
 //               cell, corner k's channels at [k * Cg, (k + 1) * Cg)), taps
-//               1 = nearest rows; row types 1 int8, 2 uint8, 4 bf16, 5
-//               float32, each with a per-channel dequant scale (unit for
-//               float rows); channels a multiple of 32. The shipped default
+//               1 = nearest rows (any count from 1 to 8 is summed alike);
+//               row types 1 int8, 2 uint8, 4 bf16, 5 float32, each with a
+//               per-channel dequant scale (unit for float rows); channels a
+//               multiple of 32. The shipped default
 //               is 28032, 11064: the u8 level-1 octet table and the int8
 //               folded-coarse nearest table, F = 96. Row type 6, PS_G0 =
 //               61000 + F, is form (b): the (P, F) float geometry feature is
 //               an input, queried outside;
+//   PS_V        the source views V (1-8), default 3;
 //   PS_OCC   1  form (e), occ_geom: sigma is also zeroed where the
 //               dequantized channel sum of the lerped level-1 block (table
 //               0, 32 channels) is <= 0 (the trilinear occupancy), and that
 //               0/1 verdict is written to a third output. All terms of the
 //               sum are non-negative, so the verdict does not depend on the
 //               order of the sum.
-// V = 3 source views throughout. Float rows are rounded to bf16 before the
-// tap sum, as the TPU kernel casts every row (pallas_point.py _to_bf16);
-// bf16 rows are used as they are.
+// Float rows are rounded to bf16 before the tap sum, as the TPU kernel casts
+// every row (pallas_point.py _to_bf16); bf16 rows are used as they are.
 //
 // Per point p it computes what the TPU kernel computes:
 //   rgbfeat[v][c] = (sum_k rows[v*P+p][k*Ct+c] * w4[v][k][p]) * scale[c]
@@ -54,8 +55,8 @@
 //     [sigma_feat, mean, var]; sigma = 0 where sum(vmask) < 1 or !sig_ok;
 //     alpha = 1 - exp(-sigma)
 //   color: per view base_fc 105 -> 64 -> 32 (ELU) on [mean, var, rgbfeat[v]],
-//     vis_fc residual on h/V (32 -> 32 -> 32, ELU), rgb_fc 96 -> 32 -> 16
-//     -> 3 (ELU, ELU, sigmoid); rgb = 0 unless alpha > 1e-14 and sig_ok.
+//     vis_fc residual on h/V (32 -> 32 -> 32, ELU), rgb_fc V * 32 -> 32 ->
+//     16 -> 3 (ELU, ELU, sigmoid); rgb = 0 unless alpha > 1e-14 and sig_ok.
 // Every dot input (weight and activation) is rounded to bf16 and the dot
 // accumulates in f32, as on the TPU; ELU is x > 0 ? x : exp(min(x, 0)) - 1.
 // Taps, mean and variance are summed with explicit roundings (no FMA
@@ -82,13 +83,16 @@
 // its bytes once the MLPs run on tensor cores, which they do here; the
 // kernel itself stays far above that bound (see the end of this note).
 //
-// Design: 256 points per block, 8 warps, one point per thread in the front
-// end (the quad lerps, mean/var, the geometry lerp, the masks and the
-// occupancy verdict, all in registers as before). The twelve layers' padded
-// bf16 weights (33,280 values, 65 KB; 35,328 at F = 128), their float32
-// biases and the dequant scales are staged once per block in dynamic shared
-// memory. The front end writes each layer input, rounded to bf16, into its
-// warp's shared-memory tiles, one row per point, padding columns zeroed: the
+// Design: 8 warps of 32 points per block (fewer where more views' rgb_fc
+// weights leave no room for 8), one point per thread in the front end (the
+// quad lerps, mean/var, the geometry lerp, the masks and the occupancy
+// verdict, all in registers; the V views' lerped rows are held at once, so
+// at V = 8 about 1.2 KB a thread spills to local memory). The twelve
+// layers' padded bf16 weights (33,280 values, 65 KB at V = 3; 35,328 at F =
+// 128), their float32 biases and the dequant scales are staged once per
+// block in dynamic shared memory. The front end writes each layer input,
+// rounded to bf16, into its warp's shared-memory tiles, one row per point,
+// padding columns zeroed: the
 // geometry feature f (a 96-column tile) and X = [sigma_feat | mean | var |
 // rf_v | 0] (176 columns),
 // which is layer 1's input in columns 0-143 and view v's color input in
@@ -102,7 +106,7 @@
 // and writes the next layer's bf16 input (or keeps the f32 value: hv for
 // the vis_fc residual, in registers). rgb_fc's first layer accumulates view
 // by view, so the view concat is never stored. 19 KB per warp, 219 KB per
-// block (223 KB at F = 128): one block per SM.
+// block at V = 3 (223 KB at F = 128): one block per SM.
 // The geometry tables are lerped 32 channels at a time, corner by corner
 // (each corner's channels summed before the next corner is read, as float
 // projection rows are), and each 32-column chunk goes to the f tile at
@@ -161,13 +165,17 @@ namespace {
 #ifndef PS_OCC
 #define PS_OCC 0
 #endif
+#ifndef PS_V
+#define PS_V 3
+#endif
 
 namespace wmma = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
 
 enum Row { NONE = 0, I8 = 1, U8 = 2, I4 = 3, BF16 = 4, F32 = 5, FEAT = 6 };
 
-constexpr int V = 3;
+constexpr int V = PS_V;  // source views
+static_assert(V >= 1 && V <= 8, "1 to 8 source views");
 constexpr int CS = 3;    // source rgb channels
 constexpr int CF = 32;   // encoder feature channels
 constexpr int C = CS + CF;  // [rgb | feat] channels, merged or concatenated
@@ -194,21 +202,18 @@ __host__ __device__ constexpr int geo_table(int col, int g = 0) {
 }
 __host__ __device__ constexpr bool geo_ok(int g = 0) {
   return g == NG ||
-         (GEO[g].ch % 32 == 0 &&
+         (GEO[g].ch % 32 == 0 && GEO[g].ch > 0 &&
           (GEO[g].row == FEAT ? NG == 1 && GEO[g].taps == 1
-                              : (GEO[g].taps == 1 || GEO[g].taps == 8) &&
+                              : GEO[g].taps >= 1 && GEO[g].taps <= 8 &&
                                     (GEO[g].row == I8 || GEO[g].row == U8 || GEO[g].row == BF16 ||
                                      GEO[g].row == F32)) &&
           geo_ok(g + 1));
 }
 constexpr bool FEATS = GEO[0].row == FEAT;  // form (b)
-static_assert(NG >= 1 && geo_ok(), "geometry tables: 1-4 of 8 or 1 taps, 32k channels");
+static_assert(NG >= 1 && geo_ok(), "geometry tables: 1-4 of 1-8 taps, 32k channels");
 static_assert((NG > 1 || GCODE[1] == 0) && (NG > 2 || GCODE[2] == 0) && (NG > 3 || GCODE[3] == 0),
               "geometry tables are PS_G0 .. PS_G<NG - 1>");
 static_assert(!PS_OCC || (!FEATS && GEO[0].ch == 32), "occ_geom reads table 0's 32 level-1 channels");
-constexpr int WARPS = 8;
-constexpr int BLOCK = 32 * WARPS;  // one point per thread
-
 // layer order: sigma-feat, density d0..d3, base b0 b1, vis v0 v1, rgb r0..r2
 constexpr int CIN[NL] = {FT, 64 + 2 * C, 64, 32, 16, 3 * C, 64, 32, 32, V * 32, 32, 16};
 constexpr int COUT[NL] = {64, 64, 32, 16, 1, 64, 32, 32, 32, 32, 16, 3};
@@ -222,7 +227,9 @@ __host__ __device__ constexpr int boff(int l) { return l == 0 ? 0 : boff(l - 1) 
 
 // Shared memory, in bytes: the packed weight buffer (bf16 weights, then
 // float32 biases) as the wrapper passes it, the dequant scales, then one
-// set of tiles per warp (19 KB, so 8 warps fit).
+// set of tiles per warp (19 KB): 8 warps where they fit, else as many as
+// fit (rgb_fc's weights grow by 2 KB per view: at F = 96 8 warps hold V <=
+// 6, at F = 128 V <= 4).
 constexpr int WELEMS = woff(NL);                        // 33,280 bf16
 constexpr int WBUF_BYTES = WELEMS * 2 + boff(NL) * 4;   // 68,112 (72,208 at F = 128)
 constexpr int SCALE_OFF = WBUF_BYTES;                   // pscale (C), the geometry scales (FT)
@@ -237,9 +244,13 @@ constexpr int KX = 64 + kp(5), KF = 96;                // 176, 96
 constexpr int NT0 = np(0) / 16;                        // layer 0's N tiles
 static_assert(FT <= 2 * KF && KF % 32 == 0, "layer 0 takes at most two K slices");
 constexpr int WARP_BYTES = (32 * KX + 32 * KF) * 2 + 32 * 16 * 4;
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may have
+constexpr int WARPS_FIT = (SMEM_LIMIT - WARP_OFF) / WARP_BYTES;
+constexpr int WARPS = WARPS_FIT < 8 ? WARPS_FIT : 8;
+constexpr int BLOCK = 32 * WARPS;  // one point per thread
 constexpr int SMEM_BYTES = WARP_OFF + WARPS * WARP_BYTES;
 static_assert(WBUF_BYTES % 16 == 0, "weight buffer staged in 16-byte words");
-static_assert(SMEM_BYTES <= 232448, "more shared memory than a block may have");
+static_assert(WARPS >= 1 && SMEM_BYTES <= SMEM_LIMIT, "more shared memory than a block may have");
 static_assert(kp(1) <= KX && CIN[1] == 64 + 2 * C && CIN[5] == 3 * C, "X holds both inputs");
 static_assert(64 + 32 <= KF, "hb and hvs share F");
 
@@ -572,7 +583,7 @@ template <int RA, int RB, bool OCC>
 __global__ void __launch_bounds__(BLOCK) point_stages_kernel(const Args a, int P) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int CA = RB == NONE ? C : CS;  // channels of table a
-  static_assert(RA != NONE && RA != I4 && (RB == NONE || RB != U8), "no such table pair");
+  static_assert(RA != NONE && RA != I4, "table a is int8, uint8, bf16 or float32 rows");
   constexpr int NW16 = WBUF_BYTES / 16;
 #pragma unroll
   for (int j = 0; j < (NW16 + BLOCK - 1) / BLOCK; ++j) {  // all loads in flight at once
@@ -820,6 +831,9 @@ int point_stages_wbuf_bytes() { return WBUF_BYTES; }
 // Dynamic shared memory of one block, in bytes.
 int point_stages_smem_bytes() { return SMEM_BYTES; }
 
+// Threads of one block (32 per warp, one point each).
+int point_stages_block() { return BLOCK; }
+
 // Blocks resident per SM on the current device (a negative CUDA error code
 // if the shared-memory request or the query is refused).
 int point_stages_blocks_per_sm() {
@@ -830,12 +844,12 @@ int point_stages_blocks_per_sm() {
 }
 
 // The instantiation this library holds: the values of PS_ROW_A PS_ROW_B
-// PS_OCC PS_G0 PS_G1 PS_G2 PS_G3, separated by spaces.
+// PS_OCC PS_G0 PS_G1 PS_G2 PS_G3 PS_V, separated by spaces.
 #define PS_STR_(x) #x
 #define PS_STR(x) PS_STR_(x)
 const char* point_stages_key() {
   return PS_STR(PS_ROW_A) " " PS_STR(PS_ROW_B) " " PS_STR(PS_OCC) " " PS_STR(PS_G0) " " PS_STR(
-      PS_G1) " " PS_STR(PS_G2) " " PS_STR(PS_G3);
+      PS_G1) " " PS_STR(PS_G2) " " PS_STR(PS_G3) " " PS_STR(PS_V);
 }
 
 // g_rows, g_w, g_scale: arrays of 4 pointers, table g's at index g (null

@@ -168,16 +168,19 @@ class NeRFRGBHead(nn.Module):
 
 
 class NeRFHead(nn.Module):
+    """`n_views`: the source views the color head's rgb_fc flattens (JAX's
+    rgb_fc infers its input width, V * 32, from its first call)."""
+
     def __init__(self, in_feat_ch=32, n_smpl=6890, code_dim=16,
                  attn_n_heads=4, spconv_n_layers=4,
-                 spconv_out_dim=(32, 32, 32, 32), compute_dtype=None):
+                 spconv_out_dim=(32, 32, 32, 32), compute_dtype=None, n_views=3):
         super().__init__()
         self.spconv_out_dim = tuple(spconv_out_dim)
         self.sigmahead = NeRFSigmaHead(
             in_feat_ch, n_smpl, code_dim, attn_n_heads, spconv_n_layers,
             spconv_out_dim, compute_dtype,
         )
-        self.rgbhead = NeRFRGBHead(in_feat_ch, compute_dtype=compute_dtype)
+        self.rgbhead = NeRFRGBHead(in_feat_ch, n_views=n_views, compute_dtype=compute_dtype)
 
     def volume(self, smpl_feat, vertex_rows, levels, *, train=False):
         """Fuse vertex codes and build the sparse feature volume once per
@@ -223,6 +226,7 @@ def build_head(cfg, compute_dtype=None):
         spconv_n_layers=cfg.head.sigma.n_layers,
         spconv_out_dim=tuple(cfg.head.sigma.outdims),
         compute_dtype=compute_dtype,
+        n_views=cfg.src_view_num,
     )
 
 

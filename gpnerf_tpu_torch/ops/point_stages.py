@@ -40,10 +40,13 @@ so it differs from the plain version only in the order of the float32 sums.
 
 On a CPU tensor the wrapper runs `point_stages_tabs_plain`, the same function in
 torch ops and general in views, channels, tables and F; on a CUDA tensor it
-launches the CUDA kernel — one library per form in `FORMS`, built from
-csrc/point_stages.cu at first use (ops/cuda_build.py) — or raises:
-a form or width with no instantiation is NotImplementedError. `LAUNCHES`
-counts kernel launches per form.
+launches the CUDA kernel or raises. A call's key (`Key`: the projection
+tables' row types, the geometry tables' specs, occ_geom, the view count V)
+is read from its tensors, checked by `check_key` against what
+csrc/point_stages.cu compiles, and its library built from that source at the
+key's first use (ops/cuda_build.py); a failed build or launch raises.
+`FORMS` names the keys of the shipped switch sets, `form_name` every other
+key; `LAUNCHES` counts kernel launches per name.
 """
 
 from __future__ import annotations
@@ -63,15 +66,19 @@ from gpnerf_tpu_torch.ops.grid_sample import lerp_rows
 SOURCE = os.path.join(cuda_build.CSRC_DIR, "point_stages.cu")
 
 # the widths the CUDA kernel is written for (csrc/point_stages.cu constants):
-# views, [rgb | feat] channels, their split, and the default layout's
-# level-1 and folded-coarse geometry channels
-V, C, CS, CF, C0, C1 = 3, 35, 3, 32, 32, 64
+# [rgb | feat] channels, their split, and the default layout's level-1 and
+# folded-coarse geometry channels; V is the configs' view count
+# (`src_view_num`), the one FORMS' keys carry, and MAX_V the most views a
+# dataset chooses (data/base.py `select_views`: at most 8 candidates)
+C, CS, CF, C0, C1 = 35, 3, 32, 32, 64
+V, MAX_V = 3, 8
 
 # Geometry layouts: name -> the geometry tables ((taps, channels, row type),
 # ...) whose lerped blocks join, in order, into the geometry feature; taps 8
 # are octet rows, 1 nearest rows; "feat" is a (P, F) float input queried
 # outside the kernel. Which switches select each: render/demo.py
-# `geometry_layout`.
+# `geometry_layout`. A key holds its tables by these names where one fits,
+# else as the specs themselves.
 GEOMS = {
     "default": ((8, 32, "u8"), (1, 64, "i8")),       # coarse_nearest 1 or 2
     "coarse-octet": ((8, 32, "u8"), (8, 64, "i8")),  # coarse_nearest 0
@@ -84,38 +91,125 @@ GEOMS = {
     "feats128": ((1, 128, "feat"),),
 }
 
-# instantiations of the CUDA kernel: (the projection tables' row types, the
-# geometry layout, occ_geom) -> form name. Row types: "i8", "u8", "i4"
-# (split-packed int8 pairs), "bf16", "f32"; one type is the merged table,
-# two are the (source, feature) pair. The macros of csrc/point_stages.cu
-# follow (ROW_CODES, `_geom_code`).
+# Row types: "i8", "u8", "i4" (split-packed int8 pairs), "bf16", "f32"; one
+# type is the merged table, two are the (source, feature) pair. The macros
+# of csrc/point_stages.cu follow (ROW_CODES, `_key_values`).
 ROW_CODES = {"i8": 1, "u8": 2, "i4": 3, "bf16": 4, "f32": 5, "feat": 6}
+
+
+class Key(NamedTuple):
+    """One instantiation of the CUDA kernel: the projection tables' row
+    types, the geometry tables (a GEOMS name, or their ((taps, channels, row
+    type), ...) specs), occ_geom and the view count. Equal to the plain
+    tuple of its fields."""
+
+    rows: tuple
+    geom: object
+    occ: bool
+    views: int = V
+
+
+# the keys of the shipped switch sets at V = 3 (render/demo.py
+# `kernel_form`) -> their names
 FORMS = {
-    (("i8",), "default", False): "a",
-    (("i8",), "feats96", False): "a+b",
-    (("i8",), "default", True): "a+e",
-    (("bf16",), "default", False): "a:bf16",
-    (("f32",), "default", False): "a:f32",
-    (("u8", "i8"), "default", False): "c",
-    (("u8", "i8"), "default", True): "c+e",
-    (("u8", "i8"), "feats96", False): "b+c",
-    (("u8", "i4"), "default", False): "c+d",
-    (("u8", "i4"), "default", True): "c+d+e",
-    (("u8", "i4"), "feats96", False): "b+c+d",
-    (("u8", "bf16"), "default", False): "c:u8/bf16",
-    (("u8", "f32"), "default", False): "c:u8/f32",
-    (("bf16", "i8"), "default", False): "c:bf16/i8",
-    (("f32", "i8"), "default", False): "c:f32/i8",
+    Key(("i8",), "default", False): "a",
+    Key(("i8",), "feats96", False): "a+b",
+    Key(("i8",), "default", True): "a+e",
+    Key(("bf16",), "default", False): "a:bf16",
+    Key(("f32",), "default", False): "a:f32",
+    Key(("u8", "i8"), "default", False): "c",
+    Key(("u8", "i8"), "default", True): "c+e",
+    Key(("u8", "i8"), "feats96", False): "b+c",
+    Key(("u8", "i4"), "default", False): "c+d",
+    Key(("u8", "i4"), "default", True): "c+d+e",
+    Key(("u8", "i4"), "feats96", False): "b+c+d",
+    Key(("u8", "bf16"), "default", False): "c:u8/bf16",
+    Key(("u8", "f32"), "default", False): "c:u8/f32",
+    Key(("bf16", "i8"), "default", False): "c:bf16/i8",
+    Key(("f32", "i8"), "default", False): "c:f32/i8",
     # the geometry-table switches (render/demo.py geometry_layout)
-    **{((rows,), layout, False): f"{name}@{layout}"
-       for rows, name in (("i8", "a"),)
+    **{Key(("i8",), layout, False): f"a@{layout}"
        for layout in ("coarse-octet", "unfolded", "four-level", "l1-nearest", "float",
                       "float32")},
-    **{(("u8", "i8"), layout, False): f"c@{layout}"
+    **{Key(("u8", "i8"), layout, False): f"c@{layout}"
        for layout in ("coarse-octet", "unfolded", "four-level", "l1-nearest", "float")},
-    (("i8",), "l1-nearest", True): "a+e@l1-nearest",
-    (("i8",), "feats128", False): "a+b@128",
+    Key(("i8",), "l1-nearest", True): "a+e@l1-nearest",
+    Key(("i8",), "feats128", False): "a+b@128",
 }
+
+
+def make_key(rows, geom, occ, views=V):
+    """The Key of a call: `geom` a GEOMS name or a sequence of (taps,
+    channels, row type) specs, held by its GEOMS name where one fits."""
+    if not isinstance(geom, str):
+        geom = tuple((int(t), int(c), str(r)) for t, c, r in geom)
+        geom = next((k for k, v in GEOMS.items() if v == geom), geom)
+    return Key(tuple(rows), geom, bool(occ), int(views))
+
+
+def geom_specs(geom):
+    """The ((taps, channels, row type), ...) geometry tables of a key's
+    `geom` field (a GEOMS name or the specs)."""
+    return GEOMS[geom] if isinstance(geom, str) else tuple(geom)
+
+
+def check_key(key):
+    """`key` as a Key if csrc/point_stages.cu compiles it (its static_asserts
+    and block size, mirrored), else NotImplementedError naming what it
+    lacks: one merged table of C channels (not int4: C is odd) or a source
+    table of CS channels (not int4) beside a feature table of CF; 1 to 4
+    geometry tables of 1 to 8 taps and a multiple of 32 channels of int8,
+    uint8, bf16 or float32 rows, or one (P, F) float input, F <= 192; occ_geom
+    only on geometry tables whose table 0 has 32 channels (JAX asserts the
+    first half too, pallas_point.py:364); 1 to MAX_V views."""
+    key = make_key(*key)
+    rows, geom, occ, views = key
+    specs = geom_specs(geom)
+    why = []
+    if not (len(rows) in (1, 2) and all(r in ROW_CODES and r != "feat" for r in rows)
+            and rows[0] != "i4"):
+        why.append(f"projection row types {rows}: one merged table, or a source and a "
+                   "feature table, of i8 / u8 / bf16 / f32 rows (int4 feature rows only)")
+    feat = len(specs) == 1 and specs[0][2] == "feat" and specs[0][0] == 1
+    tables_ok = 1 <= len(specs) <= 4 and all(
+        1 <= t <= 8 and c > 0 and c % 32 == 0 and r in ("i8", "u8", "bf16", "f32")
+        for t, c, r in specs)
+    if not (feat or tables_ok) or not 32 <= sum(c for _, c, _ in specs) <= 192:
+        why.append(f"geometry tables {specs}: 1-4 tables of 1-8 taps and 32k channels of "
+                   "i8 / u8 / bf16 / f32 rows, or one (P, F) feature input, F <= 192")
+    if occ and (feat or specs[0][1] != 32):
+        why.append("occ_geom needs geometry tables whose table 0 holds the 32 level-1 "
+                   "channels")
+    if not 1 <= views <= MAX_V:
+        why.append(f"{views} views: the kernel takes 1 to {MAX_V}")
+    if why:
+        raise NotImplementedError(f"point-stage kernel: no instantiation for {tuple(key)}: "
+                                  + "; ".join(why))
+    return key
+
+
+def form_name(key):
+    """The name of a key: FORMS' for its own keys (with "@V<n>" where only
+    the view count differs), else the row types ("a" merged int8, "a:<t>"
+    merged, "c" u8 + int8, "c+d" u8 + int4, "c:<s>/<f>" split), "+e" for
+    occ_geom, "@" and the geometry layout's name or its specs, "@V<n>"."""
+    key = make_key(*key)
+    rows, geom, occ, views = key
+    base = key._replace(views=V)
+    if base in FORMS:
+        name = FORMS[base]
+    else:
+        if len(rows) == 1:
+            name = "a" if rows == ("i8",) else f"a:{rows[0]}"
+        else:
+            name = {("u8", "i8"): "c", ("u8", "i4"): "c+d"}.get(rows, f"c:{rows[0]}/{rows[1]}")
+        name += "+e" if occ else ""
+        if geom != "default":
+            name += "@" + (geom if isinstance(geom, str)
+                           else "+".join(f"({t},{c},{r})" for t, c, r in geom))
+    return name if views == V else f"{name}@V{views}"
+
+
 _DTYPE_ROWS = {torch.int8: "i8", torch.uint8: "u8", torch.bfloat16: "bf16", torch.float32: "f32"}
 LAUNCHES = collections.Counter()
 
@@ -276,43 +370,36 @@ _libs = {}
 BUILD_LOG = {}
 
 
-def _row_codes(rows):
-    """(PS_ROW_A, PS_ROW_B) of a form's row types."""
-    return ROW_CODES[rows[0]], ROW_CODES[rows[1]] if len(rows) > 1 else 0
-
-
-def _geom_codes(layout):
-    """(PS_G0, .., PS_G3) of a geometry layout: row type * 10000 + taps *
-    1000 + channels per table, 0 past its tables."""
-    codes = [ROW_CODES[kind] * 10000 + taps * 1000 + ch for taps, ch, kind in GEOMS[layout]]
-    return tuple(codes + [0] * (4 - len(codes)))
-
-
-def _key_values(form):
+def _key_values(key):
     """The macro values of one instantiation, in csrc/point_stages.cu's
-    `point_stages_key` order."""
-    rows, layout, occ = form
-    return (*_row_codes(rows), int(occ), *_geom_codes(layout))
+    `point_stages_key` order: PS_ROW_A, PS_ROW_B (0: one table), PS_OCC,
+    PS_G0 .. PS_G3 (row type * 10000 + taps * 1000 + channels per geometry
+    table, 0 past its tables), PS_V."""
+    key = check_key(key)
+    rows = key.rows
+    geom = [ROW_CODES[kind] * 10000 + taps * 1000 + ch for taps, ch, kind in geom_specs(key.geom)]
+    return (ROW_CODES[rows[0]], ROW_CODES[rows[1]] if len(rows) > 1 else 0, int(key.occ),
+            *geom, *[0] * (4 - len(geom)), key.views)
 
 
-def _build_args(form):
-    vals = _key_values(form)
-    names = ("PS_ROW_A", "PS_ROW_B", "PS_OCC", "PS_G0", "PS_G1", "PS_G2", "PS_G3")
+def _build_args(key):
+    vals = _key_values(key)
+    names = ("PS_ROW_A", "PS_ROW_B", "PS_OCC", "PS_G0", "PS_G1", "PS_G2", "PS_G3", "PS_V")
     defines = tuple(f"{n}={v}" for n, v in zip(names, vals))
     code = "_".join(str(v) for v in vals)
     return "point_stages.cu", f"point_stages_{code}", defines
 
 
-def build_command(form):
-    """(nvcc argv, library path) of one instantiation (a key of FORMS) for
-    the current source (ops/cuda_build.py)."""
-    return cuda_build.build_command(*_build_args(form))
+def build_command(key):
+    """(nvcc argv, library path) of one instantiation (a Key, or a tuple of
+    its fields) for the current source (ops/cuda_build.py)."""
+    return cuda_build.build_command(*_build_args(key))
 
 
-def start_build(form):
-    """Start nvcc for `form` unless its library exists; returns the Popen
-    (or None) to hand to load_library. Lets a caller build forms together."""
-    return cuda_build.start_build(*_build_args(form))
+def start_build(key):
+    """Start nvcc for `key` unless its library exists; returns the Popen
+    (or None) to hand to load_library. Lets a caller build keys together."""
+    return cuda_build.start_build(*_build_args(key))
 
 
 def bind_library(lib):
@@ -321,33 +408,33 @@ def bind_library(lib):
     lib.point_stages_launch.argtypes = [vp] * 6 + [arr] * 3 + [vp] * 6 + [ctypes.c_int, vp]
     lib.point_stages_launch.restype = ctypes.c_int
     for fn in (lib.point_stages_wbuf_bytes, lib.point_stages_smem_bytes,
-               lib.point_stages_blocks_per_sm):
+               lib.point_stages_blocks_per_sm, lib.point_stages_block):
         fn.argtypes, fn.restype = [], ctypes.c_int
     lib.point_stages_key.argtypes, lib.point_stages_key.restype = [], ctypes.c_char_p
     return lib
 
 
-def load_library(form, proc=None):
-    """Build (unless the hashed library exists) and load one instantiation.
-    `proc`: an already started `start_build(form)` to wait on."""
-    if form in _libs:
-        return _libs[form]
-    if form not in FORMS:
-        raise NotImplementedError(f"point-stage kernel: no instantiation for {form}")
-    lib = bind_library(cuda_build.load(*_build_args(form), proc=proc, build_log=BUILD_LOG,
-                                       log_key=form))
-    if tuple(int(v) for v in lib.point_stages_key().split()) != _key_values(form):
-        raise RuntimeError(f"{build_command(form)[1]} holds another instantiation than {form}")
-    _libs[form] = lib
+def load_library(key, proc=None):
+    """Build (unless the hashed library exists) and load one instantiation,
+    NotImplementedError for a key the source does not compile (`check_key`).
+    `proc`: an already started `start_build(key)` to wait on."""
+    key = check_key(key)
+    if key in _libs:
+        return _libs[key]
+    lib = bind_library(cuda_build.load(*_build_args(key), proc=proc, build_log=BUILD_LOG,
+                                       log_key=key))
+    if tuple(int(v) for v in lib.point_stages_key().split()) != _key_values(key):
+        raise RuntimeError(f"{build_command(key)[1]} holds another instantiation than {key}")
+    _libs[key] = lib
     return lib
 
 
-def occupancy(form):
+def occupancy(key):
     """(blocks resident per SM on the current device, dynamic shared-memory
-    bytes per block) of one instantiation; blocks < 0 is the negated CUDA
-    error of a refused shared-memory request."""
-    lib = load_library(form)
-    return lib.point_stages_blocks_per_sm(), lib.point_stages_smem_bytes()
+    bytes per block, threads per block) of one instantiation; blocks < 0 is
+    the negated CUDA error of a refused shared-memory request."""
+    lib = load_library(key)
+    return lib.point_stages_blocks_per_sm(), lib.point_stages_smem_bytes(), lib.point_stages_block()
 
 
 def _check(t, dtype, shape, name):
@@ -361,8 +448,8 @@ def _check(t, dtype, shape, name):
                          "16-byte aligned")
 
 
-def _row_type(rows, P, width, name, packed_width=None):
-    """Row type of one projection table's (V*P, width) rows, checked; int4
+def _row_type(rows, nv, P, width, name, packed_width=None):
+    """Row type of one projection table's (nv*P, width) rows, checked; int4
     split-packed uint8 rows are `packed_width` wide."""
     kind = _DTYPE_ROWS.get(rows.dtype)
     if kind == "u8" and packed_width is not None and rows.shape[-1] == packed_width:
@@ -371,61 +458,60 @@ def _row_type(rows, P, width, name, packed_width=None):
         raise NotImplementedError(
             f"point-stage kernel: {name} must be int8, uint8, bfloat16 or float32 rows "
             f"{width} wide, got {rows.dtype} {tuple(rows.shape)}")
-    _check(rows, rows.dtype, (V * P, width), name)
+    _check(rows, rows.dtype, (nv * P, width), name)
     return kind
 
 
-def _geom_layout(geom_tabs, feats, P):
-    """The GEOMS layout of a call's geometry input, its tensors checked:
-    (layout, [(rows, weights, scale) per table]); the feature input is one
-    table whose weights and scale are None."""
+def _read_geometry(geom_tabs, feats, P):
+    """The geometry specs of a call, read from its tensors and checked:
+    (((taps, channels, row type), ...), [(rows, weights, scale) per table]);
+    the feature input is one table whose weights and scale are None."""
     if feats is not None:
-        layout = f"feats{feats.shape[-1]}"
-        if layout not in GEOMS:
+        F = feats.shape[-1]
+        _check(feats, torch.float32, (P, F), "geometry features")
+        return ((1, F, "feat"),), [(feats, None, None)]
+    specs = []
+    for i, (g, w, sc) in enumerate(geom_tabs):
+        taps = w.shape[0] if w.dim() == 2 else 0
+        kind = _DTYPE_ROWS.get(g.dtype)
+        if kind is None or taps < 1 or g.dim() != 2 or g.shape[-1] % taps:
             raise NotImplementedError(
-                f"point-stage kernel: geometry features must be float32 (P, 96) or (P, 128), "
-                f"got {feats.dtype} {tuple(feats.shape)}")
-        _check(feats, torch.float32, (P, feats.shape[-1]), "geometry features")
-        return layout, [(feats, None, None)]
-    specs = tuple((w.shape[0], g.shape[-1] // max(w.shape[0], 1), _DTYPE_ROWS.get(g.dtype))
-                  for g, w, _ in geom_tabs)
-    layout = next((k for k, v in GEOMS.items() if v == specs), None)
-    if layout is None:
-        raise NotImplementedError(
-            f"point-stage kernel: no instantiation for the geometry tables (taps, channels, "
-            f"rows) {specs}; it takes {sorted(GEOMS)}")
-    for i, ((taps, ch, kind), (g, w, sc)) in enumerate(zip(specs, geom_tabs)):
+                f"point-stage kernel: geometry table {i} must be int8, uint8, bfloat16 or "
+                f"float32 rows (P, taps * channels) with (taps, P) weights, got "
+                f"{g.dtype} {tuple(g.shape)} and {tuple(w.shape)}")
+        ch = g.shape[-1] // taps
         _check(g, g.dtype, (P, taps * ch), f"geometry table {i} rows")
         _check(w, torch.float32, (taps, P), f"geometry table {i} weights")
         _check(sc, torch.float32, (ch,), f"geometry table {i} scale")
-    return layout, list(geom_tabs)
+        specs.append((taps, ch, kind))
+    return tuple(specs), list(geom_tabs)
 
 
 def _launch(tabs, feats, vmask, sig_ok, weights, geom_tabs, occ_geom):
-    P = vmask.shape[-1]
+    nv, P = vmask.shape
     f32, u8 = torch.float32, torch.uint8
     if len(tabs) == 1:
-        rows = (_row_type(tabs[0][0], P, 4 * C, "merged [rgb|feat] rows"),)
+        rows = (_row_type(tabs[0][0], nv, P, 4 * C, "merged [rgb|feat] rows"),)
         _check(tabs[0][2], f32, (C,), "merged scale")
         tabs = (tabs[0], (None, None, None))
     elif len(tabs) == 2:
-        rows = (_row_type(tabs[0][0], P, 4 * CS, "source rgb rows"),
-                _row_type(tabs[1][0], P, 4 * CF, "feature rows", packed_width=2 * CF))
+        rows = (_row_type(tabs[0][0], nv, P, 4 * CS, "source rgb rows"),
+                _row_type(tabs[1][0], nv, P, 4 * CF, "feature rows", packed_width=2 * CF))
         _check(tabs[0][2], f32, (CS,), "source rgb scale")
         _check(tabs[1][2], f32, (CF,), "feature scale")
     else:
         raise NotImplementedError("point-stage kernel takes 1 or 2 projection tables")
     for _, w4, _ in tabs:
         if w4 is not None:
-            _check(w4, f32, (V, 4, P), "tap weights")
+            _check(w4, f32, (nv, 4, P), "tap weights")
     if feats is not None and (geom_tabs or occ_geom):
         raise ValueError("point-stage kernel: a feature input excludes "
                          "geometry tables and occ_geom")
-    layout, geom = _geom_layout(geom_tabs, feats, P)
-    _check(vmask, f32, (V, P), "vmask")
+    specs, geom = _read_geometry(geom_tabs, feats, P)
+    _check(vmask, f32, (nv, P), "vmask")
     _check(sig_ok, u8, (P,), "sig_ok")
-    form = (rows, layout, bool(occ_geom))
-    lib = load_library(form)
+    key = check_key((rows, specs, occ_geom, nv))
+    lib = load_library(key)
     flat = weights.flat
     _check(flat, u8, (lib.point_stages_wbuf_bytes(),), "packed weights")
     dev = tabs[0][0].device
@@ -449,7 +535,7 @@ def _launch(tabs, feats, vmask, sig_ok, weights, geom_tabs, occ_geom):
     )
     if err != 0:
         raise RuntimeError(f"point-stage kernel launch failed: CUDA error {err}")
-    LAUNCHES[FORMS[form]] += 1
+    LAUNCHES[form_name(key)] += 1
     return (alpha, rgb, occm) if occ_geom else (alpha, rgb)
 
 

@@ -62,9 +62,10 @@ projection-table choice and every geometry-table switch (`quantize_volume`,
 `l1_nearest`, `pack_octet_u32`, `dense_conv`, narrowed as the JAX package
 narrows them), each with any of `frame_mode`, `sigma_query_cull`,
 `int4_feat` and `kernel_octet` and `pallas_point` either way (`pallas_lerp`
-and `proj_vp_order` choose the op-by-op route of the merged table), where
-the fused path has the point-stage instantiation the combination needs;
-any other renderer switch raises NotImplementedError naming the key. As in
+and `proj_vp_order` choose the op-by-op route of the merged table), and any
+`src_view_num` from 1 to 8; the fused path builds the point-stage kernel
+for the key the combination selects at its first launch. Any other
+renderer switch raises NotImplementedError naming the key. As in
 the JAX package, `int4_feat` stores the int8 table off the fused path and
 acts on split tables only, and `frame_mode` acts only without splat bins.
 
@@ -124,10 +125,9 @@ from gpnerf_tpu_torch.ops.grid_sample import (
     upsample_image_align_corners,
 )
 from gpnerf_tpu_torch.ops.point_stages import (
-    FORMS,
-    GEOMS,
-    V as PS_V,
+    check_key,
     fused_point_stages_tabs,
+    make_key,
     pack_head_weights,
 )
 from gpnerf_tpu_torch.ops.projection import (
@@ -148,10 +148,9 @@ from gpnerf_tpu_torch.render.base import points_to_dhw_vox, prepare_frame, src_n
 # `int4_feat` in either mode (`projection_rows`), the geometry tables the
 # switches of GEOMETRY_SWITCHES (`Renderer._geometry_tables`); `frame_mode`,
 # `sigma_query_cull`, `kernel_octet`, `pallas_point`, `pallas_lerp` and
-# `proj_vp_order` are free in both, where the fused path needs a
-# point-stage instantiation for the form and the geometry layout they
-# select (`Renderer.kernel_form`). `splat_bins` is inert without
-# tight_cull, and `frame_mode` with it, as in the JAX package.
+# `proj_vp_order` are free in both; the fused path's point-stage kernel is
+# built for the key they select (`Renderer.kernel_form`). `splat_bins` is
+# inert without tight_cull, and `frame_mode` with it, as in the JAX package.
 GEOMETRY_SWITCHES = ("quantize_volume", "merge_coarse_octet", "fold_coarse_fc", "int4_coarse",
                      "coarse_nearest", "l1_nearest", "pack_octet_u32", "dense_conv")
 FAST_MODE = {"splat_bins": True}
@@ -207,7 +206,7 @@ def _scatter_rows(v, idx, n):
 def projection_rows(merge_src_feat, merge_lowres_src, quantize_proj, int4_feat,
                     compute_dtype, src_uint8=True):
     """Row types of the projection tables the switches select, as
-    ops/point_stages.FORMS names them, by the JAX package's precedence
+    ops/point_stages.Key holds them, by the JAX package's precedence
     (gpnerf_tpu/render/demo.py:1376-1457): `merge_src_feat`, one merged
     table at the source resolution in the compute dtype; `merge_lowres_src`,
     one merged table at the feature grid, int8 under `quantize_proj`, else in
@@ -239,7 +238,8 @@ class Renderer(nn.Module):
                  merge_src_feat=False, merge_lowres_src=False, quantize_proj=True,
                  quantize_volume=True, merge_coarse_octet=True, fold_coarse_fc=True,
                  int4_coarse=False, coarse_nearest=2, l1_nearest=0, pack_octet_u32=False,
-                 dense_conv=False, dense_slots=True, sigma_cap=319488, neg_ray_val=False):
+                 dense_conv=False, dense_slots=True, sigma_cap=319488, neg_ray_val=False,
+                 n_views=3):
         super().__init__()
         # tight_cull: splat and cull against the level-1 occupancy (fast
         # mode); off: against the sum-over-levels blanket, compacted to
@@ -302,36 +302,40 @@ class Renderer(nn.Module):
         self.bin_margin_voxels = float(bin_margin_voxels)
         self.max_out_sh = tuple(int(v) for v in max_out_sh)
         self.compute_dtype = compute_dtype
-        form = self.kernel_form()
-        if self.pallas_point and form not in FORMS:
-            switches = ("merge_src_feat", "merge_lowres_src", "quantize_proj", "int4_feat",
-                        "frame_mode", "sigma_query_cull", "kernel_octet") + GEOMETRY_SWITCHES
-            raise NotImplementedError(
-                ", ".join(f"tpu.{k}={getattr(self, k)!r}" for k in switches)
-                + f": the point-stage kernel has no instantiation for the form {form} these "
-                "select (tpu.pallas_point False renders it op by op)")
+        # the source views each frame brings (cfg.src_view_num)
+        self.n_views = int(n_views)
+        # every switch set selects a key the kernel compiles (float source
+        # images change only the row types); a view count may not
+        if self.pallas_point:
+            try:
+                check_key(self.kernel_form())
+            except NotImplementedError as e:
+                raise NotImplementedError(f"src_view_num={self.n_views}: {e} (tpu.pallas_point "
+                                          "False renders op by op)") from None
 
     def kernel_form(self, src_uint8=True):
-        """The point-stage kernel form (a key of ops/point_stages.FORMS) the
-        fused path launches for uint8 (or float) source images: the
-        projection tables' row types, the geometry layout
-        (`geometry_layout`) and the in-kernel occupancy cull (`occ_geom`:
-        the windowless frame or sigma_query_cull, with geometry tables in
-        the kernel)."""
+        """The point-stage kernel key (ops/point_stages.Key) the fused path
+        launches for uint8 (or float) source images: the projection tables'
+        row types, the geometry layout (`geometry_layout`), the in-kernel
+        occupancy cull (`occ_geom`: the windowless frame or
+        sigma_query_cull, with geometry tables in the kernel) and the view
+        count."""
         rows = projection_rows(self.merge_src_feat, self.merge_lowres_src, self.quantize_proj,
                                self.int4_feat, self.compute_dtype, src_uint8)
         layout = self.geometry_layout()
         mask_from_query = self._frame_mode_on() or self.sigma_query_cull
-        return rows, layout, mask_from_query and layout not in ("feats96", "feats128")
+        return make_key(rows, layout, mask_from_query and layout not in ("feats96", "feats128"),
+                        self.n_views)
 
     def geometry_layout(self):
-        """The geometry input the fused path hands the kernel, as a key of
-        ops/point_stages.GEOMS: the tables `_geometry_tables` builds, where
-        the kernel lerps them all (octet and plain nearest rows; JAX
-        render/demo.py:689-731), else the queried (P, F) feature, "feats96"
-        (folded coarse) or "feats128" (int4, word-packed and lerp-axes
-        tables, or kernel_octet off). Tables no layout holds are returned as
-        their ((taps, channels, row type), ...) specs."""
+        """The geometry input the fused path hands the kernel: the
+        ((taps, channels, row type), ...) specs of the tables
+        `_geometry_tables` builds, where the kernel lerps them all (octet
+        and plain nearest rows; JAX render/demo.py:689-731), else the
+        queried (P, F) feature, ops/point_stages.GEOMS' "feats96" (folded
+        coarse) or "feats128" (int4, word-packed and lerp-axes tables, or
+        kernel_octet off). `kernel_form`'s key names specs a GEOMS entry
+        holds by that name."""
         feats = "feats96" if self.fold_coarse_fc else "feats128"
         q = self.quantize_volume
         if (not self.kernel_octet or self.int4_coarse or (q and self.pack_octet_u32)
@@ -352,8 +356,7 @@ class Renderer(nn.Module):
             coarse = ((8, 64 if self.fold_coarse_fc else 96, "f32"),)
         else:
             coarse = ((8, 64, "i8") if self.fold_coarse_fc else (8, 96, "u8"),)
-        specs = (l1,) + coarse
-        return next((k for k, v in GEOMS.items() if v == specs), specs)
+        return (l1,) + coarse
 
     def _frame_mode_on(self):
         """JAX's windowless frame (gpnerf_tpu/render/demo.py:459-461: no
@@ -1078,9 +1081,7 @@ class Renderer(nn.Module):
 
 def check_mode(cfg):
     """Raise NotImplementedError, naming the key, for a renderer switch
-    outside the modes the port implements (see FAST_MODE above). The Renderer
-    constructor refuses, naming the keys, a combination whose point-stage
-    form the fused path has no instantiation for."""
+    outside the modes the port implements (see FAST_MODE above)."""
     t = cfg.tpu
 
     def need(table, mode):
@@ -1093,10 +1094,6 @@ def check_mode(cfg):
         need(FAST_MODE, "fast mode (tight_cull on)")
     else:
         need(REF_MODE, "reference mode (tight_cull off)")
-    if t.pallas_point and cfg.src_view_num != PS_V:
-        raise NotImplementedError(
-            f"src_view_num={cfg.src_view_num}: the point-stage kernel is built for {PS_V} "
-            "source views (tpu.pallas_point False renders op by op)")
 
 
 def build_render(cfg, device="cuda"):
@@ -1137,6 +1134,7 @@ def build_render(cfg, device="cuda"):
         dense_slots=cfg.tpu.dense_slots,
         sigma_cap=cfg.tpu.sigma_cap,
         neg_ray_val="thuman" in cfg.dataset.test.name,
+        n_views=cfg.src_view_num,
     )
     return r.to(device).eval()
 

@@ -20,6 +20,7 @@ from gpnerf_tpu.config import cfg as jax_cfg
 from gpnerf_tpu.registry import get as jax_get
 from gpnerf_tpu.train.checkpoint import load_eval_model as jax_load
 from gpnerf_tpu_torch.config import cfg as port_cfg
+from gpnerf_tpu_torch.ops import point_stages as ps
 from gpnerf_tpu_torch.registry import get as port_get
 from gpnerf_tpu_torch.render.base import batch_to_device
 from gpnerf_tpu_torch.train.checkpoint import load_eval_model
@@ -127,12 +128,19 @@ def test_port_render_is_deterministic(renders):
      ("int4_coarse", True)],
 )
 def test_switches_outside_fast_mode_raise(key, value):
-    # the geometry-table switches are ported; beside merged float32 rows
-    # (merge_src_feat) the layout they select has no point-stage library,
-    # and the refusal names them
-    extra = {} if key == "splat_bins" else {"merge_src_feat": True}
-    with pytest.raises(NotImplementedError, match=key):
-        port_get("render", "demo_render")(_cfg(port_cfg, **{key: value}, **extra), device="cpu")
+    # the windowed tap (splat_bins off under the tight cull) is refused,
+    # naming the key; the geometry-table switches beside merged float32
+    # rows (merge_src_feat), refused while the point-stage kernel had a
+    # closed table of libraries, build: the kernel is built for the key
+    # they select
+    if key == "splat_bins":
+        with pytest.raises(NotImplementedError, match=key):
+            port_get("render", "demo_render")(_cfg(port_cfg, **{key: value}), device="cpu")
+        return
+    r = port_get("render", "demo_render")(
+        _cfg(port_cfg, **{key: value}, merge_src_feat=True), device="cpu")
+    assert r.pallas_point and getattr(r, key) == value
+    assert ps.check_key(r.kernel_form()) == r.kernel_form() and r.kernel_form() not in ps.FORMS
 
 
 def test_dense_slots_off_renders_the_dense_frame(renders):

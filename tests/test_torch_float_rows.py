@@ -59,7 +59,7 @@ def _table(rs, kind, Ct, V, P):
 def _form_inputs(name, P=300, seed=0):
     """Seeded inputs of one FORMS entry, as (port args, port kwargs, JAX
     args, JAX kwargs)."""
-    rows, layout, occ = KEYS[name]
+    rows, layout, occ = KEYS[name][:3]
     use_feats = layout == "feats96"
     rs = np.random.RandomState(seed)
     V, CS, CF, C0, C1 = ps.V, ps.CS, ps.CF, ps.C0, ps.C1

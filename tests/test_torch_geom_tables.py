@@ -446,7 +446,7 @@ def test_layout_plain_matches_pallas_interpret(name):
     JAX `fused_point_stages_tabs(..., interpret=True)` on the same seeded
     rows (tests/test_pallas_point.py:106's pattern): the 128-wide layouts
     with the checkpoint's own sigma-feat weight, the 96-wide ones folded."""
-    rows, layout, occ = KEYS[name]
+    rows, layout, occ = KEYS[name][:3]
     rs = np.random.RandomState(8)
     P, V, CS, CF = 300, ps.V, ps.CS, ps.CF
     widths = (ps.C,) if len(rows) == 1 else (CS, CF)

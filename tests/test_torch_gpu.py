@@ -6,8 +6,8 @@ and skip without a card; on the GPU machine run them with
 They import only torch and the port (the GPU machine has no flax): the
 point-stage, quad-lerp and row-gather CUDA kernels against their plain
 versions at ragged sizes (for the point stages, sizes that end inside a
-16-row tile and inside a warp), the
-wrappers' refusal of other forms, 128^2 renders on the card against the
+16-row tile and inside a warp; FORMS' keys and keys built from a call's
+key, 1-8 views among them), the wrappers' refusals, 128^2 renders on the card against the
 same render on the CPU, the kernel on a compacted render's points and the
 compacted render against the dense-slot one, and one train step on the card
 against the CPU."""
@@ -106,15 +106,21 @@ def test_kernel_refuses_other_forms():
     rows, w4, pscale, geom, vmask, sig_ok, weights = _inputs(300, 0, dev)
     with pytest.raises(NotImplementedError, match="rows"):
         ps.fused_point_stages(rows.to(torch.int16), w4, pscale, geom, vmask, sig_ok, weights)
-    with pytest.raises(NotImplementedError, match="geometry"):
+    # one geometry table alone is a key of its own, whose sigma-feat layer
+    # takes 32 inputs: the 96-input weights do not fit it
+    with pytest.raises(NotImplementedError, match="packed weights"):
         ps.fused_point_stages(rows, w4, pscale, geom[:1], vmask, sig_ok, weights)
+    # a table of 16 channels is no key the kernel compiles
+    g0 = (geom[0][0][:, :8 * 16].contiguous(), geom[0][1], geom[0][2][:16].contiguous())
+    with pytest.raises(NotImplementedError, match="geometry tables"):
+        ps.fused_point_stages(rows, w4, pscale, (g0, geom[1]), vmask, sig_ok, weights)
 
 
 def _geom_inputs(rs, layout, P, occ):
-    """Seeded geometry tables of one ps.GEOMS layout as numpy: (feats,
-    geom_tabs); occ empties table 0's rows of 40% of the points, so the
-    occupancy cull bites."""
-    tables = ps.GEOMS[layout]
+    """Seeded geometry tables of one layout (a ps.GEOMS name or the specs)
+    as numpy: (feats, geom_tabs); occ empties table 0's rows of 40% of the
+    points, so the occupancy cull bites."""
+    tables = ps.geom_specs(layout)
     if tables[0][2] == "feat":
         return (rs.randn(P, tables[0][1]) * 0.5).astype(np.float32), ()
     geom = []
@@ -128,8 +134,8 @@ def _geom_inputs(rs, layout, P, occ):
             sc = np.ones((ch,), np.float32)
         if occ and i == 0:
             g[rs.rand(P) > 0.6] = 0
-        if taps == 8:
-            w = rs.rand(8, P).astype(np.float32)
+        if taps > 1:
+            w = rs.rand(taps, P).astype(np.float32)
             w /= w.sum(0)
         else:
             w = (rs.rand(1, P) > 0.05).astype(np.float32)
@@ -138,11 +144,11 @@ def _geom_inputs(rs, layout, P, occ):
 
 
 def _form_inputs(form, P, seed, dev):
-    """Seeded inputs of one instantiation (a key of ps.FORMS) at the widths
-    the kernel is written for."""
-    rows, layout, occ = form
+    """Seeded inputs of one instantiation (a ps.Key, or a tuple of its
+    fields) at the widths the kernel is written for."""
+    rows, layout, occ, V = ps.make_key(*form)
     rs = np.random.RandomState(seed)
-    V, C, CS, CF, C0, C1 = ps.V, ps.C, ps.CS, ps.CF, ps.C0, ps.C1
+    C, CS, CF, C0, C1 = ps.C, ps.CS, ps.CF, ps.C0, ps.C1
 
     def w4():
         return (rs.rand(V, 4, P) * (rs.rand(V, 4, P) > 0.1)).astype(np.float32)
@@ -175,17 +181,17 @@ def _form_inputs(form, P, seed, dev):
         return None if x is None else torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
     torch.manual_seed(seed)
-    head = NeRFHead(in_feat_ch=C - 3, n_smpl=8, code_dim=8).to(dev)
+    head = NeRFHead(in_feat_ch=C - 3, n_smpl=8, code_dim=8, n_views=V).to(dev)
     if geom:
         kw["geom_tabs"] = tuple((g.to(torch.bfloat16) if spec[2] == "bf16" else g, w, sc)
-                                for spec, (g, w, sc) in zip(ps.GEOMS[layout], to(geom)))
+                                for spec, (g, w, sc) in zip(ps.geom_specs(layout), to(geom)))
     if occ:
         kw["occ_geom"] = True
     t_tabs = tuple((r.to(torch.bfloat16) if kind == "bf16" else r, w, sc)
                    for kind, (r, w, sc) in zip(rows, to(tabs)))
     # the 96-wide geometry feature is [level 1 | folded coarse]: the folded
     # sigma-feat weight; 128 wide, the checkpoint's own
-    fold = C0 if sum(t[1] for t in ps.GEOMS[layout]) == C0 + C1 else None
+    fold = C0 if sum(t[1] for t in ps.geom_specs(layout)) == C0 + C1 else None
     return (t_tabs, to(feats), to(vmask), to(sig_ok), ps.pack_head_weights(head, fold_nch=fold)), kw
 
 
@@ -223,28 +229,76 @@ def test_form_kernel_matches_plain(name, P):
             assert 0.3 < float(out[2].mean()) < 0.9
 
 
+# keys beyond FORMS, each built from the key at its first launch: the view
+# counts 1-8 of forms (a) and (c), and switch sets of every kind the
+# renderer reaches (tests/test_torch_point_keys.py holds their plain
+# version against the Pallas kernel)
+KEY_CASES = [
+    *(ps.Key(("i8",), "default", False, v) for v in (1, 2, 4, 5, 6, 7, 8)),
+    *(ps.Key(("u8", "i8"), "default", False, v) for v in (2, 4, 8)),
+    ps.Key(("i8",), "feats128", False, 8),
+    ps.Key(("u8", "i8"), "coarse-octet", True),
+    ps.Key(("bf16",), "default", True),
+    ps.Key(("i8",), ((1, 32, "u8"), (8, 64, "i8")), False),
+    ps.Key(("u8", "f32"), "l1-nearest", False),
+    ps.Key(("f32",), "float32", True),
+    ps.Key(("bf16", "i4"), "default", False),
+    ps.Key(("u8", "bf16"), "default", True),
+    ps.Key(("bf16",), "feats96", False),
+    ps.Key(("f32", "i4"), "default", False),
+    ps.Key(("f32",), "coarse-octet", False),
+    ps.Key(("u8", "i8"), "four-level", True),
+    ps.Key(("f32", "f32"), ((8, 32, "f32"), (8, 96, "f32")), True, 4),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P", [1, 33, 257, 70001])
+@pytest.mark.parametrize("key", KEY_CASES, ids=ps.form_name)
+def test_key_kernel_matches_plain(key, P):
+    dev = _cuda()
+    name = ps.form_name(key)
+    args, kw = _form_inputs(key, P, P, dev)
+    before = ps.LAUNCHES[name]
+    out = ps.fused_point_stages_tabs(*args, **kw)
+    torch.cuda.synchronize()
+    assert ps.LAUNCHES[name] == before + 1
+    out_p = ps.point_stages_tabs_plain(*args, **kw)
+    assert len(out) == len(out_p) == (3 if key.occ else 2)
+    a, rgb, a_p, rgb_p = (t.cpu().numpy() for t in (*out[:2], *out_p[:2]))
+    assert np.isfinite(a).all() and np.isfinite(rgb).all()
+    # the tolerances of test_kernel_matches_plain
+    _assert_near(np.abs(a - a_p), P)
+    agree = (a > 1e-14) == (a_p > 1e-14)
+    assert (~agree).sum() <= max(1, 0.001 * P)
+    _assert_near(np.abs(rgb - rgb_p)[agree], P)
+    if key.occ:
+        np.testing.assert_array_equal(out[2].cpu().numpy(), out_p[2].cpu().numpy())
+
+
 @pytest.mark.gpu
 def test_kernel_refuses_forms_without_instantiation():
+    """Every key the renderer forms builds (test_key_kernel_matches_plain);
+    the wrapper refuses, before it launches, a key the source does not
+    compile (occ_geom on a table 0 that is not the 32-channel level-1
+    block, more views than a dataset chooses, a fifth geometry table) and
+    inputs that do not fit the key (the packed weights of another F, tap
+    weights of another shape)."""
     dev = _cuda()
     before = sum(ps.LAUNCHES.values())
-    # float feature rows with occ_geom, a merged bf16 table with a feature
-    # input, int4 rows beside float source rows: no library holds them
-    # and merged float rows or split tables with the four-level tables'
-    # occupancy cull, beside a geometry layout no library takes
-    for form in ((("u8", "bf16"), "default", True), (("bf16",), "feats96", False),
-                 (("f32", "i4"), "default", False), (("f32",), "coarse-octet", False),
-                 (("u8", "i8"), "four-level", True)):
-        assert form not in ps.FORMS
-        args, kw = _form_inputs(form, 300, 0, dev)
-        with pytest.raises(NotImplementedError, match="no instantiation"):
-            ps.fused_point_stages_tabs(*args, **kw)
     args, kw = _form_inputs((("i8",), "default", False), 300, 0, dev)
     g0, g1 = kw["geom_tabs"]
+    with pytest.raises(NotImplementedError, match="occ_geom needs"):
+        ps.fused_point_stages_tabs(*args, geom_tabs=(g1, g0), occ_geom=True)
     with pytest.raises(NotImplementedError, match="geometry tables"):
-        ps.fused_point_stages_tabs(*args, geom_tabs=(g0, g0, g1))
+        ps.fused_point_stages_tabs(*args, geom_tabs=(g0, g0, g0, g0, g1))
+    tabs, feats, vmask, sig_ok, weights = args
+    nine = tuple((r.repeat(3, 1), w.repeat(3, 1, 1), sc) for r, w, sc in tabs)
+    with pytest.raises(NotImplementedError, match="9 views"):
+        ps.fused_point_stages_tabs(nine, feats, vmask.repeat(3, 1), sig_ok, weights, **kw)
     (tabs, feats, vmask, sig_ok, weights), kw = _form_inputs((("u8", "i8"), "feats96", False),
                                                              300, 0, dev)
-    with pytest.raises(NotImplementedError, match="geometry features"):
+    with pytest.raises(NotImplementedError, match="packed weights"):
         ps.fused_point_stages_tabs(tabs, feats[:, :64].contiguous(), vmask, sig_ok, weights)
     with pytest.raises(NotImplementedError, match="tap weights"):
         ps.fused_point_stages_tabs(

@@ -20,6 +20,7 @@ from gpnerf_tpu.train.checkpoint import load_eval_model as jax_load
 import gpnerf_tpu_torch.ops.grid_sample as pgs
 from gpnerf_tpu_torch.config import cfg as port_cfg
 from gpnerf_tpu_torch.models.heads import fused_mean_variance
+from gpnerf_tpu_torch.ops import point_stages as ps
 from gpnerf_tpu_torch.registry import get as port_get
 from gpnerf_tpu_torch.render import demo as port_demo
 from gpnerf_tpu_torch.render.base import batch_to_device, src_norm
@@ -302,16 +303,23 @@ def test_op_by_op_compacted_render_equals_dense_slots(small_renders, tpu, sigma_
 @pytest.mark.parametrize(
     "tpu,key",
     [
-        # combinations whose fused point-stage form has no instantiation
+        # combinations whose fused point-stage key FORMS does not name
         (dict(merge_src_feat=True, kernel_octet=False), "kernel_octet"),
         (dict(REF, quantize_proj=False, frame_mode=True), "frame_mode"),
-        # the geometry-table switches render op by op; on the fused path
-        # beside float rows their layouts have no library
+        # the geometry-table switches beside float rows
         (dict(merge_src_feat=True, merge_coarse_octet=False), "merge_coarse_octet"),
         (dict(REF, quantize_proj=False, fold_coarse_fc=False), "fold_coarse_fc"),
         (dict(merge_src_feat=True, sigma_query_cull=True), "sigma_query_cull"),
     ],
 )
 def test_build_render_still_raises_for_what_is_not_ported(tpu, key):
-    with pytest.raises(NotImplementedError, match=key):
-        port_get("render", "demo_render")(_cfg(port_cfg, **tpu), device="cpu")
+    """The windowed tap is refused, naming its key. The other combinations,
+    refused while the fused point-stage kernel had a closed table of
+    libraries, build: the kernel is built for the key they select."""
+    if key in ("tap_window", "splat_bins"):
+        with pytest.raises(NotImplementedError, match=key):
+            port_get("render", "demo_render")(_cfg(port_cfg, **tpu), device="cpu")
+        return
+    r = port_get("render", "demo_render")(_cfg(port_cfg, **tpu), device="cpu")
+    assert r.pallas_point and ps.check_key(r.kernel_form()) == r.kernel_form()
+    assert r.kernel_form() not in ps.FORMS

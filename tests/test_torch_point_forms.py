@@ -271,28 +271,37 @@ def test_int4_render_layout_matches_dequantized_int8():
 
 
 def test_launch_refuses_forms_and_widths_without_instantiation():
-    """The CUDA launch path checks form and widths before it touches the
-    device, so its refusals show on CPU tensors too."""
+    """The CUDA launch path reads the key from the tensors and checks it and
+    the widths before it touches the device, so its refusals show on CPU
+    tensors too. Keys beyond FORMS (bf16 feature rows with occ_geom, a
+    merged bf16 table with a feature input) are valid keys: their libraries
+    are built at first use. Refused: occ_geom without geometry tables, more
+    views than a dataset chooses, widths the kernel is not written for."""
     P = 64
     before = sum(ps.LAUNCHES.values())
     tabs8, _, vmask, sig_ok, weights, geom = _render_shape_inputs(P)
-    # bf16 feature rows with occ_geom; one merged bf16 table with a feature
-    # input: forms no library holds
-    bf_feat = (tabs8[0], (torch.zeros(3 * P, 4 * ps.CF, dtype=torch.bfloat16),) + tabs8[1][1:])
-    with pytest.raises(NotImplementedError, match="no instantiation"):
-        ps._launch(bf_feat, None, vmask, sig_ok, weights, geom, True)
+    assert ps.check_key((("u8", "bf16"), ps.GEOMS["default"], True, 3)) == (
+        ("u8", "bf16"), "default", True, 3)
+    assert ps.form_name(ps.check_key((("bf16",), "feats96", False))) == "a:bf16@feats96"
     _, feats, _, _, _, _ = _render_shape_inputs(P, feats=True)
-    merged_bf = ((torch.zeros(3 * P, 4 * ps.C, dtype=torch.bfloat16), tabs8[1][1],
-                  torch.ones(ps.C)),)
-    with pytest.raises(NotImplementedError, match="no instantiation"):
-        ps._launch(merged_bf, feats, vmask, sig_ok, weights, (), False)
-    with pytest.raises(NotImplementedError, match="geometry features"):
-        ps._launch(tabs8, feats[:, :64].contiguous(), vmask, sig_ok, weights, (), False)
+    with pytest.raises(NotImplementedError, match="occ_geom needs geometry tables"):
+        ps.check_key((("i8",), "feats96", True))
+    nine = torch.ones(9, P)
+    with pytest.raises(NotImplementedError, match="9 views"):
+        ps._launch(tuple((r.repeat(3, 1), w.repeat(3, 1, 1), s) for r, w, s in tabs8), None,
+                   nine, sig_ok, weights, geom, False)
+    with pytest.raises(NotImplementedError, match="geometry tables"):
+        ps._launch(tabs8, None, vmask, sig_ok, weights, geom[:1] * 5, False)
+    with pytest.raises(NotImplementedError, match="geometry tables"):
+        ps._launch(tabs8, None, vmask, sig_ok, weights,
+                   ((geom[0][0][:, :8 * 16].contiguous(), geom[0][1], geom[0][2][:16]),), False)
     with pytest.raises(NotImplementedError, match="1 or 2 projection tables"):
         ps._launch(tabs8 + tabs8[:1], None, vmask, sig_ok, weights, geom, False)
     with pytest.raises(NotImplementedError, match="feature rows"):
         ps._launch((tabs8[0], (tabs8[1][0][:, :64].contiguous(),) + tabs8[1][1:]),
                    None, vmask, sig_ok, weights, geom, False)
+    with pytest.raises(NotImplementedError, match="source rgb rows"):
+        ps._launch(tabs8, None, vmask[:2].contiguous(), sig_ok, weights, geom, False)
     with pytest.raises(ValueError, match="excludes"):
         ps._launch(tabs8, feats, vmask, sig_ok, weights, geom, False)
     assert sum(ps.LAUNCHES.values()) == before
@@ -301,10 +310,10 @@ def test_launch_refuses_forms_and_widths_without_instantiation():
 @pytest.mark.parametrize("key", sorted(ps.FORMS, key=str))
 def test_build_command_per_form(key):
     cmd, lib = ps.build_command(key)
-    rows, layout, occ = key
+    rows, layout, occ, views = key
     assert f"-DPS_ROW_A={ps.ROW_CODES[rows[0]]}" in cmd
     assert f"-DPS_ROW_B={ps.ROW_CODES[rows[1]] if len(rows) == 2 else 0}" in cmd
-    assert f"-DPS_OCC={int(occ)}" in cmd
+    assert f"-DPS_OCC={int(occ)}" in cmd and f"-DPS_V={views}" in cmd and views == ps.V
     # each geometry table as row type * 10000 + taps * 1000 + channels
     tables = ps.GEOMS[layout]
     for i in range(4):
@@ -314,6 +323,8 @@ def test_build_command_per_form(key):
     assert "arch=compute_90a,code=sm_90a" in cmd and cmd[-1] == ps.SOURCE
     others = {ps.build_command(k)[1] for k in ps.FORMS if k != key}
     assert lib not in others and lib.startswith(ps.BUILD_DIR)
+    # the same key at another view count is another library
+    assert ps.build_command(key._replace(views=4))[1] != lib
 
 
 def test_quantize_image_i4_matches_jax():

@@ -167,21 +167,21 @@ def test_table_choice_opbyop_matches_jax(case, batches, jax_renders):
 def test_kernel_forms_of_the_cases():
     """The point-stage form each case's fused path launches."""
     want = {
-        "split_tight": (("u8", "i8"), "default", False),
-        "merged_blanket": (("i8",), "default", False),
-        "merge_src_feat": (("f32",), "default", False),
-        "float_merged": (("f32",), "default", False),
-        "float_split": (("u8", "f32"), "default", False),
-        "float_sources": (("f32", "i8"), "default", False),
-        "query_cull_fast": (("i8",), "default", True),
-        "ref_frame_query": (("u8", "i8"), "default", True),
+        "split_tight": (("u8", "i8"), "default", False, 3),
+        "merged_blanket": (("i8",), "default", False, 3),
+        "merge_src_feat": (("f32",), "default", False, 3),
+        "float_merged": (("f32",), "default", False, 3),
+        "float_split": (("u8", "f32"), "default", False, 3),
+        "float_sources": (("f32", "i8"), "default", False, 3),
+        "query_cull_fast": (("i8",), "default", True, 3),
+        "ref_frame_query": (("u8", "i8"), "default", True, 3),
     }
     for case, (tpu, flt) in CASES.items():
         r = port_get("render", "demo_render")(_cfg(port_cfg, **tpu), device="cpu")
         assert r.kernel_form(src_uint8=not flt) == want[case], case
     bf = port_get("render", "demo_render")(
         _cfg(port_cfg, "bfloat16", **CASES["merge_src_feat"][0]), device="cpu")
-    assert bf.kernel_form() == (("bf16",), "default", False)
+    assert bf.kernel_form() == (("bf16",), "default", False, 3)
 
 
 @pytest.mark.parametrize("case", ["merge_src_feat", "float_split_sources"])

@@ -23,6 +23,7 @@ from gpnerf_tpu.registry import get as jax_get
 from gpnerf_tpu.render.base import src_norm as jax_src_norm
 from gpnerf_tpu.train.checkpoint import load_eval_model as jax_load
 from gpnerf_tpu_torch.config import cfg as port_cfg
+from gpnerf_tpu_torch.ops import point_stages as ps
 from gpnerf_tpu_torch.registry import get as port_get
 from gpnerf_tpu_torch.render.base import batch_to_device, src_norm
 from gpnerf_tpu_torch.train.checkpoint import load_eval_model
@@ -319,7 +320,7 @@ def test_dense_slots_off_renders_the_dense_frame(port_renders):
     [
         (dict(tap_window=16), "tap_window"),
         (dict(quantize_volume=False), "quantize_volume"),
-        # combinations whose fused point-stage form has no instantiation
+        # combinations whose fused point-stage key FORMS does not name
         (dict(merge_src_feat=True, frame_mode=True), "merge_src_feat"),
         (dict(quantize_proj=False, sigma_query_cull=True), "sigma_query_cull"),
         (dict(quantize_proj=False, kernel_octet=False), "kernel_octet"),
@@ -328,8 +329,16 @@ def test_dense_slots_off_renders_the_dense_frame(port_renders):
     ],
 )
 def test_build_render_raises_outside_the_modes(tpu, key):
-    with pytest.raises(NotImplementedError, match=key):
-        port_get("render", "demo_render")(_cfg(port_cfg, **tpu), device="cpu")
+    """The windowed tap is refused, naming its key. The other combinations,
+    refused while the fused point-stage kernel had a closed table of
+    libraries, build: the kernel is built for the key they select."""
+    if key in ("tap_window", "splat_bins"):
+        with pytest.raises(NotImplementedError, match=key):
+            port_get("render", "demo_render")(_cfg(port_cfg, **tpu), device="cpu")
+        return
+    r = port_get("render", "demo_render")(_cfg(port_cfg, **tpu), device="cpu")
+    assert r.pallas_point and ps.check_key(r.kernel_form()) == r.kernel_form()
+    assert r.kernel_form() not in ps.FORMS
 
 
 @pytest.mark.parametrize(

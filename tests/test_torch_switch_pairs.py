@@ -1,9 +1,10 @@
 """The progressive switches the port's renderer takes beside the table choice
 (gpnerf_tpu_torch/render/demo.py): `frame_mode`, `sigma_query_cull` and
 `int4_feat` in the fast mode and in any subset in the reference mode,
-`int4_feat` with `kernel_octet` off on the fused path, and the paper
-configs' `tpu` sections unchanged; what `build_render` still refuses names
-its key. The int4 feature table has no JAX render on the CPU (the JAX
+`int4_feat` with `kernel_octet` off on the fused path, the paper configs'
+`tpu` sections unchanged, and any switch set with any view count from 1 to
+8 on the fused path (its kernel built from the key); what `build_render`
+still refuses, the windowed tap, names its key. The int4 feature table has no JAX render on the CPU (the JAX
 package takes it on the TPU backend only, render/demo.py:1430-1434), so the
 int4 render is held against the port's own int8 render; the renders are
 128^2 frames of the synthetic scene with the trained checkpoint."""
@@ -127,7 +128,7 @@ def test_build_render_takes_the_paper_configs(config):
     cfg.freeze()
     assert not cfg.tpu.merge_lowres_src and not cfg.tpu.merge_src_feat and cfg.tpu.tight_cull
     r = port_get("render", "demo_render")(cfg, device="cpu")
-    assert r.kernel_form() == (("u8", "i8"), "default", False)
+    assert r.kernel_form() == (("u8", "i8"), "default", False, 3)
     assert r.tight_cull and not r.merge_lowres_src
 
 
@@ -172,6 +173,10 @@ ACCEPTED = [
     dict(int4_coarse=True),
     dict(pack_octet_u32=True),
     dict(dense_conv=True),
+    # combinations whose kernel key FORMS does not name: built from the key
+    dict(merge_src_feat=True, sigma_query_cull=True),
+    dict(REF, quantize_proj=False, frame_mode=True),
+    dict(merge_src_feat=True, coarse_nearest=0),
 ]
 
 
@@ -180,7 +185,7 @@ def test_build_render_accepts_the_switch_combinations(tpu):
     r = port_get("render", "demo_render")(_cfg(**tpu), device="cpu")
     assert r.tight_cull == tpu.get("tight_cull", True)
     if r.pallas_point:
-        assert r.kernel_form() in ps.FORMS
+        assert ps.check_key(r.kernel_form()) == r.kernel_form()
 
 
 @pytest.mark.parametrize(
@@ -189,11 +194,6 @@ def test_build_render_accepts_the_switch_combinations(tpu):
         # 3f: the windowed tap without bins
         (dict(splat_bins=False), "splat_bins"),
         (dict(REF, tap_window=16), "tap_window"),
-        # a combination whose fused form has no instantiation
-        (dict(merge_src_feat=True, sigma_query_cull=True), "sigma_query_cull"),
-        (dict(REF, quantize_proj=False, frame_mode=True), "quantize_proj"),
-        # a (projection form, geometry layout) pair without a library
-        (dict(merge_src_feat=True, coarse_nearest=0), "coarse_nearest"),
     ],
 )
 def test_build_render_refuses_naming_the_key(tpu, key):
@@ -202,10 +202,20 @@ def test_build_render_refuses_naming_the_key(tpu, key):
 
 
 def test_build_render_refuses_other_view_counts():
-    """V != 3: the point-stage kernel is built for three source views."""
+    """The fused path takes 1 to 8 source views (the datasets choose at most
+    8): V = 4 builds with pallas_point on, its key carries V and its heads
+    flatten 4 views; V = 9 is refused naming src_view_num, and renders op by
+    op."""
     cfg = _cfg()
     cfg.defrost()
     cfg.src_view_num = 4
+    cfg.freeze()
+    r = port_get("render", "demo_render")(cfg, device="cpu")
+    assert r.pallas_point and r.kernel_form() == (("i8",), "default", False, 4)
+    assert ps.form_name(r.kernel_form()) == "a@V4"
+    assert r.nerfhead.rgbhead.rgb_fc[0].in_features == 4 * 32
+    cfg.defrost()
+    cfg.src_view_num = 9
     cfg.freeze()
     with pytest.raises(NotImplementedError, match="src_view_num"):
         port_get("render", "demo_render")(cfg, device="cpu")

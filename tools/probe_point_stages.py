@@ -98,6 +98,7 @@ def main():
     saved = dict(ps._libs)
     try:
         for name, (form, P) in FORMS.items():
+            form = ps.check_key(form)
             tabs, feats, vmask, sig_ok, kw = cs.random_point_inputs(form, P, dev)
 
             def call():
