@@ -64,6 +64,23 @@ Phases, each fatal on failure:
      dense and compacted (equal where nothing drops): overflows, counts,
      PSNR, ms per frame and form (a) or (c) held against its plain version
      on each path's captured inputs and timed beside its bound;
+  3w. the windowed occupancy tap: 3 frames of the fast mode without splat
+     bins (the tap over 32 grid samples from each ray's front depth), one
+     frame each of its frame_mode (a+e; held to 15 dB, as JAX's semantics
+     lose 3.3 dB there), sigma_query_cull (a+e) and dense_slots off, and
+     of the blanket cull with tap_window 32 and samples_per_ray 32 (form
+     c): overflows, PSNR >= 20 dB, ms per frame,
+     one launch per frame under the key named, the library against plain
+     on frame 0's captured inputs; one neg-ray frame without bins (window
+     off) in phase 3c; a 128^2 windowed frame on the card and on the CPU
+     with equal integers;
+  3m. the mesh path (`head.rgb.use_rgbhead False`, float32): both
+     renderers' `render_mesh` on bench frame 0 at the config's voxel size
+     (grid points and chunks, device ms of the volume stage and of the
+     chunk loop, host ms of marching cubes, a non-empty mesh), their
+     thresholded alpha clouds interleaving within 2 voxels, and each
+     renderer's alpha cube at 128^2 and 0.02 m on the card against the
+     CPU's;
   3k. switch sets and view counts whose kernel is built from the key: 3
      frames each of the paper tables with sigma_query_cull and
      coarse_nearest 0 (c+e@coarse-octet) and of merge_src_feat with
@@ -581,10 +598,12 @@ def make_render(size, matmul_dtype, device, neg=False, **tpu):
     return cfg, render
 
 
-def card_vs_cpu_128(name, max_tol, **tpu):
+def card_vs_cpu_128(name, max_tol, exact=False, **tpu):
     """The same 128^2 frame on the card and on the CPU (plain versions),
     float32 config: masks, counts and images must agree (|d| median < 2e-3,
-    at most 0.1% of the values beyond 0.05, none beyond max_tol)."""
+    at most 0.1% of the values beyond 0.05, none beyond max_tol); with
+    `exact` the ray set, the overflows and the ray and sigma-slot counts
+    must be equal."""
     import numpy as np
     import torch
 
@@ -608,11 +627,158 @@ def card_vs_cpu_128(name, max_tol, **tpu):
         f"{c['counts'].tolist()}, overflows {g['overflows'].tolist()}, |d pred| median "
         f"{float(d_img.median()):.2e} max {float(d_img.max()):.2e}")
     check(same_mask > 0.999, f"128^2 {name} card vs CPU: ray masks differ")
+    if exact:
+        for k in ("mask_at_box", "ray_pix_idx", "overflows"):
+            check(torch.equal(g[k], c[k]), f"128^2 {name} card vs CPU: {k} differ")
+        check(torch.equal(g["counts"][:2], c["counts"][:2]),
+              f"128^2 {name} card vs CPU: ray or sigma-slot counts differ")
+        log(f"# 128^2 {name} card vs CPU: ray set, overflows and ray and slot counts equal")
     check(int(g["overflows"][0]) == 0, f"128^2 {name}: ray overflow")
     n_s, n_c = int(g["counts"][1]), int(c["counts"][1])
     check(abs(n_s - n_c) <= 0.001 * n_c, f"128^2 {name} card vs CPU: sample counts differ")
     check(float(d_img.median()) < 2e-3 and float((d_img > 0.05).float().mean()) <= 1e-3
           and float(d_img.max()) < max_tol, f"128^2 {name} card vs CPU: images differ")
+
+
+def mesh_cfg(size, voxel=None):
+    """make_cfg's float32 config with the mesh branch on (`use_rgbhead`
+    off: the datasets add the visual-hull grid), at `voxel` m if given."""
+    cfg = make_cfg(size, "float32")
+    cfg.defrost()
+    cfg.head.rgb.use_rgbhead = False
+    if voxel is not None:
+        cfg.dataset.voxel_size = [voxel] * 3
+    cfg.freeze()
+    return cfg
+
+
+def timed_render_mesh(render, batch):
+    """render_mesh with CUDA events around its volume stage and its chunk
+    loop (to the alpha cube on the host) and the host clock around marching
+    cubes. Returns (output, volume ms, chunk-loop ms, marching-cubes ms)."""
+    import torch
+
+    from gpnerf_tpu_torch.render import base as base_mod
+    from gpnerf_tpu_torch.render import demo as demo_mod
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    mc_ms = []
+    demo = hasattr(render, "mesh_frame")
+    mod = demo_mod if demo else base_mod
+    real_volume = render.mesh_frame if demo else base_mod.mesh_volume
+    real_extract = mod.mesh_from_alpha
+
+    def volume(*a, **kw):
+        ev[0].record()
+        out = real_volume(*a, **kw)
+        ev[1].record()
+        return out
+
+    def extract(alpha, th):
+        ev[2].record()
+        t0 = time.perf_counter()
+        out = real_extract(alpha, th)
+        mc_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    if demo:
+        render.mesh_frame = volume
+    else:
+        base_mod.mesh_volume = volume
+    mod.mesh_from_alpha = extract
+    try:
+        out = render.render_mesh(batch)
+    finally:
+        mod.mesh_from_alpha = real_extract
+        if demo:
+            del render.mesh_frame
+        else:
+            base_mod.mesh_volume = real_volume
+    torch.cuda.synchronize()
+    return out, ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]), mc_ms[0]
+
+
+def mesh_phase(card):
+    """Phase 3m: both renderers' mesh paths (`render_mesh`, use_rgbhead
+    off) on bench frame 0 at 512^2 and the config's voxel size, float32,
+    with the trained checkpoint: grid points and chunks, device ms of the
+    volume stage and of the chunk loop, host ms of marching cubes, a
+    non-empty mesh from each; the two thresholded alpha clouds interleave
+    (median nearest distance below 2 voxels, tests/test_mesh_path.py);
+    then the card's alpha cubes at 128^2 and a 0.02 m voxel against the
+    CPU's."""
+    import numpy as np
+    import torch
+    from scipy.spatial import cKDTree
+
+    from gpnerf_tpu_torch.ops import point_stages as ps
+    from gpnerf_tpu_torch.ops import quad_lerp as ql
+    from gpnerf_tpu_torch.ops import row_gather as rg
+    from gpnerf_tpu_torch.registry import get
+    from gpnerf_tpu_torch.render.base import batch_to_device, mesh_volume
+    from gpnerf_tpu_torch.train.checkpoint import load_eval_model
+    from gpnerf_tpu_torch.utils.bench_frames import get_bench_frames
+
+    cfg = mesh_cfg(512)
+    vs = float(cfg.dataset.voxel_size[0])
+    th = 1.0 / cfg.test.mesh_th
+    t0 = time.perf_counter()
+    host = get_bench_frames(cfg, 1)[0]
+    log(f"# mesh path: bench frame 0 at 512^2, voxel {vs} m, visual-hull grid "
+        f"{tuple(host['pts'].shape[:3])} ({int(host['inside'].sum())} inside), built on the host "
+        f"in {time.perf_counter() - t0:.1f} s")
+    batch = batch_to_device(host, "cuda")
+    outs = {}
+    for name in ("BaseRender", "demo_render"):
+        r = load_eval_model(CKPT, get("render", name)(cfg, device="cuda")).eval()
+        check(r.mesh_th == th, f"{name}: mesh_th {r.mesh_th}")
+        with torch.no_grad():  # warm the encoder and the volume stage
+            mesh_volume(r.encoder, r.nerfhead, batch, r.max_out_sh)
+        for lib in (ps.LAUNCHES, ql.LAUNCHES, rg.LAUNCHES):
+            lib.clear()
+        out, vol_ms, chunk_ms, mc_ms = timed_render_mesh(r, batch)
+        launches = {**ps.LAUNCHES, **ql.LAUNCHES, **rg.LAUNCHES}
+        cube, mesh = out["cube"], out["mesh"]
+        n_pts = int(host["inside"].sum()) if name == "BaseRender" else int(
+            np.prod(np.asarray(cube.shape) - 20))
+        check(np.isfinite(cube).all(), f"{name} mesh: non-finite alpha")
+        log(f"# mesh path, {name} on {card}: {n_pts} grid points in {-(-n_pts // 65536)} chunks "
+            f"of 65536, cube {tuple(cube.shape)}, {int((cube > th).sum())} voxels above "
+            f"{th}; volume stage {vol_ms:.3f} ms, chunk loop {chunk_ms:.3f} ms (CUDA events), "
+            f"marching cubes {mc_ms:.1f} ms (host); {len(mesh.vertices)} vertices, "
+            f"{len(mesh.faces)} triangles; kernel launches {json.dumps(launches)} (none lies "
+            "on the mesh path)")
+        check(len(mesh.vertices) > 0 and len(mesh.faces) > 0, f"{name} mesh: empty")
+        outs[name] = (r, cube)
+    hull = outs["BaseRender"][1][10:-10, 10:-10, 10:-10]
+    cloud_h = host["pts"].reshape(hull.shape + (3,))[hull > th]
+    r, occ = outs["demo_render"]
+    with torch.no_grad():
+        cb0 = r.mesh_frame(batch)["can_bounds"][0].cpu().numpy()
+    occ = occ[10:-10, 10:-10, 10:-10]
+    cloud_o = cb0[None] + np.argwhere(occ > th) * vs
+    # every 16th point of each cloud queries the other
+    d_oh = float(np.median(cKDTree(cloud_h).query(cloud_o[::16])[0]))
+    d_ho = float(np.median(cKDTree(cloud_o).query(cloud_h[::16])[0]))
+    log(f"# mesh path: thresholded alpha clouds, hull grid {len(cloud_h)} points, occupancy grid "
+        f"{len(cloud_o)}; median nearest distance {d_oh:.5f} / {d_ho:.5f} m (2 voxels: {2 * vs} m)")
+    check(len(cloud_h) > 50 and len(cloud_o) > 50 and d_oh < 2 * vs and d_ho < 2 * vs,
+          "mesh path: the two alpha clouds do not interleave")
+    del outs, r, batch
+    torch.cuda.empty_cache()
+    # the card against the CPU at 128^2, 0.02 m
+    small_cfg = mesh_cfg(128, 0.02)
+    small = get_bench_frames(small_cfg, 1)[0]
+    for name in ("BaseRender", "demo_render"):
+        cubes = {}
+        for d in ("cuda", "cpu"):
+            r = load_eval_model(CKPT, get("render", name)(small_cfg, device=d)).eval()
+            cubes[d] = r.render_mesh(batch_to_device(small, d), chunk=16384)["cube"]
+        check(cubes["cuda"].shape == cubes["cpu"].shape, f"128^2 {name} mesh: cube shapes differ")
+        d_cube = float(np.abs(cubes["cuda"] - cubes["cpu"]).max())
+        log(f"# 128^2 {name} mesh, 0.02 m voxel, card vs CPU: cube {cubes['cpu'].shape}, "
+            f"max |d alpha| {d_cube:.3e}")
+        check(d_cube < 1e-3, f"128^2 {name} mesh: card and CPU alpha cubes differ by {d_cube}")
 
 
 def train_phase(card, profile, neg=False):
@@ -1181,6 +1347,31 @@ def main():
     same_as_dense("reference mode, samples_per_ray 32, dense_slots off",
                   "reference mode, samples_per_ray 32")
 
+    # ---- phase 3w: the windowed occupancy tap (splat_bins off, or a window under the blanket) ----
+    # the windowed frame_mode evaluates only the K = 13 grid samples from
+    # each ray's window start: the JAX package's semantics lose 3.3 dB
+    # against the binned fast mode at 384^2 on the CPU (`PYTHONPATH=.
+    # python tests/test_torch_window.py 384`: the port within 0.001 dB of
+    # JAX), so that frame is held to 15 dB
+    for title, form_name, n_frames, extra, min_psnr in (
+        ("windowed fast mode (splat_bins off)", "a", 3, {"splat_bins": False}, 20.0),
+        ("windowed fast mode, frame_mode", "a+e", 1, {"splat_bins": False, "frame_mode": True},
+         15.0),
+        ("windowed fast mode, sigma_query_cull", "a+e", 1,
+         {"splat_bins": False, "sigma_query_cull": True}, 20.0),
+        ("windowed fast mode, dense_slots off", "a", 1,
+         {"splat_bins": False, "dense_slots": False}, 20.0),
+        # W = 32 of the 64 samples from each ray's front depth, K = 32
+        ("reference mode, tap_window 32, samples_per_ray 32", "c", 1,
+         {**REF_MODE, "tap_window": 32, "samples_per_ray": 32}, 20.0),
+    ):
+        r = make_render(512, "bfloat16", "cuda", **extra)[1]
+        check(r._uses_window() and not r._uses_bins(), f"{title}: the tap window is off")
+        check(r._frame_mode_on() == ("frame_mode" in extra), f"{title}: frame mode")
+        run_mode(title, form_name, n_frames, r, min_psnr=min_psnr)
+        del r
+        torch.cuda.empty_cache()
+
     # ---- phase 3k: switch sets and view counts whose kernel is built from the key ----
     key_modes = []  # the names of the keys beyond FORMS that the main path launched
     for title, extra, n_frames in (
@@ -1449,6 +1640,14 @@ def main():
     check(neg_fast.neg_ray_val, "neg-ray fast mode: neg_ray_val off")
     run_mode("neg-ray fast mode", "a", 3, neg_fast, stages=True, frames=neg_frames)
     del neg_fast
+    # without bins the window is off under neg-ray: the tap walks all 64
+    # samples from the far end
+    neg_tap = make_render(512, "bfloat16", "cuda", neg=True, splat_bins=False)[1]
+    check(not neg_tap._uses_window() and not neg_tap._uses_bins(),
+          "neg-ray fast mode, splat_bins off: the window or the bins are on")
+    run_mode("neg-ray fast mode, splat_bins off (tap over every sample)", "a", 1, neg_tap,
+             frames=neg_frames)
+    del neg_tap
     run_mode("neg-ray reference mode", "c", 1,
              make_render(512, "bfloat16", "cuda", neg=True, **REF_MODE)[1], stages=True,
              frames=neg_frames)
@@ -1483,6 +1682,13 @@ def main():
     # the last bit, where the rounding of the projection product decides the
     # in-bounds test and a view flips in or out for a few pixels
     card_vs_cpu_128("reference mode", 0.15, **{**REF_MODE, "ray_cap": 9216})
+    # the window's integers (front depth, window start, tap) as on the CPU;
+    # a border row's sample can flip a view in or out as above
+    card_vs_cpu_128("windowed fast mode", 0.4, exact=True, ray_cap=16384, splat_bins=False)
+
+    # ---- phase 3m: the mesh path ----
+    torch.cuda.empty_cache()
+    mesh_phase(card)
 
     # ---- phase 5: the training path ----
     torch.cuda.empty_cache()

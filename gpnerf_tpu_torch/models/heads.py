@@ -85,6 +85,12 @@ class NeRFSigmaHead(nn.Module):
         code = _gather_rows(fused_codes, vertex_rows)
         return self.xyzc_net.features(code, levels, train=train)
 
+    def query_sigma_feat_dense(self, dense_vols, dhw_vox, out_sh):
+        """Sigma feature (P, 64) against the dense per-level volumes
+        (render/base.materialize_dense): the multi-scale trilinear query,
+        then out_geometry_fc. out_sh (3,) int tensor."""
+        return self.out_geometry_fc(self.xyzc_net.query_dense(dense_vols, dhw_vox, out_sh))
+
     def query_sigma_feat_octet(self, octet_vols, dhw_vox, out_sh, scales=None,
                                with_l1_occ=False):
         """Sigma feature (P, 64) from unfolded tables: two (the level-1

@@ -545,3 +545,12 @@ def trilinear_dense_rows(vol, pos, dyn_size=None):
              * (w1[:, 2] if sel[2] else w0[:, 2]))
         out = out + flat[idx] * (w * inb.to(vol.dtype))[:, None]
     return out
+
+
+def trilinear_dense_gather(vol, pos, dyn_size=None):
+    """Trilinear sample of a dense scalar (D, H, W) volume at voxel
+    positions pos (P, 3), zeros outside `dyn_size` ((3,) int tensor, the
+    valid extent inside the volume; default its shape): the demo renderer's
+    occupancy lookup (the reference's demo_render.py:274-279). Returns
+    (P,)."""
+    return trilinear_dense_rows(vol[..., None], pos, dyn_size)[:, 0]

@@ -16,14 +16,21 @@ once and queried per ray chunk through per-level index volumes
   * `render_eval_fn`: the padded box rays of a whole image in chunks of
     `eval_chunk`, no jitter, running statistics, no autograd.
 
+  * `render_mesh`: the mesh branch (`head.rgb.use_rgbhead False`): the
+    density MLP's sigma over the dataset's visual-hull grid (`pts`,
+    `inside`), its alpha cube and marching cubes at `mesh_th`.
+
 THuman's neg-ray convention (scene points at negative camera z, ray
 t-parameters negative) is on for the training render when
 `dataset.train.name` holds "thuman" and for the eval render when
 `dataset.test.name` does: the view mask tests z < 0 and the composite
 flips the sample order (reference BaseRender.py:86-88).
 
+The mesh paths of both renderers share `mesh_volume`, `mesh_sigma` and
+`mesh_from_alpha` here.
+
 Out of scope, refused by `build_render` with the key named: the bf16
-training dtype and the mesh branch (`head.rgb.use_rgbhead False`).
+training dtype and data parallelism (`tpu.dp_size` > 1).
 """
 
 from __future__ import annotations
@@ -35,9 +42,11 @@ import torch
 from torch import nn
 
 from gpnerf_tpu_torch.models.attention import MultiHeadAttention
+from gpnerf_tpu_torch.models.heads import fused_mean_variance
 from gpnerf_tpu_torch.models.layers import InstanceNorm, MaskedBatchNorm
 from gpnerf_tpu_torch.models.sparse_net import SparseConvWeight
 from gpnerf_tpu_torch.ops.compositing import raw2outputs
+from gpnerf_tpu_torch.ops.marching_cubes import marching_cubes
 from gpnerf_tpu_torch.ops.projection import gather_smpl_features, project_and_gather
 from gpnerf_tpu_torch.ops.rays import sample_points, sample_z_vals
 from gpnerf_tpu_torch.ops.sparse_conv import (
@@ -46,6 +55,7 @@ from gpnerf_tpu_torch.ops.sparse_conv import (
     scatter_dense,
 )
 from gpnerf_tpu_torch.registry import get, register
+from gpnerf_tpu_torch.utils.mesh_io import Trimesh
 
 
 def batch_to_device(batch, device):
@@ -133,6 +143,47 @@ def points_to_dhw_vox(pts, batch, voxel_size):
     return (dhw - min_dhw) / vs
 
 
+def mesh_volume(encoder, nerfhead, batch, max_out_sh, *, neg_ray=False):
+    """The mesh paths' per-frame stage (JAX render/base.py:409-420): the
+    encoder, the frame's sparse volume in eval mode and its dense per-level
+    volumes. Returns {"featmaps", "pre", "level_feats", "dense_vols",
+    "out_sh" (3,) int tensor}."""
+    featmaps = encoder(src_norm(batch["src_imgs"]))
+    pre = prepare_frame(batch, featmaps, max_out_sh, neg_ray=neg_ray)
+    grids = pre["grids"]
+    level_feats = nerfhead.volume(pre["smpl_feat"], pre["vertex_rows"], grids)
+    return {
+        "featmaps": featmaps, "pre": pre, "level_feats": level_feats,
+        "dense_vols": [scatter_dense(f, grids[i + 1]) for i, f in enumerate(level_feats)],
+        "out_sh": torch.tensor(pre["out_sh"], device=featmaps.device),
+    }
+
+
+def mesh_sigma(nerfhead, vol, batch, pts, voxel_size, *, neg_ray=False):
+    """The density MLP's sigma (P,) at world points pts (P, 3) (JAX
+    render/base.py:422-441): the dense multi-scale query, the projected
+    source colors and features, their mean and variance over the views."""
+    dhw = points_to_dhw_vox(pts, batch, voxel_size)
+    sigma_feat = nerfhead.sigmahead.query_sigma_feat_dense(vol["dense_vols"], dhw,
+                                                          vol["out_sh"])
+    H, W = batch["src_imgs"].shape[1:3]
+    rgb_feat, vm = project_and_gather(pts, vol["pre"]["KE"],
+                                      src_norm(batch["src_imgs"]) * 0.5 + 0.5,
+                                      vol["featmaps"], H, W, neg_ray=neg_ray)
+    mean, var = fused_mean_variance(rgb_feat)
+    return nerfhead.rgbhead.density(sigma_feat, mean[:, 0], var[:, 0],
+                                    vm.sum(dim=-1, keepdim=True))[:, 0]
+
+
+def mesh_from_alpha(alpha, th):
+    """The alpha cube padded by 10 zero voxels, and its marching-cubes mesh
+    at `th` (index coordinates of the padded cube). Returns {"cube",
+    "mesh"}."""
+    cube = np.pad(alpha, 10, mode="constant")
+    vertices, triangles = marching_cubes(cube, th)
+    return {"cube": cube, "mesh": Trimesh(vertices, triangles)}
+
+
 # flax's truncated normal draws from N(0, 1) cut at +-2 and rescales by this
 # factor so the kept values have unit variance
 _TRUNC_STD = 0.87962566103423978
@@ -152,7 +203,7 @@ class Renderer(nn.Module):
 
     def __init__(self, encoder, nerfhead, *, voxel_size, max_out_sh, n_samples=64,
                  eval_chunk=8192, occupancy_cull=False, neg_ray_train=False,
-                 neg_ray_val=False):
+                 neg_ray_val=False, mesh_th=-1.0):
         super().__init__()
         self.encoder = encoder
         self.nerfhead = nerfhead
@@ -165,6 +216,8 @@ class Renderer(nn.Module):
         # the progressive renderer's empty-space cull in this renderer too
         # (NeRFHead.point_forward occupancy_cull)
         self.occupancy_cull = bool(occupancy_cull)
+        # the mesh branch's alpha threshold (1 / test.mesh_th; -1 without it)
+        self.mesh_th = float(mesh_th)
 
     @torch.no_grad()
     def init_variables(self, seed):
@@ -300,6 +353,29 @@ class Renderer(nn.Module):
                 outs[k].append(out[k])
         return {k: torch.cat(v) for k, v in outs.items()}
 
+    @torch.no_grad()
+    def render_mesh(self, batch, chunk=65536):
+        """The mesh branch (JAX render/base.py:446-489): the density MLP's
+        sigma at the dataset's visual-hull grid points inside the hull
+        (`batch["pts"]` (X, Y, Z, 3), `batch["inside"]`), in chunks of
+        `chunk` points, 1 - exp(-sigma) into a zero cube, padded by 10,
+        marching cubes at `mesh_th`. The reference reads the raw red channel
+        as sigma here (BaseRender.py:267), a quirk not reproduced. Returns
+        {"cube" (float64, padded), "mesh" (utils/mesh_io.Trimesh)}."""
+        vol = mesh_volume(self.encoder, self.nerfhead, batch, self.max_out_sh,
+                          neg_ray=self.neg_ray_val)
+        pts = batch["pts"]
+        sel = torch.nonzero(batch["inside"].reshape(-1).bool())[:, 0]
+        flat = pts.reshape(-1, 3)[sel].float()
+        sigma = torch.cat([
+            mesh_sigma(self.nerfhead, vol, batch, flat[i:i + chunk], self.voxel_size,
+                       neg_ray=self.neg_ray_val)
+            for i in range(0, flat.shape[0], chunk)]) if flat.shape[0] else flat.new_zeros(0)
+        alpha = 1.0 - np.exp(-sigma.cpu().numpy())
+        cube = np.zeros(int(np.prod(pts.shape[:-1])), np.float64)
+        cube[sel.cpu().numpy()] = alpha
+        return mesh_from_alpha(cube.reshape(tuple(pts.shape[:-1])), self.mesh_th)
+
     def render(self, batch, generator=None):
         """Reference-style entry: with a generator, the training render of
         the sampled rays; without, the whole-image eval render."""
@@ -314,9 +390,6 @@ def check_train_scope(cfg):
     if cfg.tpu.train_dtype != "float32":
         raise NotImplementedError(
             f"tpu.train_dtype={cfg.tpu.train_dtype!r}: the port trains in float32 only")
-    if not cfg.head.rgb.use_rgbhead:
-        raise NotImplementedError(
-            "head.rgb.use_rgbhead=False: the mesh branch is not ported")
     if cfg.tpu.dp_size > 1:
         raise NotImplementedError(
             f"tpu.dp_size={cfg.tpu.dp_size}: data parallelism is not ported; the port "
@@ -337,6 +410,7 @@ def build_render(cfg, device="cuda"):
         occupancy_cull=cfg.tpu.base_occupancy_cull,
         neg_ray_train="thuman" in cfg.dataset.train.name,
         neg_ray_val="thuman" in cfg.dataset.test.name,
+        mesh_th=-1.0 if cfg.head.rgb.use_rgbhead else 1.0 / cfg.test.mesh_th,
     )
     return r.to(device)
 

@@ -27,21 +27,28 @@ Per frame:
      default);
   4. splat occupied level-1 voxels into the target view and compact the hit
      pixels to `ray_cap` rays. Fast mode (`tight_cull`): the level-1 active
-     set, a dilated pixel mask and per-pixel depth-bin masks on the
-     64-sample grid (the occupancy cull). Reference mode: every voxel of
-     the sum-over-levels occupancy blanket (compacted to `splat_cap` rows
-     first), no pixel dilation, and a one-voxel-dilated u8 occupancy volume
-     `occb` for the per-sample tap;
-  5. cull the 64 samples of each ray (bin masks, or a nearest tap of `occb`)
+     set and a dilated pixel mask; with `splat_bins` (the default) also
+     per-pixel depth-bin masks on the 64-sample grid (the occupancy cull).
+     Reference mode: every voxel of the sum-over-levels occupancy blanket
+     (compacted to `splat_cap` rows first), no pixel dilation. Without bins
+     a one-voxel-dilated u8 occupancy volume `occb` (level 1 under the
+     tight cull, the blanket otherwise) serves the per-sample tap, and the
+     splat also scatter-mins each voxel's camera depth into a front-depth
+     image `zmin` (eroded over the 4-neighbourhood) for the tap window;
+  5. cull the samples of each ray (bin masks, or a nearest tap of `occb`)
      and keep the first K (`samples_per_ray`) occupied ones in a slot-major
      (K, R) frame (the reference mode, at K = 64, keeps every survivor).
+     The windowed tap (`tap_window` W with 0 < W < 64, no bins, positive
+     rays) taps only the max(W, K) grid samples from the ray's front depth
+     less `window_margin_voxels` (`s_lo`); otherwise all 64.
      With `dense_slots` (the default) all K*R slots are evaluated; without,
      the valid slots are compacted globally, slot-major, to `sigma_cap`
      points (an overflow drops the deepest slots of every ray first and is
      counted as `sig_overflow`), each point recomputed from one packed
-     [o, d, near, far, s] row. The windowless `frame_mode` (K = 64) skips
-     tap, slots and compaction: the frame is the whole sample grid and the
-     cull is the kernel's trilinear level-1 occupancy (`occ_geom`), which
+     [o, d, near, far, s] row. `frame_mode` without bins (windowed, or with
+     K = 64) skips tap, slots and compaction: the frame is the K grid
+     samples from `s_lo` (0 without the window) and the cull is the
+     kernel's trilinear level-1 occupancy (`occ_geom`), which
      `sigma_query_cull` also applies on top of the tap;
   6. the point stages, fused (`pallas_point`, the default) or op by op:
      fused, project + gather the quad rows and geometry rows (or, with
@@ -55,19 +62,23 @@ Per frame:
      back (compacted points scattered back into their slots first) and
      scatter the rays into the image.
 
-`build_render` accepts the fast mode and the reference mode, each with the
-dense slots or the global compaction and any `samples_per_ray`, under every
-projection-table choice and every geometry-table switch (`quantize_volume`,
-`merge_coarse_octet`, `fold_coarse_fc`, `int4_coarse`, `coarse_nearest`,
-`l1_nearest`, `pack_octet_u32`, `dense_conv`, narrowed as the JAX package
-narrows them), each with any of `frame_mode`, `sigma_query_cull`,
-`int4_feat` and `kernel_octet` and `pallas_point` either way (`pallas_lerp`
-and `proj_vp_order` choose the op-by-op route of the merged table), and any
-`src_view_num` from 1 to 8; the fused path builds the point-stage kernel
-for the key the combination selects at its first launch. Any other
-renderer switch raises NotImplementedError naming the key. As in
-the JAX package, `int4_feat` stores the int8 table off the fused path and
-acts on split tables only, and `frame_mode` acts only without splat bins.
+`build_render` takes every renderer switch the JAX package's takes: the
+fast mode and the reference mode, with or without splat bins and the tap
+window, each with the dense slots or the global compaction and any
+`samples_per_ray`, under every projection-table choice and every
+geometry-table switch (`quantize_volume`, `merge_coarse_octet`,
+`fold_coarse_fc`, `int4_coarse`, `coarse_nearest`, `l1_nearest`,
+`pack_octet_u32`, `dense_conv`, narrowed as the JAX package narrows them),
+each with any of `frame_mode`, `sigma_query_cull`, `int4_feat` and
+`kernel_octet` and `pallas_point` either way (`pallas_lerp` and
+`proj_vp_order` choose the op-by-op route of the merged table), and any
+`src_view_num` from 1 to 8 on the fused path (more op by op only); the
+fused path builds the point-stage kernel for the key the combination
+selects at its first launch. With `head.rgb.use_rgbhead False` it builds
+the mesh renderer (`Renderer.render_mesh`). As in the JAX package,
+`int4_feat` stores the int8 table off the fused path and acts on split
+tables only, `frame_mode` acts only without splat bins, and `splat_bins`
+only under the tight cull.
 
 Every mode also renders THuman's neg-ray convention (`dataset.test.name`
 holding "thuman"): scene points lie at negative camera z and the rays'
@@ -75,9 +86,9 @@ t-parameters are negative, so ascending t runs back to front. The view
 masks test z < 0, and the cull walks each ray's sample grid in descending
 index (the bin rows flipped, the tap's candidates from the far end), so
 the K kept slots are still the nearest survivors and the composite runs
-front to back. As in the JAX package, the windowless `frame_mode` needs
-ascending traversal and is inert under neg-ray: the render takes the tap
-and the dense slots.
+front to back. As in the JAX package, the tap window and `frame_mode` need
+ascending traversal and are inert under neg-ray: the render taps all 64
+samples into the slot frame.
 
 `stop_stage` (one of STOP_STAGES) ends a render after the named stage and
 returns None; `Renderer.profile` times those prefixes.
@@ -122,6 +133,7 @@ from gpnerf_tpu_torch.ops.grid_sample import (
     quantize_volume_i4,
     quantize_volume_u8,
     resample_volume_to,
+    trilinear_dense_gather,
     upsample_image_align_corners,
 )
 from gpnerf_tpu_torch.ops.point_stages import (
@@ -138,23 +150,19 @@ from gpnerf_tpu_torch.ops.projection import (
 from gpnerf_tpu_torch.ops.rays import pixel_rays, ray_aabb_near_far
 from gpnerf_tpu_torch.ops.sparse_conv import _gather_rows, scatter_dense, scatter_dense_rows
 from gpnerf_tpu_torch.registry import get, register
-from gpnerf_tpu_torch.render.base import points_to_dhw_vox, prepare_frame, src_norm
+from gpnerf_tpu_torch.render.base import (
+    mesh_from_alpha,
+    mesh_sigma,
+    mesh_volume,
+    points_to_dhw_vox,
+    prepare_frame,
+    src_norm,
+)
 
-# Renderer switches (configs/synthetic.yaml over config/default.py) and the
-# values the port implements: FAST_MODE with tight_cull on; REF_MODE (the
-# reference-semantics mode: blanket cull, no tap window) with it off;
-# `dense_slots` and `samples_per_ray` are free in both. The projection
-# tables follow `merge_src_feat`, `merge_lowres_src`, `quantize_proj` and
-# `int4_feat` in either mode (`projection_rows`), the geometry tables the
-# switches of GEOMETRY_SWITCHES (`Renderer._geometry_tables`); `frame_mode`,
-# `sigma_query_cull`, `kernel_octet`, `pallas_point`, `pallas_lerp` and
-# `proj_vp_order` are free in both; the fused path's point-stage kernel is
-# built for the key they select (`Renderer.kernel_form`). `splat_bins` is
-# inert without tight_cull, and `frame_mode` with it, as in the JAX package.
+# The geometry-table switches (`Renderer._geometry_tables`); `build_render`
+# hands them to the constructor by name.
 GEOMETRY_SWITCHES = ("quantize_volume", "merge_coarse_octet", "fold_coarse_fc", "int4_coarse",
                      "coarse_nearest", "l1_nearest", "pack_octet_u32", "dense_conv")
-FAST_MODE = {"splat_bins": True}
-REF_MODE = {"tap_window": 0}
 
 # the names a render can stop after, in pipeline order (Renderer.profile)
 FRAME_STOPS = ("pre", "codes", "fuse", "occv", "volume", "rays")
@@ -170,6 +178,8 @@ HEAD_CHUNK = 1 << 20
 
 # level-1 voxels whose occupancy (masks3d) exceeds this splat into the view
 OCCUPANCY_THRESHOLD = 0.1
+# the front depth of a pixel no occupied voxel splats onto
+_ZFAR = 1e9
 
 
 def pred_img_hwc(ret):
@@ -193,6 +203,15 @@ def _compact(mask_flat, cap):
     idx[tgt] = torch.arange(n, device=dev)
     ok = torch.arange(cap, device=dev) < total
     return idx[:cap], ok, (total - cap).clamp_min(0)
+
+
+def _occupied_bounds(pts_w, row_ok):
+    """The world AABB (2, 3) of the occupied points, padded by 0.05 in z
+    (demo_render.py:168-175)."""
+    okc = row_ok[:, None]
+    dzv = torch.tensor([0.0, 0.0, 0.05], device=pts_w.device)
+    return torch.stack([torch.where(okc, pts_w, 1e9).amin(dim=0) - dzv,
+                        torch.where(okc, pts_w, -1e9).amax(dim=0) + dzv])
 
 
 def _scatter_rows(v, idx, n):
@@ -239,13 +258,21 @@ class Renderer(nn.Module):
                  quantize_volume=True, merge_coarse_octet=True, fold_coarse_fc=True,
                  int4_coarse=False, coarse_nearest=2, l1_nearest=0, pack_octet_u32=False,
                  dense_conv=False, dense_slots=True, sigma_cap=319488, neg_ray_val=False,
-                 n_views=3):
+                 n_views=3, splat_bins=True, tap_window=32, window_margin_voxels=6.0,
+                 mesh_th=-1.0):
         super().__init__()
         # tight_cull: splat and cull against the level-1 occupancy (fast
         # mode); off: against the sum-over-levels blanket, compacted to
         # splat_cap voxels (0 = dense walk), with split projection tables
         self.tight_cull = bool(tight_cull)
         self.splat_cap = int(splat_cap)
+        # splat_bins: under the tight cull, per-pixel depth-bin masks are the
+        # cull; without them the occupancy tap, over tap_window grid samples
+        # from each ray's front depth less window_margin_voxels level-0
+        # voxels (0 or >= n_samples: every sample)
+        self.splat_bins = bool(splat_bins)
+        self.tap_window = int(tap_window)
+        self.window_margin_voxels = float(window_margin_voxels)
         self.frame_mode = bool(frame_mode)
         # dense_slots: evaluate every slot of the (K, R) frame; off, compact
         # the valid slots globally to sigma_cap points per ray_cap rays
@@ -304,6 +331,8 @@ class Renderer(nn.Module):
         self.compute_dtype = compute_dtype
         # the source views each frame brings (cfg.src_view_num)
         self.n_views = int(n_views)
+        # the mesh path's alpha threshold (1 / test.mesh_th; -1 without it)
+        self.mesh_th = float(mesh_th)
         # every switch set selects a key the kernel compiles (float source
         # images change only the row types); a view count may not
         if self.pallas_point:
@@ -358,12 +387,23 @@ class Renderer(nn.Module):
             coarse = ((8, 64, "i8") if self.fold_coarse_fc else (8, 96, "u8"),)
         return (l1,) + coarse
 
+    def _uses_bins(self):
+        """The splat-bin cull: `splat_bins` under the tight cull."""
+        return self.splat_bins and self.tight_cull
+
+    def _uses_window(self):
+        """JAX's windowed tap (gpnerf_tpu/render/demo.py:424-430): no bins,
+        0 < tap_window < n_samples, ascending traversal."""
+        return (not self._uses_bins() and 0 < self.tap_window < self.n_samples
+                and not self.neg_ray_val)
+
     def _frame_mode_on(self):
-        """JAX's windowless frame (gpnerf_tpu/render/demo.py:459-461: no
-        bins, ascending traversal, K == S; the port has no tap window): the
-        blanket cull only, not under neg-ray."""
-        return (self.frame_mode and not self.tight_cull and not self.neg_ray_val
-                and self.samples_per_ray == self.n_samples)
+        """JAX's frame (gpnerf_tpu/render/demo.py:459-461): `frame_mode`
+        with the tap window, or without bins and with K == S on ascending
+        rays; inert otherwise."""
+        return self.frame_mode and (self._uses_window() or (
+            not self._uses_bins() and not self.neg_ray_val
+            and self.samples_per_ray == self.n_samples))
 
     def render_demo_fn(self):
         """batch (render/base.batch_to_device) -> render dict."""
@@ -494,12 +534,63 @@ class Renderer(nn.Module):
         return out
 
     # ------------------------------------------------------------------
-    def _splat_pixels(self, pts_w, row_ok, batch, H, W):
-        """Mark each occupied voxel's 4 neighboring target pixels. Returns
-        (pixmask (H*W,) int32, (minx, miny) floor pixel per voxel)."""
+    @torch.no_grad()
+    def mesh_frame(self, batch):
+        """The mesh path's volume stage (JAX render/demo.py:1856-1883):
+        render/base.mesh_volume, the frame's occupancy field `masks3d` and
+        the world AABB of its occupied voxels, padded by 0.05 in z
+        (`can_bounds`)."""
+        vol = mesh_volume(self.encoder, self.nerfhead, batch, self.max_out_sh,
+                          neg_ray=self.neg_ray_val)
+        masks3d = occupancy_volume(vol["level_feats"], vol["pre"]["grids"])
+        vs = torch.tensor(self.voxel_size, dtype=torch.float32, device=masks3d.device)
+        vol["masks3d"] = masks3d
+        vol["can_bounds"] = _occupied_bounds(*self._occupied_world_pts(masks3d, batch, vs))
+        return vol
+
+    @torch.no_grad()
+    def render_mesh(self, batch, chunk=65536):
+        """The occupancy-driven mesh branch (JAX render/demo.py:1886-1965;
+        the reference's demo_render.py:249-268,366-376): a grid on the host
+        from can_bounds[0] in steps of the voxel size up to can_bounds[1]
+        per axis (ij order; the dataset's visual hull `pts` / `inside` is
+        not read), sigma at every grid point in chunks of `chunk`
+        (render/base.mesh_sigma, zero where the trilinear level-1
+        occupancy of masks3d is not > 0: the reference's `sp_feats > 0`
+        cull), 1 - exp(-sigma) as the alpha cube, padded by 10, marching
+        cubes at `mesh_th`. Returns {"cube" (padded), "mesh"
+        (utils/mesh_io.Trimesh, index coordinates)}."""
+        vol = self.mesh_frame(batch)
+        cb = vol["can_bounds"].cpu().numpy()
+        vs = np.asarray(self.voxel_size, np.float64)
+        axes = [np.arange(cb[0, i], cb[1, i] + vs[i], vs[i]) for i in range(3)]
+        grid = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1).astype(np.float32)
+        pts = torch.from_numpy(grid.reshape(-1, 3)).to(vol["masks3d"].device)
+        out_sh = vol["out_sh"]
+        size1 = out_sh // 2
+        sigmas = []
+        for i in range(0, pts.shape[0], chunk):
+            p = pts[i:i + chunk]
+            pos1 = points_to_dhw_vox(p, batch, self.voxel_size) / out_sh.float() * (
+                size1 - 1).float()
+            occ = trilinear_dense_gather(vol["masks3d"], pos1, dyn_size=size1)
+            sigma = mesh_sigma(self.nerfhead, vol, batch, p, self.voxel_size,
+                               neg_ray=self.neg_ray_val)
+            sigmas.append(torch.where(occ > 0, sigma, 0.0))
+        alpha = 1.0 - np.exp(-torch.cat(sigmas).cpu().numpy())
+        return mesh_from_alpha(alpha.reshape(grid.shape[:3]), self.mesh_th)
+
+    # ------------------------------------------------------------------
+    def _splat_pixels(self, pts_w, row_ok, batch, H, W, with_zmin=False):
+        """Mark each occupied voxel's 4 neighboring target pixels and, with
+        `with_zmin`, scatter-min its camera depth onto them (the front depth
+        the tap window starts from; camera depth is the rays' t-parameter).
+        Returns (pixmask (H*W,) int32, zmin (H*W,) float32 with _ZFAR where
+        no voxel lands, or None; (minx, miny) floor pixel per voxel)."""
         tp = batch["target_pose"]
         cam = pts_w @ tp[:, :3].T + tp[:, 3]
         pix = cam @ batch["target_K"].T
+        # sign-preserving guard: neg-ray scene points lie at negative z
         z = pix[:, 2:3]
         z = torch.where(z.abs() < 1e-9, 1e-9, z)
         xy = pix[:, :2] / z
@@ -508,9 +599,16 @@ class Renderer(nn.Module):
         maxx = (minx + 1).clamp(0, W - 1)
         maxy = (miny + 1).clamp(0, H - 1)
         pixmask = torch.zeros(H * W + 1, dtype=torch.int32, device=pts_w.device)
+        zmin = depth = None
+        if with_zmin:
+            zmin = torch.full((H * W + 1,), _ZFAR, dtype=torch.float32, device=pts_w.device)
+            depth = torch.where(row_ok, cam[:, 2], _ZFAR)
         for yy, xx in ((miny, minx), (maxy, minx), (miny, maxx), (maxy, maxx)):
-            pixmask[torch.where(row_ok, yy * W + xx, H * W)] = 1
-        return pixmask[:-1], minx, miny
+            tgt = torch.where(row_ok, yy * W + xx, H * W)
+            pixmask[tgt] = 1
+            if with_zmin:
+                zmin.scatter_reduce_(0, tgt, depth, "amin")
+        return pixmask[:-1], None if zmin is None else zmin[:-1], minx, miny
 
     def _splat_bins(self, pts_w, row_ok, batch, H, W, can_bounds, minx, miny):
         """Per-pixel depth-bin occupancy (H*W, S) u8: bin s of pixel p is
@@ -743,11 +841,7 @@ class Renderer(nn.Module):
             pts_w = can_pts @ batch["Rh"].T + batch["Th"].reshape(1, 3)
         else:
             pts_w, row_ok = self._occupied_world_pts(masks3d, batch, vs)
-        okc = row_ok[:, None]
-        min_xyz = torch.where(okc, pts_w, 1e9).amin(dim=0)
-        max_xyz = torch.where(okc, pts_w, -1e9).amax(dim=0)
-        dzv = torch.tensor([0.0, 0.0, 0.05], device=dev)
-        can_bounds = torch.stack([min_xyz - dzv, max_xyz + dzv])
+        can_bounds = _occupied_bounds(pts_w, row_ok)
         if not self.tight_cull and self.splat_cap:
             # compact the blanket's occupied voxels before the splat
             # scatters; exact when drop-free, and a drop is counted into
@@ -756,7 +850,17 @@ class Renderer(nn.Module):
             pts_w = pts_w[sidx.clamp_max(pts_w.shape[0] - 1)]
 
         # pixel splat, ray compaction
-        pixmask, minx, miny = self._splat_pixels(pts_w, row_ok, batch, H, W)
+        window = self._uses_window()
+        pixmask, zmin, minx, miny = self._splat_pixels(pts_w, row_ok, batch, H, W,
+                                                       with_zmin=window)
+        if window:
+            # the front-depth image's 4-neighborhood min fills the
+            # dilation-only pixels and guards against splat overshoot
+            zm = zmin.reshape(H, W)
+            zm = torch.minimum(
+                torch.minimum(zm, torch.minimum(torch.roll(zm, 1, 0), torch.roll(zm, -1, 0))),
+                torch.minimum(torch.roll(zm, 1, 1), torch.roll(zm, -1, 1)))
+            zmin = zm.reshape(-1)
         pm = pixmask.reshape(H, W)
         if self.tight_cull:
             # level-1 voxel spacing can project to > 2 px at close range; one
@@ -775,11 +879,18 @@ class Renderer(nn.Module):
         if stop_stage == "rays":
             return None
         bins = None
-        if self.tight_cull:
+        if self._uses_bins():
             bins = self._splat_bins(pts_w, row_ok, batch, H, W, can_bounds, minx, miny)[safe]
         else:
-            # occupancy-cull byte volume, one-voxel dilated (_occupancy_tap)
-            occb = masks3d > 0
+            # occupancy-cull byte volume, one-voxel dilated (_occupancy_tap):
+            # the level-1 occupancy under the tight cull, else the blanket
+            if not self.tight_cull:
+                cull_vol = masks3d
+            elif self.dense_conv:
+                cull_vol = occupancy_volume_dense(vols, levels=(0,))
+            else:
+                cull_vol = occupancy_volume(level_feats, grids, levels=(0,))
+            occb = cull_vol > 0
             for ax in range(3):
                 occb = occb | torch.roll(occb, 1, ax) | torch.roll(occb, -1, ax)
             tables["occb"] = occb.to(torch.uint8)
@@ -787,26 +898,23 @@ class Renderer(nn.Module):
             "rays_o": rays_o, "rays_d": rays_d, "near": near, "far": far,
             "ray_ok": ray_ok, "pix_idx": pix_idx, "ray_overflow": ray_overflow,
             "can_bounds": can_bounds, "bins": bins,
+            "zmin": zmin[safe] if window else None,
         }
         return pre, tables, rays
 
-    def _occupancy_tap(self, batch, pre, tables, rd):
-        """The blanket cull (demo_render.py:270-283, equivalent-or-looser):
+    def _occupancy_tap(self, batch, pre, tables, rd, s_cand):
+        """The occupancy cull (demo_render.py:270-283, equivalent-or-looser):
         sample s of ray r survives iff the nearest level-1 voxel of the
-        one-voxel-dilated occupancy volume is set. Positions are computed per
-        ray as (S, R) component planes, in traversal order (row w is sample
-        S - 1 - w under neg-ray). Returns (S, R) bool. (The JAX
+        one-voxel-dilated occupancy volume is set. `s_cand` (W, R) holds the
+        candidates' sample indices in traversal order (the window's from
+        `s_lo`, or all S, descending under neg-ray); positions are computed
+        per ray as (W, R) component planes. Returns (W, R) bool. (The JAX
         package gathers u32 words and shifts the byte out, a TPU gather
         workaround; here the tap reads the byte directly.)"""
-        S = self.n_samples
         occb = tables["occb"]
         rays_o, rays_d = rd["rays_o"], rd["rays_d"]
-        dev = rays_o.device
-        s = torch.arange(S, dtype=torch.float32, device=dev)[:, None]
-        if self.neg_ray_val:
-            s = (S - 1) - s
-        t = s / torch.full((), float(S - 1), device=dev)
-        z = rd["near"][None, :] * (1.0 - t) + rd["far"][None, :] * t  # (S, R)
+        t = s_cand / torch.full((), float(self.n_samples - 1), device=rays_o.device)
+        z = rd["near"][None, :] * (1.0 - t) + rd["far"][None, :] * t  # (W, R)
         Rh, Th = batch["Rh"], batch["Th"].reshape(3)
         min_xyz, vs, out_sh = batch["bounds"][0], tables["voxel_size"], pre["out_sh"]
         cells, inb = [], None
@@ -825,11 +933,27 @@ class Renderer(nn.Module):
         flat = (cells[2] * H1 + cells[1]) * W1 + cells[0]
         return (occb.reshape(-1)[flat] > 0) & inb & rd["ray_ok"][None, :]
 
+    def _window_start(self, rd, W):
+        """Each ray's first tapped grid sample `s_lo` (R,) int64 (JAX
+        render/demo.py:431-437): the front depth less the margin, floored
+        onto the sample grid in float32 in JAX's order of operations,
+        clipped to [0, S - W]; 0 where no voxel splatted. The compiled JAX
+        program multiplies by the float32 reciprocal of S - 1 where the
+        source divides by it; a quotient that lands on an integer floors
+        differently under the two, so the port multiplies too."""
+        S = self.n_samples
+        near, zmin = rd["near"], rd["zmin"]
+        dz = ((rd["far"] - near) * float(np.float32(1.0) / np.float32(S - 1))).clamp_min(1e-9)
+        margin = float(np.float32(self.window_margin_voxels) * np.float32(self.voxel_size[0]))
+        s_lo = torch.floor((zmin - margin - near) / dz).long()
+        return torch.where(zmin > 1e8, 0, s_lo.clamp(0, S - W))
+
     def _ray_pipeline(self, batch, pre, tables, rd, stop_stage=None):
-        """Sample cull (splat bins, or the occupancy tap), per-ray K-slot
-        compaction over the (K, R) slot frame — or, in frame mode, the whole
-        (S, R) sample grid with the cull left to the point stages — then,
-        without `dense_slots`, the global compaction of the valid slots to
+        """Sample cull (splat bins, or the occupancy tap over the window or
+        every sample), per-ray K-slot compaction over the (K, R) slot frame
+        — or, in frame mode, the K grid samples from each ray's window start
+        with the cull left to the point stages — then, without
+        `dense_slots`, the global compaction of the valid slots to
         sigma_cap points, point stages and composite. Returns (rgb_map,
         stats), or None after a `stop_stage` of RAY_STOPS or POINT_STOPS."""
         S, K = self.n_samples, self.samples_per_ray
@@ -841,11 +965,19 @@ class Renderer(nn.Module):
         neg = self.neg_ray_val
         sig_idx = None
         sig_overflow = torch.zeros((), dtype=torch.long, device=dev)
+        # the tap's W candidates from s_lo, in traversal order: sample
+        # s0 + sgn * w is the w-th from the front (descending under neg-ray)
+        W = max(self.tap_window, K) if self._uses_window() else S
+        s_lo = (self._window_start(rd, W) if self._uses_window()
+                else torch.zeros(nr, dtype=torch.long, device=dev))
+        s_lo_f = s_lo.float()
+        sgn = -1.0 if neg else 1.0
+        s0_f = s_lo_f + (W - 1) if neg else s_lo_f
         if self._frame_mode_on():
-            # windowless frame (no bins, K == S): no tap, no rank or global
-            # compaction; the trilinear level-1 occupancy cull comes from
-            # the kernel
-            slot = torch.arange(K, dtype=torch.float32, device=dev)[:, None].expand(K, nr)
+            # the frame is the K grid samples from s_lo: no tap, no rank or
+            # global compaction; the trilinear level-1 occupancy cull comes
+            # from the kernel
+            slot = s_lo_f[None, :] + torch.arange(K, dtype=torch.float32, device=dev)[:, None]
             sig_ok = ray_ok[None, :].expand(K, nr)
             perray_overflow = torch.zeros((), dtype=torch.long, device=dev)
             mask_from_query = True
@@ -856,25 +988,25 @@ class Renderer(nn.Module):
                     ok = ok.flip(0)  # traversal order: front to back
                 ok = ok & ray_ok[None, :]
             else:
-                ok = self._occupancy_tap(batch, pre, tables, rd)
+                w = torch.arange(W, dtype=torch.float32, device=dev)[:, None]
+                ok = self._occupancy_tap(batch, pre, tables, rd, s0_f[None, :] + sgn * w)
             if stop_stage == "cull_occ":
                 return None
             cum = torch.cumsum(ok.int(), dim=0)
-            # slot k of a ray holds the sample index of its (k+1)-th occupied
-            # sample (S when it has fewer): the nearest K survivors are kept.
-            # The index is the count of samples with cum <= k, found per ray
-            # by binary search in the non-decreasing cum.
+            # slot k of a ray holds the candidate index of its (k+1)-th
+            # occupied sample (W when it has fewer): the nearest K survivors
+            # are kept. The index is the count of candidates with cum <= k,
+            # found per ray by binary search in the non-decreasing cum.
             ks = torch.arange(K, dtype=cum.dtype, device=dev).repeat(nr, 1)
             slot_rel = torch.searchsorted(cum.T.contiguous(), ks, right=True).T  # (K, R)
-            sig_ok = slot_rel < S
+            sig_ok = slot_rel < W
             n_sigma = sig_ok.sum()
             perray_overflow = (cum[-1] - K).clamp_min(0).sum()
             if stop_stage == "cull_slots":
                 return None
-            # the absolute sample index of each slot, in traversal order
-            slot = slot_rel.clamp_max(S - 1).float()
-            if neg:
-                slot = (S - 1) - slot
+            # the absolute sample index of each slot; masked slots clamp to
+            # the last candidate
+            slot = s0_f[None, :] + sgn * slot_rel.clamp_max(W - 1).float()
             mask_from_query = self.sigma_query_cull
             if not self.dense_slots:
                 # global compaction, slot-major: an overflow drops the
@@ -1079,31 +1211,11 @@ class Renderer(nn.Module):
         return outs[0], outs[1], sig_ok
 
 
-def check_mode(cfg):
-    """Raise NotImplementedError, naming the key, for a renderer switch
-    outside the modes the port implements (see FAST_MODE above)."""
-    t = cfg.tpu
-
-    def need(table, mode):
-        for key, val in table.items():
-            if t[key] != val:
-                raise NotImplementedError(
-                    f"tpu.{key}={t[key]!r}: the port's {mode} needs {key}={val!r}")
-
-    if t.tight_cull:
-        need(FAST_MODE, "fast mode (tight_cull on)")
-    else:
-        need(REF_MODE, "reference mode (tight_cull off)")
-
-
 def build_render(cfg, device="cuda"):
     """The progressive renderer for `cfg` on `device` in the mode its
     switches select, its encoder and heads built through the registry
     (`encoder.file`, `head.file`), with untrained parameters (load weights
     with train/checkpoint.py)."""
-    check_mode(cfg)
-    if not cfg.head.rgb.use_rgbhead:
-        raise NotImplementedError("the mesh path (use_rgbhead False) is not ported")
     dtypes = {"bfloat16": torch.bfloat16, "float32": None}
     if cfg.tpu.matmul_dtype not in dtypes:
         raise NotImplementedError(f"tpu.matmul_dtype={cfg.tpu.matmul_dtype!r}")
@@ -1135,6 +1247,10 @@ def build_render(cfg, device="cuda"):
         sigma_cap=cfg.tpu.sigma_cap,
         neg_ray_val="thuman" in cfg.dataset.test.name,
         n_views=cfg.src_view_num,
+        splat_bins=cfg.tpu.splat_bins,
+        tap_window=cfg.tpu.tap_window,
+        window_margin_voxels=cfg.tpu.window_margin_voxels,
+        mesh_th=-1.0 if cfg.head.rgb.use_rgbhead else 1.0 / cfg.test.mesh_th,
     )
     return r.to(device).eval()
 

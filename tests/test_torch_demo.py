@@ -128,14 +128,16 @@ def test_port_render_is_deterministic(renders):
      ("int4_coarse", True)],
 )
 def test_switches_outside_fast_mode_raise(key, value):
-    # the windowed tap (splat_bins off under the tight cull) is refused,
-    # naming the key; the geometry-table switches beside merged float32
-    # rows (merge_src_feat), refused while the point-stage kernel had a
-    # closed table of libraries, build: the kernel is built for the key
-    # they select
+    # switches refused by earlier slices build now: the windowed tap
+    # (splat_bins off under the tight cull) hands the kernel the binned
+    # fast mode's key (tests/test_torch_window.py holds its renders against
+    # JAX); the geometry-table switches beside merged float32 rows
+    # (merge_src_feat), refused while the point-stage kernel had a closed
+    # table of libraries, build: the kernel is built for the key they select
     if key == "splat_bins":
-        with pytest.raises(NotImplementedError, match=key):
-            port_get("render", "demo_render")(_cfg(port_cfg, **{key: value}), device="cpu")
+        r = port_get("render", "demo_render")(_cfg(port_cfg, **{key: value}), device="cpu")
+        assert r._uses_window() and not r._uses_bins() and r.tap_window == 32
+        assert ps.form_name(r.kernel_form()) == "a"
         return
     r = port_get("render", "demo_render")(
         _cfg(port_cfg, **{key: value}, merge_src_feat=True), device="cpu")

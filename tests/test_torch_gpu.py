@@ -9,7 +9,9 @@ versions at ragged sizes (for the point stages, sizes that end inside a
 16-row tile and inside a warp; FORMS' keys and keys built from a call's
 key, 1-8 views among them), the wrappers' refusals, 128^2 renders on the card against the
 same render on the CPU, the kernel on a compacted render's points and the
-compacted render against the dense-slot one, and one train step on the card
+compacted render against the dense-slot one, the kernel on the windowed
+tap's points and the windowed renders on the card against the CPU, both
+mesh paths on the card against the CPU, and one train step on the card
 against the CPU."""
 
 import os
@@ -531,6 +533,121 @@ def test_compacted_render_on_card_equals_dense_slots(mode):
     g, c = render(dev, **capped), render(torch.device("cpu"), **capped)
     assert int(g["overflows"][2]) > 0
     assert torch.equal(g["overflows"], c["overflows"]) and torch.equal(g["counts"][:2], c["counts"][:2])
+
+
+# --- the windowed occupancy tap (render/demo.py, splat_bins off or tap_window under the blanket)
+
+WINDOW_CASES = {
+    # case -> (the switches over _compaction_cfg's mode, its kernel form)
+    "fast": ("fast", dict(splat_bins=False), "a"),
+    "frame_mode": ("fast", dict(splat_bins=False, frame_mode=True), "a+e"),
+    "sigma_query_cull": ("fast", dict(splat_bins=False, sigma_query_cull=True), "a+e"),
+    "compacted": ("fast", dict(splat_bins=False, dense_slots=False), "a"),
+    "blanket W32": ("reference K32", dict(tap_window=32), "c"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(WINDOW_CASES))
+def test_kernel_matches_plain_on_windowed_points(case, monkeypatch):
+    """The point-stage kernel on the inputs a windowed 128^2 render hands
+    it, against its plain version, with the tolerances of
+    test_kernel_matches_plain; the render launches it once, under the
+    key of its binned or windowless sibling."""
+    dev = _cuda()
+    from gpnerf_tpu_torch.registry import get
+    from gpnerf_tpu_torch.render import demo
+    from gpnerf_tpu_torch.render.base import batch_to_device
+    from gpnerf_tpu_torch.train.checkpoint import load_eval_model
+
+    mode, tpu, form = WINDOW_CASES[case]
+    cfg = _compaction_cfg(mode, **tpu)
+    r = load_eval_model(CKPT, get("render", "demo_render")(cfg, device=dev))
+    assert r._uses_window() and ps.form_name(r.kernel_form()) == form
+    calls = []
+    real = demo.fused_point_stages_tabs
+    monkeypatch.setattr(demo, "fused_point_stages_tabs",
+                        lambda *a, **k: calls.append((a, k)) or real(*a, **k))
+    ps.LAUNCHES.clear()
+    ret = r.render_demo_fn()(batch_to_device(_frame(cfg), dev))
+    torch.cuda.synchronize()
+    assert dict(ps.LAUNCHES) == {form: 1} and len(calls) == 1
+    np.testing.assert_array_equal(ret["overflows"].cpu().numpy()[[0, 2, 3]], 0)
+    args, kw = calls[0]
+    P = args[3].shape[0]
+    out = ps.fused_point_stages_tabs(*args, **kw)
+    out_p = ps.point_stages_tabs_plain(*args, **kw)
+    a, rgb, a_p, rgb_p = (t.cpu().numpy() for t in (*out[:2], *out_p[:2]))
+    assert np.isfinite(a).all() and np.isfinite(rgb).all()
+    _assert_near(np.abs(a - a_p), P)
+    agree = (a > 1e-14) == (a_p > 1e-14)
+    assert (~agree).sum() <= max(1, 0.001 * P)
+    _assert_near(np.abs(rgb - rgb_p)[agree], P)
+    if len(out) == 3:
+        assert torch.equal(out[2], out_p[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(WINDOW_CASES))
+def test_windowed_render_on_card_matches_cpu(case):
+    """A windowed 128^2 render on the card against the CPU's: the ray set,
+    the overflows and the ray and sigma-slot counts equal, the image as in
+    test_render_on_card_matches_cpu."""
+    dev = _cuda()
+    from gpnerf_tpu_torch.registry import get
+    from gpnerf_tpu_torch.render.base import batch_to_device
+    from gpnerf_tpu_torch.train.checkpoint import load_eval_model
+
+    mode, tpu, _ = WINDOW_CASES[case]
+    cfg = _compaction_cfg(mode, **tpu)
+    batch = _frame(cfg)
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        r = load_eval_model(CKPT, get("render", "demo_render")(cfg, device=d))
+        outs[d.type] = {k: v.cpu() for k, v in r.render_demo_fn()(batch_to_device(batch, d)).items()}
+    g, c = outs["cuda"], outs["cpu"]
+    for k in ("mask_at_box", "ray_pix_idx", "overflows"):
+        assert torch.equal(g[k], c[k]), k
+    assert torch.equal(g["counts"][:2], c["counts"][:2])
+    assert abs(int(g["counts"][2]) - int(c["counts"][2])) <= 0.001 * int(c["counts"][2])
+    m = g["mask_at_box"]
+    d = (g["pred_chw"].reshape(3, -1)[:, m] - c["pred_chw"].reshape(3, -1)[:, m]).abs()
+    assert float(d.median()) < 2e-3 and float((d > 0.05).float().mean()) <= 1e-3
+    assert float(d.max()) < 0.15
+
+
+# --- the mesh path (render_mesh of both renderers)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["BaseRender", "demo_render"])
+def test_render_mesh_on_card_matches_cpu(name):
+    """render_mesh of a 128^2 frame at a 0.02 m voxel on the card against
+    the CPU: the same grid, alpha within 1e-4, a mesh on both."""
+    dev = _cuda()
+    from gpnerf_tpu_torch.config import cfg as base
+    from gpnerf_tpu_torch.registry import get
+    from gpnerf_tpu_torch.render.base import batch_to_device
+    from gpnerf_tpu_torch.train.checkpoint import load_eval_model
+
+    cfg = base.clone()
+    cfg.defrost()
+    cfg.merge_from_file("configs/synthetic.yaml")
+    cfg.dataset.H = cfg.dataset.W = 128
+    cfg.head.sigma.code_dim = 32
+    cfg.head.rgb.use_rgbhead = False
+    cfg.dataset.voxel_size = [0.02, 0.02, 0.02]
+    cfg.tpu.matmul_dtype = "float32"
+    cfg.freeze()
+    batch = _frame(cfg)
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        r = load_eval_model(CKPT, get("render", name)(cfg, device=d)).eval()
+        outs[d.type] = r.render_mesh(batch_to_device(batch, d), chunk=16384)
+    g, c = outs["cuda"], outs["cpu"]
+    assert g["cube"].shape == c["cube"].shape
+    np.testing.assert_allclose(g["cube"], c["cube"], rtol=0, atol=1e-4)
+    assert len(g["mesh"].faces) > 1000 and len(c["mesh"].faces) > 1000
 
 
 # --- the quad-lerp kernels and the row gather (ops/quad_lerp.py, row_gather.py)

@@ -86,6 +86,20 @@ def test_synthetic_compacted(tmp_path):
     assert ray == 0 and sigma > 0 and rgb == 0, line
 
 
+def test_synthetic_mesh_branch(tmp_path, ckpt):
+    """`head.rgb.use_rgbhead False` (the mesh branch): the renderer builds,
+    every frame renders, and the CLI prints the timing lines but no metric
+    means, as the JAX package's Trainer.evaluate does (trainer.py:373)."""
+    out = run_cli(tmp_path, "--cfg", os.path.join(ROOT, "configs", "synthetic.yaml"), *SMALL,
+                  "dataset.H", "128", "dataset.W", "128", "tpu.ray_cap", "16384",
+                  "head.rgb.use_rgbhead", "False", "render.resume_path", ckpt,
+                  "result_dir", str(tmp_path / "results"))
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    assert "avg total render time (encoder excluded)" in out.stdout
+    assert "avg encoder time" in out.stdout
+    assert not any(s.startswith(("mse: ", "psnr: ", "ssim: ")) for s in out.stdout.splitlines())
+
+
 @pytest.mark.parametrize("config,tables", [
     pytest.param("trainzju_valzju.yaml", ["tpu.merge_lowres_src", "True"],
                  id="trainzju_valzju.yaml"),

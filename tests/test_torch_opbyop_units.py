@@ -313,13 +313,9 @@ def test_op_by_op_compacted_render_equals_dense_slots(small_renders, tpu, sigma_
     ],
 )
 def test_build_render_still_raises_for_what_is_not_ported(tpu, key):
-    """The windowed tap is refused, naming its key. The other combinations,
-    refused while the fused point-stage kernel had a closed table of
-    libraries, build: the kernel is built for the key they select."""
-    if key in ("tap_window", "splat_bins"):
-        with pytest.raises(NotImplementedError, match=key):
-            port_get("render", "demo_render")(_cfg(port_cfg, **tpu), device="cpu")
-        return
+    """Combinations refused while the fused point-stage kernel had a closed
+    table of libraries build: the kernel is built for the key they
+    select."""
     r = port_get("render", "demo_render")(_cfg(port_cfg, **tpu), device="cpu")
     assert r.pallas_point and ps.check_key(r.kernel_form()) == r.kernel_form()
     assert r.kernel_form() not in ps.FORMS

@@ -329,12 +329,17 @@ def test_dense_slots_off_renders_the_dense_frame(port_renders):
     ],
 )
 def test_build_render_raises_outside_the_modes(tpu, key):
-    """The windowed tap is refused, naming its key. The other combinations,
-    refused while the fused point-stage kernel had a closed table of
-    libraries, build: the kernel is built for the key they select."""
-    if key in ("tap_window", "splat_bins"):
-        with pytest.raises(NotImplementedError, match=key):
-            port_get("render", "demo_render")(_cfg(port_cfg, **tpu), device="cpu")
+    """Combinations refused by earlier slices build: the windowed tap under
+    the blanket cull (tap_window 16) hands the kernel the reference mode's
+    key (tests/test_torch_window.py holds its renders against JAX); the
+    others, refused while the fused point-stage kernel had a closed table
+    of libraries, select a key the kernel is built for."""
+    if key == "tap_window":
+        r = port_get("render", "demo_render")(_cfg(port_cfg, **tpu), device="cpu")
+        assert r._uses_window() and r.tap_window == 16
+        assert r.kernel_form() == port_get("render", "demo_render")(
+            _cfg(port_cfg), device="cpu").kernel_form()
+        assert ps.form_name(r.kernel_form()) == "c"
         return
     r = port_get("render", "demo_render")(_cfg(port_cfg, **tpu), device="cpu")
     assert r.pallas_point and ps.check_key(r.kernel_form()) == r.kernel_form()

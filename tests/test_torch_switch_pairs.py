@@ -3,8 +3,8 @@
 `int4_feat` in the fast mode and in any subset in the reference mode,
 `int4_feat` with `kernel_octet` off on the fused path, the paper configs'
 `tpu` sections unchanged, and any switch set with any view count from 1 to
-8 on the fused path (its kernel built from the key); what `build_render`
-still refuses, the windowed tap, names its key. The int4 feature table has no JAX render on the CPU (the JAX
+8 on the fused path (its kernel built from the key); the windowed tap
+builds with the key of its binned or windowless sibling. The int4 feature table has no JAX render on the CPU (the JAX
 package takes it on the TPU backend only, render/demo.py:1430-1434), so the
 int4 render is held against the port's own int8 render; the renders are
 128^2 frames of the synthetic scene with the trained checkpoint."""
@@ -191,14 +191,21 @@ def test_build_render_accepts_the_switch_combinations(tpu):
 @pytest.mark.parametrize(
     "tpu,key",
     [
-        # 3f: the windowed tap without bins
+        # 3f: the windowed tap without bins (ported since)
         (dict(splat_bins=False), "splat_bins"),
         (dict(REF, tap_window=16), "tap_window"),
     ],
 )
 def test_build_render_refuses_naming_the_key(tpu, key):
-    with pytest.raises(NotImplementedError, match=key):
-        port_get("render", "demo_render")(_cfg(**tpu), device="cpu")
+    """The windowed tap, refused until it was ported, builds: the window is
+    on, and the kernel gets the key of the same tables with bins or without
+    the window."""
+    r = port_get("render", "demo_render")(_cfg(**tpu), device="cpu")
+    assert r._uses_window() and not r._uses_bins()
+    plain = dict(tpu, **{key: {"splat_bins": True, "tap_window": 0}[key]})
+    assert r.kernel_form() == port_get("render", "demo_render")(
+        _cfg(**plain), device="cpu").kernel_form()
+    assert ps.check_key(r.kernel_form()) == r.kernel_form()
 
 
 def test_build_render_refuses_other_view_counts():

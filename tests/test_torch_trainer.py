@@ -212,6 +212,12 @@ def test_render_eval_matches_jax():
 ])
 def test_out_of_scope_switches_raise(key, value, match):
     cfg = small_cfg(port_cfg, **{key: value})
+    if key == "head.rgb.use_rgbhead":
+        # the mesh branch, refused before the mesh slice: now in scope
+        # (tests/test_torch_mesh.py holds render_mesh against JAX)
+        check_train_scope(cfg)
+        assert build_render(cfg, device="cpu").mesh_th == 1.0 / cfg.test.mesh_th
+        return
     if match is None:
         check_train_scope(cfg)
         r = build_render(cfg, device="cpu")

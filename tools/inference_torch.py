@@ -9,7 +9,8 @@ renderer named by `render.file` (the progressive `demo_render` or
 `BaseRender`) loads `render.resume_path` strictly, the test split runs
 through `Trainer.evaluate`, and the script prints the mse/psnr/ssim means,
 the overflow counters of a progressive render and the mean render time per
-frame; with `test.is_vis` it writes each frame's src | gt | pred image under
+frame (with `head.rgb.use_rgbhead False`, the mesh branch, no means, as the
+JAX package's Trainer.evaluate); with `test.is_vis` it writes each frame's src | gt | pred image under
 `result_dir/test.test_seq`, and with `test.profile` it first logs
 `Renderer.profile`'s per-stage times of the first frame.
 

@@ -14,8 +14,8 @@ The datasets are the registry's: the synthetic fixture, ZJU-MoCap
 a dataset name holding "thuman" turns on), as in configs/trainzju_valzju.yaml
 and configs/trainthu_valzju.yaml. Switches the port does not implement
 raise NotImplementedError naming the key (render/base.check_train_scope,
-data/loader.build_batchsampler): bf16 training, the mesh branch, data
-parallelism, several frames per step. Float32 is float32: TF32 is off for
+data/loader.build_batchsampler): bf16 training, data parallelism, several
+frames per step, the `image_size` sampler. Float32 is float32: TF32 is off for
 matmuls and cuDNN convolutions.
 """
 
