@@ -123,6 +123,16 @@ Phases, each fatal on failure:
      the train step's kernel table and idle share; then the same under
      neg-ray on the `thuman-synthetic` splits (3 warm-up and 5 timed
      steps, the eval render's PSNR);
+  5b. bf16 mixed-precision training (`tpu.train_dtype bfloat16`: float32
+     parameters, bf16 convolutions and Dense layers on real bf16 tensors):
+     phase 5's 3 + 20 steps, s/it and peak memory beside phase 5's float32
+     figures, its checks (every parameter still float32), the eval PSNR
+     and `Trainer.evaluate` of the bf16-trained weights through the
+     progressive renderer (form (a), {"a": 2} launches); `--profile` adds
+     the bf16 step's kernel table; a `Trainer.train` epoch of 2 batches of
+     2 frames (`dataset.img_num_per_gpu 2`); a 128^2 bf16 step on the card
+     against the CPU; tools/train_bench_torch.py --iters 10 for float32 and
+     bfloat16, each in a process of its own;
   6. the inference CLI (tools/inference_torch.py) in a process of its own
      on configs/synthetic.yaml with the trained checkpoint: exit 0 and PSNR
      >= 20 dB;
@@ -781,17 +791,20 @@ def mesh_phase(card):
         check(d_cube < 1e-3, f"128^2 {name} mesh: card and CPU alpha cubes differ by {d_cube}")
 
 
-def train_phase(card, profile, neg=False):
+def train_phase(card, profile, neg=False, train_dtype="float32"):
     """Phase 5: the training path at full width (configs/synthetic.yaml:
     512^2, ResNet34-UNet, code_dim 32, 1024 rays x 64 samples, float32)
     from the trained checkpoint: warm-up steps, then timed steps on distinct
     batches through `train.step.train_step`; the whole-image eval render of
     one test frame; `Trainer.evaluate` of that frame through the progressive
-    renderer (kernel 1, form (a)). Returns the point-stage launches of that
-    evaluation (counts set to 0 just before the path). With `neg`, the
+    renderer (kernel 1, form (a)). Returns {"launches": the point-stage
+    launches of that evaluation (counts set to 0 just before the path),
+    "s_per_it": (min, median, max), "peak_gib", "psnr"}. With `neg`, the
     same on the `thuman-synthetic` splits (THuman's neg-ray convention in
-    the train and the eval render), 5 timed steps, no `Trainer.evaluate`;
-    returns 0."""
+    the train and the eval render), 5 timed steps, no `Trainer.evaluate`
+    (launches 0). Phase 5b: `train_dtype` "bfloat16", bf16 mixed precision
+    (`tpu.train_dtype`), every parameter checked float32 after the
+    steps."""
     import numpy as np
     import torch
 
@@ -807,9 +820,12 @@ def train_phase(card, profile, neg=False):
 
     n_warm, n_timed = 3, (5 if neg else 20)
     what = "training, neg-ray" if neg else "training"
+    if train_dtype != "float32":
+        what += f", {train_dtype}"
     cfg = make_cfg(512, "bfloat16", neg)
     cfg.defrost()
     cfg.render.file = "BaseRender"
+    cfg.tpu.train_dtype = train_dtype
     cfg.result_dir = os.path.join(ROOT, "results", "chip_smoke")
     cfg.freeze()
     t0 = time.perf_counter()
@@ -861,7 +877,7 @@ def train_phase(card, profile, neg=False):
     losses = [float(m["loss"]) for m in metrics]
     overflows = [int(m["overflow"]) for m in metrics]
     log(f"# {what} on {card}: {n_timed} timed steps after {n_warm} warm-up, "
-        f"{cfg.train.n_rays} rays x {cfg.train.n_samples} samples, {size}, float32: s/it min {step_s[0]:.4f} median {step_s[n_timed // 2]:.4f} "
+        f"{cfg.train.n_rays} rays x {cfg.train.n_samples} samples, {size}, {train_dtype}: s/it min {step_s[0]:.4f} median {step_s[n_timed // 2]:.4f} "
         f"max {step_s[-1]:.4f} (CUDA events per step; host loop {wall_s:.4f} s/it), peak device "
         f"memory {peak / 2**30:.3f} GiB, loss first {losses[0]:.5f} last {losses[-1]:.5f}, "
         f"pyramid overflows max {max(overflows)}")
@@ -874,6 +890,9 @@ def train_phase(card, profile, neg=False):
         f"{len(stats0)} running-statistics tensors moved")
     check(moved >= len(params0) - 2 and moved_stats == len(stats0),
           f"{what}: parameters or running statistics did not move")
+    check(all(p.dtype == torch.float32 for p in render.parameters())
+          and all(v.dtype == torch.float32 for v in stats.values()),
+          f"{what}: a parameter or running statistic is not float32")
     if profile and not neg:
         profile_steps(lambda b: train_step(render, crit, opt, sched, b, generator=gen),
                       batches[:3], card, step_s[n_timed // 2] * 1e3)
@@ -882,8 +901,10 @@ def train_phase(card, profile, neg=False):
     log(f"# {what}: render_eval_fn on test frame 0 ({int(test_host['n_rays'])} rays): PSNR "
         f"{psnr_before:.3f} dB before the steps, {psnr_after:.3f} dB after")
     check(psnr_after >= 20.0, f"{what}: eval PSNR {psnr_after:.3f} < 20 dB")
+    result = {"launches": 0, "s_per_it": (step_s[0], step_s[n_timed // 2], step_s[-1]),
+              "peak_gib": peak / 2**30, "psnr": psnr_after}
     if neg:
-        return 0
+        return result
 
     cfg_d = cfg.clone()
     cfg_d.defrost()
@@ -896,16 +917,143 @@ def train_phase(card, profile, neg=False):
     result_path = os.path.join(cfg.result_dir, "evaluate")
     metrics_d, avg_s = Trainer(cfg_d, render=demo).evaluate(loader, result_path)
     launches = dict(ps.LAUNCHES)
-    log(f"# training: Trainer.evaluate through demo_render, test frame 0: PSNR "
+    log(f"# {what}: Trainer.evaluate through demo_render, test frame 0: PSNR "
         f"{metrics_d['psnr']:.3f} dB, SSIM {metrics_d['ssim']:.4f}, overflows "
         f"{metrics_d['overflows_max']}, {avg_s * 1e3:.3f} ms per frame; launches over the "
         f"training path: {json.dumps(launches)}")
-    check(launches == {"a": 2}, f"training path: point-stage launches {launches}, expected 2 "
+    check(launches == {"a": 2}, f"{what} path: point-stage launches {launches}, expected 2 "
                                 "of form a (a warm-up and a timed render)")
     check(metrics_d["psnr"] >= 20.0, f"Trainer.evaluate PSNR {metrics_d['psnr']:.3f} < 20 dB")
     o = metrics_d["overflows_max"]
     check(o[0] == 0 and o[2] == 0 and o[3] == 0, f"Trainer.evaluate overflows {o}")
-    return launches.get("a", 0)
+    result["launches"] = launches.get("a", 0)
+    return result
+
+
+def multi_frame_epoch(card):
+    """Phase 5b: one `Trainer.train` epoch of 2 loader batches of 2 frames
+    each (`dataset.img_num_per_gpu 2`, bf16) on the card: 4 counted
+    optimizer steps, the lr schedule stepped 4 times, finite losses,
+    parameters moved."""
+    import logging
+
+    import numpy as np
+    import torch
+
+    from gpnerf_tpu_torch.registry import get
+    from gpnerf_tpu_torch.train.checkpoint import load_eval_model
+    from gpnerf_tpu_torch.train.criterion import Criterion
+    from gpnerf_tpu_torch.train.step import make_optimizer
+    from gpnerf_tpu_torch.train.trainer import Trainer
+
+    cfg = make_cfg(512, "bfloat16")
+    cfg.defrost()
+    cfg.render.file = "BaseRender"
+    cfg.tpu.train_dtype = "bfloat16"
+    cfg.dataset.img_num_per_gpu = 2
+    cfg.train.val_when_train = False
+    cfg.train.print_freq = 1
+    cfg.freeze()
+    np.random.seed(1)
+    random.seed(1)
+    ds = get("dataset", cfg.dataset.train.file)(cfg, is_train=True)
+    loader = [[ds[0], ds[1]], [ds[2], ds[3]]]
+    dev = torch.device("cuda")
+    render = load_eval_model(CKPT, get("render", "BaseRender")(cfg, device=dev))
+    before = [p.detach().clone() for p in render.parameters()]
+    opt, sched, schedule = make_optimizer(render, cfg)
+    trainer = Trainer(cfg, render=render, criterion=Criterion(cfg), optimizer=opt,
+                      scheduler=sched, lr_schedule=schedule, logger=logging.getLogger("chip_smoke"))
+    losses = []  # the losses the Trainer reads back, collected in place of its log
+    trainer._log_metrics = lambda logger, pending: losses.extend(
+        float(m["loss"]) for _, m in pending)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train(loader, [])
+    torch.cuda.synchronize()
+    moved = sum(not torch.equal(p, q) for p, q in zip(render.parameters(), before))
+    log(f"# training, 2 frames per step on {card}: Trainer.train over 2 batches of 2 frames in "
+        f"{time.perf_counter() - t0:.2f} s: {trainer.iter_count} steps, schedule at "
+        f"{sched.last_epoch}, losses {[round(x, 5) for x in losses]}, {moved} of {len(before)} "
+        "parameter tensors moved")
+    check(trainer.iter_count == 4 and sched.last_epoch == 4 and len(losses) == 4
+          and all(math.isfinite(x) for x in losses) and moved >= len(before) - 2,
+          "2-frame epoch: steps, schedule, losses or parameters wrong")
+
+
+def train_bench_runs(card):
+    """Phase 5b: tools/train_bench_torch.py --iters 10 for float32 and for
+    bfloat16, each in a process of its own; every key, finite losses, the
+    card's name."""
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "tools", "train_bench_torch.py"), "--iters", "10",
+             "tpu.train_dtype", dt], cwd=ROOT, capture_output=True, text=True, timeout=600)
+        check(run.returncode == 0, f"train_bench_torch {dt} exited {run.returncode}: "
+                                   f"{run.stderr[-3000:]}")
+        line = json.loads(run.stdout.strip().splitlines()[-1])
+        log(f"# tools/train_bench_torch.py --iters 10 tpu.train_dtype {dt} "
+            f"({time.perf_counter() - t0:.1f} s): {json.dumps(line)}")
+        check(line["dtype"] == dt and card.startswith(line["device"])
+              and len(line["losses"]) == 10 and all(math.isfinite(x) for x in line["losses"]),
+              f"train_bench_torch {dt}: {line}")
+        out[dt] = line
+    return out
+
+
+def bf16_step_card_vs_cpu():
+    """Phase 5b: one bf16 AdamW step at 128^2 (tiny encoder, code_dim 16,
+    256 rays x 8 samples, seeded parameters) on the card and on the CPU,
+    the same batch and draws: loss within 1e-2 relative, rgb_map within
+    0.1, the gradient's cosine above 0.8 and norm ratio within 10%
+    (measured on the H100: 1.2e-3, 0.040, 0.946, 1.005). Where the
+    devices' float32 sums straddle a bf16 boundary they round apart, and
+    this random-init step amplifies that as it amplifies any rounding
+    detail (JAX's own bf16 gradient moves by 43% between two of its
+    compile modes: tests/test_torch_bf16_train.py)."""
+    import numpy as np
+    import torch
+
+    from gpnerf_tpu_torch.config import cfg as base
+    from gpnerf_tpu_torch.registry import get
+    from gpnerf_tpu_torch.render.base import batch_to_device
+    from gpnerf_tpu_torch.train.criterion import Criterion
+    from gpnerf_tpu_torch.train.step import make_optimizer, train_step
+
+    cfg = base.clone()
+    cfg.defrost()
+    cfg.merge_from_file(os.path.join(ROOT, "configs", "synthetic.yaml"))
+    cfg.encoder.name = "tiny"
+    cfg.dataset.H = cfg.dataset.W = 128
+    cfg.head.sigma.code_dim = 16
+    cfg.train.n_rays, cfg.train.n_samples = 256, 8
+    cfg.tpu.train_dtype = "bfloat16"
+    cfg.freeze()
+    np.random.seed(0)
+    random.seed(0)
+    batch = get("dataset", cfg.dataset.train.file)(cfg, is_train=True)[0]
+    t_rand = torch.rand(256, 8, generator=torch.Generator().manual_seed(3))
+    torch.manual_seed(0)
+    state = get("render", "BaseRender")(cfg, device="cpu").init_variables(0).state_dict()
+    out = {}
+    for d in ("cuda", "cpu"):
+        r = get("render", "BaseRender")(cfg, device=d)
+        r.load_state_dict(state, strict=True)
+        opt, sched, _ = make_optimizer(r, cfg)
+        m, ret = train_step(r, Criterion(cfg), opt, sched, batch_to_device(batch, d),
+                            t_rand=t_rand.to(d))
+        grad = torch.cat([p.grad.double().reshape(-1).cpu() for p in r.parameters()])
+        out[d] = (float(m["loss"]), ret["rgb_map"].detach().float().cpu(), grad)
+    (lg, rg, gg), (lc, rc, gc) = out["cuda"], out["cpu"]
+    cos = float(gg @ gc / (gg.norm() * gc.norm()))
+    ratio = float(gg.norm() / gc.norm())
+    d_rgb = float((rg - rc).abs().max())
+    log(f"# bf16 step at 128^2, card against CPU: loss {lg:.6f} / {lc:.6f}, rgb_map max |d| "
+        f"{d_rgb:.3e}, gradient cosine {cos:.5f}, norm ratio {ratio:.5f}")
+    check(abs(lg - lc) <= 1e-2 * abs(lc) and d_rgb <= 0.1 and cos > 0.8
+          and abs(ratio - 1.0) <= 0.1, "bf16 step: card and CPU disagree")
 
 
 def profile_steps(step, batches, card, step_ms):
@@ -1692,13 +1840,28 @@ def main():
 
     # ---- phase 5: the training path ----
     torch.cuda.empty_cache()
-    eval_launches = train_phase(card, profile)
-    for k in kernels:
-        if k["name"] == "point_stages[a]":
-            k["launches"] += eval_launches
+    f32 = train_phase(card, profile)
     torch.cuda.empty_cache()
     train_phase(card, profile, neg=True)
     torch.cuda.empty_cache()
+
+    # ---- phase 5b: bf16 mixed-precision training ----
+    bf16 = train_phase(card, profile, train_dtype="bfloat16")
+    for k in kernels:
+        if k["name"] == "point_stages[a]":
+            k["launches"] += f32["launches"] + bf16["launches"]
+    fmt = lambda r: (" / ".join(f"{x:.4f}" for x in r["s_per_it"])  # noqa: E731
+                     + f" s/it, peak {r['peak_gib']:.3f} GiB, eval PSNR {r['psnr']:.3f} dB")
+    log(f"# training on {card}, the same call: float32 {fmt(f32)}; bfloat16 {fmt(bf16)} "
+        f"(min / median / max; bf16 / float32 median {bf16['s_per_it'][1] / f32['s_per_it'][1]:.3f})")
+    torch.cuda.empty_cache()
+    multi_frame_epoch(card)
+    torch.cuda.empty_cache()
+    bf16_step_card_vs_cpu()
+    torch.cuda.empty_cache()
+    bench = train_bench_runs(card)
+    log(f"# train bench on {card}: s/it float32 {bench['float32']['s_per_it']}, bfloat16 "
+        f"{bench['bfloat16']['s_per_it']}")
 
     # ---- phase 6: the inference CLI, a process of its own ----
     t0 = time.perf_counter()

@@ -1,13 +1,15 @@
 """Samplers and the data loader (gpnerf_tpu/data/loader.py; reference
-samplers.py:61-207): SequentialSampler, RandomSampler (a seeded numpy
+samplers.py:23-207): SequentialSampler, RandomSampler (a seeded numpy
 permutation, the JAX package's index order for the same seed),
 FrameSampler (every 30th frame x all test cams), BatchSampler,
+ImageSizeBatchSampler (a random 32-aligned image size per batch drawn from
+np.random, in the JAX package's order; the datasets read the index of each
+(index, h, w) and ignore the size, as the reference's do),
 IterationBasedBatchSampler (ep_iter iterations per epoch), and a loader
-that yields one frame (a dict of numpy arrays) per index batch of size 1.
+that yields one frame (a dict of numpy arrays) per index batch of size 1,
+a list of frames per larger batch.
 
-The port trains on one device: the distributed sampler and the
-`image_size` batch sampler (unused by the shipped configs) are not ported;
-`build_batchsampler` raises for the latter."""
+The port trains on one device: the distributed sampler is not ported."""
 
 from __future__ import annotations
 
@@ -76,6 +78,45 @@ class BatchSampler:
         return (len(self.sampler) + self.batch_size - 1) // self.batch_size
 
 
+class ImageSizeBatchSampler:
+    """Batches of (index, h, w): one random size per batch, h and w drawn
+    in [min, max] and rounded up past a multiple of 32 (samplers.py:23-58);
+    strategy "origin" gives (-1, -1)."""
+
+    def __init__(self, sampler, batch_size, drop_last, sampler_meta):
+        self.sampler = sampler
+        self.batch_size = batch_size
+        self.drop_last = drop_last
+        self.strategy = sampler_meta["strategy"]
+        self.hmin, self.wmin = sampler_meta["min_hw"]
+        self.hmax, self.wmax = sampler_meta["max_hw"]
+        self.divisor = 32
+
+    def generate_height_width(self):
+        if self.strategy == "origin":
+            return -1, -1
+        h = np.random.randint(self.hmin, self.hmax + 1)
+        w = np.random.randint(self.wmin, self.wmax + 1)
+        return (h | (self.divisor - 1)) + 1, (w | (self.divisor - 1)) + 1
+
+    def __iter__(self):
+        batch = []
+        h, w = self.generate_height_width()
+        for idx in self.sampler:
+            batch.append((idx, h, w))
+            if len(batch) == self.batch_size:
+                h, w = self.generate_height_width()
+                yield batch
+                batch = []
+        if batch and not self.drop_last:
+            yield batch
+
+    def __len__(self):
+        if self.drop_last:
+            return len(self.sampler) // self.batch_size
+        return (len(self.sampler) + self.batch_size - 1) // self.batch_size
+
+
 class IterationBasedBatchSampler:
     """Exactly `num_iterations` batches per pass, re-walking the batch
     sampler as often as needed."""
@@ -101,16 +142,19 @@ class IterationBasedBatchSampler:
 
 def build_batchsampler(cfg, dataset, batch_size, is_train, seed=None):
     """The batch sampler of the train or test split (reference
-    samplers.py:167-207); `seed` seeds the shuffle."""
+    samplers.py:167-207): "default" or "image_size" (another name raises
+    ValueError, as the JAX package's does); `seed` seeds the shuffle."""
     split = cfg.dataset.train if is_train else cfg.dataset.test
     if not is_train and split.sampler == "FrameSampler":
         return FrameSampler(dataset)
-    if split.batch_sampler != "default":
-        raise NotImplementedError(
-            f"dataset.{'train' if is_train else 'test'}.batch_sampler="
-            f"{split.batch_sampler!r}: the port has the default batch sampler only")
     sampler = RandomSampler(dataset, seed) if split.shuffle else SequentialSampler(dataset)
-    batch_sampler = BatchSampler(sampler, batch_size, split.drop_last)
+    if split.batch_sampler == "default":
+        batch_sampler = BatchSampler(sampler, batch_size, split.drop_last)
+    elif split.batch_sampler == "image_size":
+        batch_sampler = ImageSizeBatchSampler(sampler, batch_size, split.drop_last,
+                                              split.sampler_meta)
+    else:
+        raise ValueError(split.batch_sampler)
     if is_train and cfg.train.ep_iter != -1:
         batch_sampler = IterationBasedBatchSampler(batch_sampler, cfg.train.ep_iter)
     return batch_sampler

@@ -19,17 +19,18 @@ from gpnerf_tpu_torch.ops.upsample import upsample_bilinear_nchw
 
 
 class BasicBlock(nn.Module):
-    def __init__(self, cin, planes, stride=1, compute_dtype=None):
+    def __init__(self, cin, planes, stride=1, compute_dtype=None, native=False):
         super().__init__()
-        self.conv1 = ReflectConv(cin, planes, 3, stride, compute_dtype=compute_dtype)
+        dt = dict(compute_dtype=compute_dtype, native=native)
+        self.conv1 = ReflectConv(cin, planes, 3, stride, **dt)
         self.bn1 = InstanceNorm(planes)
-        self.conv2 = ReflectConv(planes, planes, 3, 1, compute_dtype=compute_dtype)
+        self.conv2 = ReflectConv(planes, planes, 3, 1, **dt)
         self.bn2 = InstanceNorm(planes)
         self.downsample = None
         if stride != 1:
             # the reference creates the 1x1 projection exactly when stride != 1
             self.downsample = nn.Sequential(
-                ReflectConv(cin, planes, 1, stride, compute_dtype=compute_dtype),
+                ReflectConv(cin, planes, 1, stride, **dt),
                 InstanceNorm(planes),
             )
 
@@ -43,9 +44,10 @@ class BasicBlock(nn.Module):
 class ConvINElu(nn.Module):
     """Decoder conv block: reflect conv with bias + InstanceNorm + ELU."""
 
-    def __init__(self, cin, cout, compute_dtype=None):
+    def __init__(self, cin, cout, compute_dtype=None, native=False):
         super().__init__()
-        self.conv = ReflectConv(cin, cout, 3, 1, bias=True, compute_dtype=compute_dtype)
+        self.conv = ReflectConv(cin, cout, 3, 1, bias=True, compute_dtype=compute_dtype,
+                                native=native)
         self.bn = InstanceNorm(cout)
 
     def forward(self, x):
@@ -64,25 +66,25 @@ class _Wrap(nn.Module):
 
 
 class ResUNet(nn.Module):
-    def __init__(self, out_ch=32, encoder="resnet34", compute_dtype=None):
+    def __init__(self, out_ch=32, encoder="resnet34", compute_dtype=None, native=False):
         super().__init__()
         layers = {"resnet34": [3, 4, 6], "resnet18": [2, 2, 2], "tiny": [1, 1, 1]}[
             encoder
         ]
-        dt = compute_dtype
-        self.conv1 = ReflectConv(3, 64, 7, 2, compute_dtype=dt)
+        dt = dict(compute_dtype=compute_dtype, native=native)
+        self.conv1 = ReflectConv(3, 64, 7, 2, **dt)
         self.bn1 = InstanceNorm(64)
         cin = 64
         for i, (planes, blocks) in enumerate(zip((64, 128, 256), layers)):
-            mods = [BasicBlock(cin, planes, 2, dt)]
-            mods += [BasicBlock(planes, planes, 1, dt) for _ in range(1, blocks)]
+            mods = [BasicBlock(cin, planes, 2, **dt)]
+            mods += [BasicBlock(planes, planes, 1, **dt) for _ in range(1, blocks)]
             setattr(self, f"layer{i + 1}", nn.Sequential(*mods))
             cin = planes
-        self.upconv3 = _Wrap(ConvINElu(256, 128, dt))
-        self.iconv3 = ConvINElu(256, 128, dt)
-        self.upconv2 = _Wrap(ConvINElu(128, 64, dt))
-        self.iconv2 = ConvINElu(128, out_ch, dt)
-        self.out_conv = ReflectConv(out_ch, out_ch, 1, 1, bias=True, compute_dtype=dt)
+        self.upconv3 = _Wrap(ConvINElu(256, 128, **dt))
+        self.iconv3 = ConvINElu(256, 128, **dt)
+        self.upconv2 = _Wrap(ConvINElu(128, 64, **dt))
+        self.iconv2 = ConvINElu(128, out_ch, **dt)
+        self.out_conv = ReflectConv(out_ch, out_ch, 1, 1, bias=True, **dt)
 
     def forward(self, x_nhwc):
         x = x_nhwc.permute(0, 3, 1, 2)
@@ -98,11 +100,12 @@ class ResUNet(nn.Module):
         return y.permute(0, 2, 3, 1).contiguous()
 
 
-def build_encoder(cfg, compute_dtype=None):
+def build_encoder(cfg, compute_dtype=None, native=False):
     """The encoder of `cfg` (JAX models/encoder.py `build_encoder`,
     UNet.py:237-243); `compute_dtype` rounds as the JAX package's clone with
-    that dtype does."""
-    return ResUNet(cfg.encoder.out_ch, cfg.encoder.name, compute_dtype)
+    that dtype does, on real tensors of it with `native`
+    (models/layers.py)."""
+    return ResUNet(cfg.encoder.out_ch, cfg.encoder.name, compute_dtype, native)
 
 
 from gpnerf_tpu_torch.registry import register  # noqa: E402

@@ -16,7 +16,8 @@ point-stage kernel (ops/point_stages.py); its op-by-op path calls
 coarse table unfolded, `query_sigma_feat_octet`) here. The training
 renderer (render/base.py) runs `volume(train=)` and `point_forward`. With a `compute_dtype` they round
 where the JAX package's heads, computing in that dtype, round (values stay
-in float32 tensors; models/layers.MLP).
+in float32 tensors; models/layers.MLP); with `native` as well (the bf16
+training path) the rounded values are tensors of that dtype.
 """
 
 from __future__ import annotations
@@ -50,27 +51,29 @@ def fused_mean_variance(x, compute_dtype=None):
     return mean, mean_views(d * d)
 
 
-def _sigmoid(x, dt):
+def _sigmoid(x, dt, native=False):
     """Sigmoid; in a compute dtype as 1 / (1 + exp(-x)) with each of the
     three operations rounded, the form the JAX package's compiled program
     evaluates."""
     if dt is None:
         return torch.sigmoid(x)
-    return rounded(1.0 / rounded(1.0 + rounded(torch.exp(-x), dt), dt), dt)
+    r = lambda t: rounded(t, dt, native)  # noqa: E731
+    return r(1.0 / r(1.0 + r(torch.exp(-x))))
 
 
 class NeRFSigmaHead(nn.Module):
     def __init__(self, in_feat_ch=32, n_smpl=6890, code_dim=16,
                  attn_n_heads=4, spconv_n_layers=4,
-                 spconv_out_dim=(32, 32, 32, 32), compute_dtype=None):
+                 spconv_out_dim=(32, 32, 32, 32), compute_dtype=None, native=False):
         super().__init__()
         self.c = nn.Embedding(n_smpl, code_dim)
         d = code_dim // attn_n_heads
         self.xyzc_attn = MultiHeadAttention(attn_n_heads, code_dim, d, d, in_feat_ch)
         self.xyzc_net = SparseConvNet(
-            code_dim, spconv_n_layers, tuple(spconv_out_dim), compute_dtype
+            code_dim, spconv_n_layers, tuple(spconv_out_dim), compute_dtype, native
         )
-        self.out_geometry_fc = MLP(sum(spconv_out_dim), (64,), ("elu",), compute_dtype)
+        self.out_geometry_fc = MLP(sum(spconv_out_dim), (64,), ("elu",), compute_dtype,
+                                   native)
         self.nch1 = int(spconv_out_dim[0])
         self.compute_dtype = compute_dtype
 
@@ -135,16 +138,17 @@ class NeRFSigmaHead(nn.Module):
 
 
 class NeRFRGBHead(nn.Module):
-    def __init__(self, in_feat_ch=32, n_views=3, compute_dtype=None):
+    def __init__(self, in_feat_ch=32, n_views=3, compute_dtype=None, native=False):
         super().__init__()
         C = in_feat_ch + 3
-        dt = compute_dtype
-        self.compute_dtype = dt
-        self.base_fc = MLP(3 * C, (64, 32), ("elu", "elu"), dt)
-        self.vis_fc = MLP(32, (32, 32), ("elu", "elu"), dt)
-        self.rgb_fc = MLP(n_views * 32, (32, 16, 3), ("elu", "elu", "none"), dt)
+        self.compute_dtype = compute_dtype
+        self.native = native
+        dt = (compute_dtype, native)
+        self.base_fc = MLP(3 * C, (64, 32), ("elu", "elu"), *dt)
+        self.vis_fc = MLP(32, (32, 32), ("elu", "elu"), *dt)
+        self.rgb_fc = MLP(n_views * 32, (32, 16, 3), ("elu", "elu", "none"), *dt)
         self.out_geometry_fc = MLP(
-            64 + 2 * C, (64, 32, 16, 1), ("elu", "elu", "elu", "relu"), dt
+            64 + 2 * C, (64, 32, 16, 1), ("elu", "elu", "elu", "relu"), *dt
         )
 
     def density(self, sigma_feat, mean, var, num_valid_obs):
@@ -159,16 +163,18 @@ class NeRFRGBHead(nn.Module):
         globalfeat = torch.cat([mean, var], dim=-1).expand(
             *rgb_feat.shape[:-1], -1
         )
-        dt = self.compute_dtype
+        dt, nat = self.compute_dtype, self.native
         x = self.base_fc(torch.cat([globalfeat, rgb_feat], dim=-1))
-        x = rounded(x + self.vis_fc(rounded(x / V, dt)), dt)
+        x = rounded(x + self.vis_fc(rounded(x / V, dt, nat)), dt, nat)
         x = x.reshape(*x.shape[:-2], V * x.shape[-1])
-        return _sigmoid(self.rgb_fc(x), dt)
+        return _sigmoid(self.rgb_fc(x), dt, nat)
 
     def forward(self, rgb_feat, sigma_feat, mask):
         """rgb_feat (N_rays, N_samples, V, C+3), sigma_feat (..., 64), mask
-        (N_rays, N_samples, V, 1). Returns (rgb_in, rgb, sigma)."""
-        mean, var = fused_mean_variance(rgb_feat, self.compute_dtype)
+        (N_rays, N_samples, V, 1). Returns (rgb_in, rgb, sigma). `native`:
+        the mean and variance in rgb_feat's own dtype (float32 on the
+        training path), as the JAX package computes them."""
+        mean, var = fused_mean_variance(rgb_feat, None if self.native else self.compute_dtype)
         sigma = self.density(sigma_feat, mean[..., 0, :], var[..., 0, :], mask.sum(dim=-2))
         return rgb_feat[..., :3], self.color(rgb_feat, mean, var), sigma
 
@@ -179,14 +185,16 @@ class NeRFHead(nn.Module):
 
     def __init__(self, in_feat_ch=32, n_smpl=6890, code_dim=16,
                  attn_n_heads=4, spconv_n_layers=4,
-                 spconv_out_dim=(32, 32, 32, 32), compute_dtype=None, n_views=3):
+                 spconv_out_dim=(32, 32, 32, 32), compute_dtype=None, n_views=3,
+                 native=False):
         super().__init__()
         self.spconv_out_dim = tuple(spconv_out_dim)
         self.sigmahead = NeRFSigmaHead(
             in_feat_ch, n_smpl, code_dim, attn_n_heads, spconv_n_layers,
-            spconv_out_dim, compute_dtype,
+            spconv_out_dim, compute_dtype, native,
         )
-        self.rgbhead = NeRFRGBHead(in_feat_ch, n_views=n_views, compute_dtype=compute_dtype)
+        self.rgbhead = NeRFRGBHead(in_feat_ch, n_views=n_views, compute_dtype=compute_dtype,
+                                   native=native)
 
     def volume(self, smpl_feat, vertex_rows, levels, *, train=False):
         """Fuse vertex codes and build the sparse feature volume once per
@@ -220,10 +228,10 @@ class NeRFHead(nn.Module):
         return torch.cat([rgb, sigma], dim=-1), rgb_in
 
 
-def build_head(cfg, compute_dtype=None):
+def build_head(cfg, compute_dtype=None, native=False):
     """The heads of `cfg` (JAX models/heads.py `build_head`,
     trainhead.py:166-177); `compute_dtype` rounds as the JAX package's clone
-    with that dtype does."""
+    with that dtype does, on real tensors of it with `native`."""
     return NeRFHead(
         in_feat_ch=cfg.encoder.out_ch,
         n_smpl=cfg.head.sigma.n_smpl,
@@ -233,6 +241,7 @@ def build_head(cfg, compute_dtype=None):
         spconv_out_dim=tuple(cfg.head.sigma.outdims),
         compute_dtype=compute_dtype,
         n_views=cfg.src_view_num,
+        native=native,
     )
 
 

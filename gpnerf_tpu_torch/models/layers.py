@@ -6,10 +6,18 @@ parameter names follow the reference checkpoint (`weight`, `bias`,
 `running_mean`, `running_var`), so `load_state_dict(strict=True)` on
 artifacts/bench_ckpt.pth fills them directly.
 
-`compute_dtype` reproduces the JAX package's reduced-precision casts
-(cfg.tpu.matmul_dtype "bfloat16"): operands are rounded to that dtype and
-the arithmetic runs in float32 on the rounded values, which is what XLA does
-for a bf16 convolution with float32 accumulation.
+`compute_dtype` reproduces the JAX package's reduced-precision casts. Two
+forms share one code path:
+
+  * the emulation (the inference paths under cfg.tpu.matmul_dtype
+    "bfloat16"): operands are rounded to that dtype and the arithmetic runs
+    in float32 on the rounded values, which is what XLA does for a bf16
+    convolution with float32 accumulation; values stay in float32 tensors;
+  * `native` (the training path under cfg.tpu.train_dtype "bfloat16"): the
+    casts make real tensors of that dtype, so convolutions and products take
+    bf16 operands (float32 accumulation in cuDNN, cuBLAS or the CPU's
+    kernels) and return bf16, and the ops that follow compute in the dtype
+    of what they are given, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -21,9 +29,12 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def rounded(x, dtype):
-    """`x` rounded to `dtype` and returned as float32 (None: unchanged)."""
-    return x if dtype is None else x.to(dtype).float()
+def rounded(x, dtype, native=False):
+    """`x` rounded to `dtype` (None: unchanged): a tensor of that dtype when
+    `native`, else float32 holding the rounded values."""
+    if dtype is None:
+        return x
+    return x.to(dtype) if native else x.to(dtype).float()
 
 
 class ReflectConv(nn.Conv2d):
@@ -31,22 +42,23 @@ class ReflectConv(nn.Conv2d):
     `padding_mode='reflect'` convs, UNet.py:6-14,160-161)."""
 
     def __init__(self, cin, cout, kernel_size=3, stride=1, bias=False,
-                 compute_dtype=None):
+                 compute_dtype=None, native=False):
         super().__init__(
             cin, cout, kernel_size, stride, padding=(kernel_size - 1) // 2,
             padding_mode="reflect", bias=bias,
         )
         self.compute_dtype = compute_dtype
+        self.native = native
 
     def forward(self, x):
         p = self.padding[0]
         if p:
             x = F.pad(x, (p, p, p, p), mode="reflect")
-        dt = self.compute_dtype
-        y = F.conv2d(rounded(x, dt), rounded(self.weight, dt), None, self.stride)
-        y = rounded(y, dt)
+        dt, nat = self.compute_dtype, self.native
+        y = F.conv2d(rounded(x, dt, nat), rounded(self.weight, dt, nat), None, self.stride)
+        y = rounded(y, dt, nat)
         if self.bias is not None:
-            y = rounded(y + rounded(self.bias, dt)[None, :, None, None], dt)
+            y = rounded(y + rounded(self.bias, dt, nat)[None, :, None, None], dt, nat)
         return y
 
 
@@ -126,10 +138,11 @@ class MLP(nn.Sequential):
     float32 parameters (flax `Dense(dtype=bfloat16)`): input, weight and
     bias are rounded to it, the product is rounded, the biased sum is
     rounded, and the activation runs on the rounded value and is rounded
-    again. Values stay in float32 tensors."""
+    again. Values stay in float32 tensors, or with `native` are tensors of
+    that dtype (the output too)."""
 
     def __init__(self, cin: int, features: Sequence[int],
-                 activations: Sequence[str], compute_dtype=None):
+                 activations: Sequence[str], compute_dtype=None, native=False):
         mods = []
         for f, act in zip(features, activations):
             mods.append(nn.Linear(cin, f))
@@ -138,15 +151,16 @@ class MLP(nn.Sequential):
             cin = f
         super().__init__(*mods)
         self.compute_dtype = compute_dtype
+        self.native = native
 
     def forward(self, x):
-        dt = self.compute_dtype
+        dt, nat = self.compute_dtype, self.native
         if dt is None:
             return super().forward(x)
         for m in self:
             if isinstance(m, nn.Linear):
-                x = rounded(rounded(x, dt) @ rounded(m.weight, dt).T, dt)
-                x = rounded(x + rounded(m.bias, dt), dt)
+                x = rounded(rounded(x, dt, nat) @ rounded(m.weight, dt, nat).T, dt, nat)
+                x = rounded(x + rounded(m.bias, dt, nat), dt, nat)
             else:
-                x = rounded(m(x), dt)
+                x = rounded(m(x), dt, nat)
         return x

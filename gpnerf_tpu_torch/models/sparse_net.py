@@ -59,9 +59,9 @@ class _DoubleConv(nn.Sequential):
             SparseConvWeight(cout, cout), MaskedBatchNorm(cout), nn.ReLU(),
         )
 
-    def run(self, x, level, compute_dtype, train=False):
+    def run(self, x, level, compute_dtype, train=False, native=False):
         for conv, bn in ((self[0], self[1]), (self[3], self[4])):
-            x = subm_conv_tbl(x, level, conv.taps(), compute_dtype=compute_dtype)
+            x = subm_conv_tbl(x, level, conv.taps(), compute_dtype=compute_dtype, native=native)
             x = F.relu(bn(x, level.valid, train=train))
         return x
 
@@ -70,17 +70,22 @@ class _StrideConv(nn.Sequential):
     def __init__(self, cin, cout):
         super().__init__(SparseConvWeight(cin, cout), MaskedBatchNorm(cout), nn.ReLU())
 
-    def run(self, x, level, compute_dtype, train=False):
-        x = stride_conv_tbl(x, level, self[0].taps(), compute_dtype=compute_dtype)
+    def run(self, x, level, compute_dtype, train=False, native=False):
+        x = stride_conv_tbl(x, level, self[0].taps(), compute_dtype=compute_dtype, native=native)
         return F.relu(self[1](x, level.valid, train=train))
 
 
 class SparseConvNet(nn.Module):
+    """`compute_dtype`: each conv's input and weight are rounded to it
+    before the row gather (real tensors of it with `native`), the sums are
+    float32 (ops/sparse_conv.py), the BatchNorms float32."""
+
     def __init__(self, in_dim=32, n_layers=4, out_dim=(32, 32, 32, 32),
-                 compute_dtype=None):
+                 compute_dtype=None, native=False):
         super().__init__()
         self.n_layers = n_layers
         self.compute_dtype = compute_dtype
+        self.native = native
         mods = [_DoubleConv(in_dim, in_dim)]
         cin = in_dim
         for i in range(n_layers):
@@ -93,12 +98,12 @@ class SparseConvNet(nn.Module):
         feature matrices [(CAP_i, out_dim[i-1]) for levels 1..n_layers].
         `train`: each BatchNorm takes its statistics over the level's valid
         rows and updates its running estimates."""
-        dt = self.compute_dtype
-        x = self.net[0].run(code, levels[0], dt, train)
+        dt, nat = self.compute_dtype, self.native
+        x = self.net[0].run(code, levels[0], dt, train, nat)
         level_feats = []
         for i in range(self.n_layers):
-            x = self.net[2 * i + 1].run(x, levels[i + 1], dt, train)
-            x = self.net[2 * i + 2].run(x, levels[i + 1], dt, train)
+            x = self.net[2 * i + 1].run(x, levels[i + 1], dt, train, nat)
+            x = self.net[2 * i + 2].run(x, levels[i + 1], dt, train, nat)
             level_feats.append(x)
         return level_feats
 

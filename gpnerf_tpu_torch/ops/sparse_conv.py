@@ -60,28 +60,33 @@ def _gather_rows(feats, idx):
     return torch.where((idx >= 0)[..., None], rows, 0.0)
 
 
-def _conv_gather_mm(feats, idx, valid, weight, compute_dtype):
+def _conv_gather_mm(feats, idx, valid, weight, compute_dtype, native=False):
     """feats (N, Cin); idx (CAP, 27) row ids (-1 absent); weight
     (27, Cin, Cout) -> (CAP, Cout) float32, zeroed off-valid. With a
-    compute dtype the gathered rows and the weight are rounded to it and
-    the product accumulates in float32 (the JAX einsum's
-    preferred_element_type)."""
-    feats = rounded(feats, compute_dtype)
-    weight = rounded(weight, compute_dtype)
+    compute dtype the rows and the weight are rounded to it before the
+    gather (with `native` as tensors of it: the gather moves half the
+    bytes), and the product of the rounded values accumulates and returns
+    in float32, as the JAX einsum's preferred_element_type does: the
+    operands are widened for it, since a product of bf16 tensors rounds
+    its result to bf16 and torch has no bf16 product with a float32
+    result on the CPU."""
+    feats = rounded(feats, compute_dtype, native)
+    weight = rounded(weight, compute_dtype, native)
     g = _gather_rows(feats, idx)  # (CAP, 27, Cin)
-    out = g.reshape(g.shape[0], -1) @ weight.reshape(-1, weight.shape[-1])
+    out = g.reshape(g.shape[0], -1).float() @ weight.reshape(-1, weight.shape[-1]).float()
     return torch.where(valid[:, None], out, 0.0)
 
 
-def subm_conv_tbl(feats, level: SparseLevel, weight, *, compute_dtype=None):
+def subm_conv_tbl(feats, level: SparseLevel, weight, *, compute_dtype=None, native=False):
     """Submanifold 3x3x3 conv through the level's neighbor table."""
-    return _conv_gather_mm(feats, level.nbr, level.valid, weight, compute_dtype)
+    return _conv_gather_mm(feats, level.nbr, level.valid, weight, compute_dtype, native)
 
 
-def stride_conv_tbl(feats_in, level: SparseLevel, weight, *, compute_dtype=None):
+def stride_conv_tbl(feats_in, level: SparseLevel, weight, *, compute_dtype=None,
+                    native=False):
     """Strided sparse conv k=3 s=2 p=1 through `level.down`."""
     return _conv_gather_mm(
-        feats_in, level.down, level.valid, weight, compute_dtype
+        feats_in, level.down, level.valid, weight, compute_dtype, native
     )
 
 

@@ -29,8 +29,11 @@ flips the sample order (reference BaseRender.py:86-88).
 The mesh paths of both renderers share `mesh_volume`, `mesh_sigma` and
 `mesh_from_alpha` here.
 
-Out of scope, refused by `build_render` with the key named: the bf16
-training dtype and data parallelism (`tpu.dp_size` > 1).
+Under `tpu.train_dtype bfloat16` the encoder and the heads compute on real
+bf16 tensors (models/layers.py `native`) over float32 parameters.
+
+Out of scope, refused by `build_render` with the key named: data
+parallelism (`tpu.dp_size` > 1).
 """
 
 from __future__ import annotations
@@ -387,9 +390,6 @@ class Renderer(nn.Module):
 def check_train_scope(cfg):
     """Raise NotImplementedError, naming the key, for a training or
     BaseRender switch outside what the port implements."""
-    if cfg.tpu.train_dtype != "float32":
-        raise NotImplementedError(
-            f"tpu.train_dtype={cfg.tpu.train_dtype!r}: the port trains in float32 only")
     if cfg.tpu.dp_size > 1:
         raise NotImplementedError(
             f"tpu.dp_size={cfg.tpu.dp_size}: data parallelism is not ported; the port "
@@ -397,12 +397,18 @@ def check_train_scope(cfg):
 
 
 def build_render(cfg, device="cuda"):
-    """BaseRender for `cfg` on `device`, float32, with untrained parameters
-    (call `init_variables(seed)` or load a state dict)."""
+    """BaseRender for `cfg` on `device` with untrained float32 parameters
+    (call `init_variables(seed)` or load a state dict). Under
+    `tpu.train_dtype bfloat16` the encoder and the heads compute in bf16 on
+    real bf16 tensors (JAX render/base.py:500-507: float32 master
+    parameters, every convolution and Dense layer cast; the norms, the
+    attention and the compositing in float32); `tpu.matmul_dtype` does not
+    act here, as in the JAX package."""
     check_train_scope(cfg)
+    dt = {"float32": None, "bfloat16": torch.bfloat16}[cfg.tpu.train_dtype]
     r = Renderer(
-        get("encoder", cfg.encoder.file)(cfg),
-        get("head", cfg.head.file)(cfg),
+        get("encoder", cfg.encoder.file)(cfg, compute_dtype=dt, native=True),
+        get("head", cfg.head.file)(cfg, compute_dtype=dt, native=True),
         voxel_size=tuple(cfg.dataset.voxel_size),
         max_out_sh=tuple(cfg.tpu.max_out_sh),
         n_samples=cfg.train.n_samples,

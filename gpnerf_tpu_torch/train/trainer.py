@@ -1,8 +1,11 @@
 """Trainer and evaluation loop (gpnerf_tpu/train/trainer.py; reference
 BaseTrainer.py:55-308) on one device.
 
-One `train()` call is one epoch of `ep_iter` optimizer steps
-(train/step.py); every `valiter_interval` steps `quick_val` renders one
+One `train()` call is one epoch of `ep_iter` loader batches; a batch of
+several frames (`dataset.img_num_per_gpu` > 1) is one optimizer step per
+frame in the list's order, each counted, as the JAX package steps a list on
+one device (train/trainer.py:142-161). Every `valiter_interval` steps
+(checked after each batch) `quick_val` renders one
 eval frame and logs mse/psnr/ssim; after each epoch but the first (every
 `save_interval`) a checkpoint in the reference .pth layout, with
 best-model tracking (`model_best.pth`) and pruning beyond 30 epoch files.
@@ -14,7 +17,8 @@ time per frame (device synchronized around each frame; the progressive
 renderer's without its encoder).
 
 Out of scope: data parallelism (`tpu.dp_size` > 1 raises in
-render/base.check_train_scope)."""
+render/base.check_train_scope); evaluating a batch of several frames
+(`one_frame` raises, where the JAX package's evaluation fails too)."""
 
 from __future__ import annotations
 
@@ -43,6 +47,18 @@ from gpnerf_tpu_torch.train.step import train_step
 from gpnerf_tpu_torch.utils.metric_logger import MetricLogger, SmoothedValue
 
 MAX_EPOCH_FILES = 30
+
+
+def one_frame(data):
+    """`data` when the loader gave one frame. A list of frames (an eval
+    loader batched by `dataset.img_num_per_gpu` > 1) raises
+    NotImplementedError naming the key: the JAX package's quick_val and
+    evaluate cannot take one either (its `to_device` calls `.items()`)."""
+    if isinstance(data, list):
+        raise NotImplementedError(
+            f"dataset.img_num_per_gpu: an eval batch of {len(data)} frames; evaluation "
+            "renders one frame per batch")
+    return data
 
 
 def synchronize(device):
@@ -108,15 +124,12 @@ class Trainer:
         self.render.train()
         pending = []  # (step index, metrics) not yet read back
         for data in metric_logger.log_every(train_loader, print_freq, header, self.logger):
-            if isinstance(data, list):
-                raise NotImplementedError(
-                    "a batch of several frames: the port trains one frame per step "
-                    "(dataset.img_num_per_gpu 1)")
-            batch = batch_to_device(data, self.device)
-            metrics, _ = train_step(self.render, self.criterion, self.optimizer,
-                                    self.scheduler, batch, generator=self.generator)
-            pending.append((self.iter_count, metrics))
-            self.iter_count += 1
+            for frame in data if isinstance(data, list) else [data]:
+                batch = batch_to_device(frame, self.device)
+                metrics, _ = train_step(self.render, self.criterion, self.optimizer,
+                                        self.scheduler, batch, generator=self.generator)
+                pending.append((self.iter_count, metrics))
+                self.iter_count += 1
             at_val = self.iter_count % self.cfg.train.valiter_interval == 0
             if len(pending) >= print_freq or at_val:
                 self._log_metrics(metric_logger, pending)
@@ -178,7 +191,7 @@ class Trainer:
         """Render one eval frame and log its loss and metrics (reference
         BaseTrainer.py:207-252). Returns the performance indicator."""
         H, W = image_hw(self.cfg)
-        val_data = next(eval_data_iter)
+        val_data = one_frame(next(eval_data_iter))
         batch = batch_to_device(val_data, self.device)
         ret = self.render.render_eval_fn()(batch)
         image_stats = self.process_img(ret, val_data, W, H)
@@ -212,7 +225,7 @@ class Trainer:
         render_fn = self.render.render_demo_fn() if is_demo else self.render.render_eval_fn()
         total_time, etime, count, overflow_rows = 0.0, 0.0, 0, []
         for data in eval_loader:
-            batch = batch_to_device(data, self.device)
+            batch = batch_to_device(one_frame(data), self.device)
             if count == 0:  # untimed warm-up on the first frame
                 render_fn(batch)
                 if is_demo:

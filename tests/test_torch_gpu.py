@@ -11,8 +11,9 @@ key, 1-8 views among them), the wrappers' refusals, 128^2 renders on the card ag
 same render on the CPU, the kernel on a compacted render's points and the
 compacted render against the dense-slot one, the kernel on the windowed
 tap's points and the windowed renders on the card against the CPU, both
-mesh paths on the card against the CPU, and one train step on the card
-against the CPU."""
+mesh paths on the card against the CPU (float32, and the demo renderer's
+bf16 `matmul_dtype`), and one train step on the card against the CPU
+(float32 and bf16 mixed precision)."""
 
 import os
 import random
@@ -650,6 +651,50 @@ def test_render_mesh_on_card_matches_cpu(name):
     assert len(g["mesh"].faces) > 1000 and len(c["mesh"].faces) > 1000
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["BaseRender", "demo_render"])
+def test_render_mesh_bf16_on_card_matches_cpu(name):
+    """render_mesh of a 128^2 frame at a 0.02 m voxel under
+    `tpu.matmul_dtype bfloat16` on the card against the CPU: the same grid;
+    BaseRender (float32 in both packages there) alpha within 1e-4; the demo
+    renderer's bf16 encoder and heads round where the devices' float32 sums
+    straddle a bf16 boundary, so its alpha is held as the port's bf16 cube
+    is held against JAX's (tests/test_torch_mesh.py: max 0.081, median
+    4.7e-4 there): max within 0.15, median over the nonzero voxels within
+    2e-3, a mesh on both (measured on the H100: BaseRender 4.9e-6; the
+    demo renderer 0.084 and 4.1e-4)."""
+    dev = _cuda()
+    from gpnerf_tpu_torch.config import cfg as base
+    from gpnerf_tpu_torch.registry import get
+    from gpnerf_tpu_torch.render.base import batch_to_device
+    from gpnerf_tpu_torch.train.checkpoint import load_eval_model
+
+    cfg = base.clone()
+    cfg.defrost()
+    cfg.merge_from_file("configs/synthetic.yaml")
+    cfg.dataset.H = cfg.dataset.W = 128
+    cfg.head.sigma.code_dim = 32
+    cfg.head.rgb.use_rgbhead = False
+    cfg.dataset.voxel_size = [0.02, 0.02, 0.02]
+    cfg.tpu.matmul_dtype = "bfloat16"
+    cfg.freeze()
+    batch = _frame(cfg)
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        r = load_eval_model(CKPT, get("render", name)(cfg, device=d)).eval()
+        outs[d.type] = r.render_mesh(batch_to_device(batch, d), chunk=16384)
+    g, c = outs["cuda"], outs["cpu"]
+    assert g["cube"].shape == c["cube"].shape
+    d = np.abs(g["cube"] - c["cube"])
+    print(f"{name} bf16 mesh, card against CPU: max {d.max():.4g}, "
+          f"median nonzero {np.median(d[c['cube'] > 0]):.4g}")
+    if name == "BaseRender":
+        assert d.max() <= 1e-4
+    else:
+        assert d.max() <= 0.15 and np.median(d[c["cube"] > 0]) <= 2e-3
+    assert len(g["mesh"].faces) > 1000 and len(c["mesh"].faces) > 1000
+
+
 # --- the quad-lerp kernels and the row gather (ops/quad_lerp.py, row_gather.py)
 
 
@@ -884,3 +929,64 @@ def test_train_step_on_card_matches_cpu():
         n_over += int((diff > 1e-6).sum())
         n_all += pc.numel()
     assert n_over <= 5e-3 * n_all, (n_over, n_all)
+
+
+@pytest.mark.gpu
+def test_bf16_train_step_on_card_matches_cpu():
+    """One bf16 mixed-precision AdamW step (`tpu.train_dtype bfloat16`) of
+    the training renderer at 128^2 from the trained checkpoint (ResNet34-
+    UNet, code_dim 32, 256 rays x 16 samples), the same batch and draws on
+    the card (cuDNN and cuBLAS bf16) and on the CPU. Where the devices'
+    float32 sums straddle a bf16 boundary the two round apart, and the step
+    amplifies that as it does any rounding detail (the JAX package's own
+    bf16 gradient moves by 43% between two of its compile modes:
+    tests/test_torch_bf16_train.py). Held: the loss within 1e-2 relative,
+    rgb_map within 0.02, the whole gradient's cosine above 0.9 and norm
+    ratio within 10%, every parameter, gradient and AdamW moment float32,
+    the running statistics within 1e-3 (measured on the H100: 2.9e-3,
+    9.7e-3, 0.991, 0.997, 1.3e-5)."""
+    dev = _cuda()
+    from gpnerf_tpu_torch.config import cfg as base
+    from gpnerf_tpu_torch.registry import get
+    from gpnerf_tpu_torch.render.base import batch_to_device
+    from gpnerf_tpu_torch.train.checkpoint import load_eval_model
+    from gpnerf_tpu_torch.train.criterion import Criterion
+    from gpnerf_tpu_torch.train.step import make_optimizer, train_step
+
+    cfg = base.clone()
+    cfg.defrost()
+    cfg.merge_from_file("configs/synthetic.yaml")
+    cfg.dataset.H = cfg.dataset.W = 128
+    cfg.head.sigma.code_dim = 32
+    cfg.train.n_rays = 256
+    cfg.train.n_samples = 16
+    cfg.tpu.train_dtype = "bfloat16"
+    cfg.freeze()
+    np.random.seed(0)
+    random.seed(0)
+    batch = get("dataset", cfg.dataset.train.file)(cfg, is_train=True)[0]
+    t_rand = torch.rand(256, 16, generator=torch.Generator().manual_seed(3))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        r = load_eval_model(CKPT, get("render", "BaseRender")(cfg, device=d))
+        opt, sched, _ = make_optimizer(r, cfg)
+        metrics, ret = train_step(r, Criterion(cfg), opt, sched, batch_to_device(batch, d),
+                                  t_rand=t_rand.to(d))
+        for p in r.parameters():
+            st = opt.state[p]
+            assert p.dtype == p.grad.dtype == st["exp_avg"].dtype == torch.float32
+        out[d.type] = {
+            "loss": float(metrics["loss"]), "rgb": ret["rgb_map"].detach().float().cpu(),
+            "grad": torch.cat([p.grad.double().reshape(-1).cpu() for p in r.parameters()]),
+            "stats": {k: v.cpu() for k, v in r.state_dict().items() if "running" in k},
+        }
+    g, c = out["cuda"], out["cpu"]
+    cos = float(g["grad"] @ c["grad"] / (g["grad"].norm() * c["grad"].norm()))
+    ratio = float(g["grad"].norm() / c["grad"].norm())
+    d_rgb = float((g["rgb"] - c["rgb"]).abs().max())
+    d_stats = max(float((g["stats"][k] - v).abs().max()) for k, v in c["stats"].items())
+    print(f"bf16 step, card against CPU: loss {g['loss']:.6f} / {c['loss']:.6f}, rgb_map max "
+          f"{d_rgb:.3e}, gradient cosine {cos:.5f}, norm ratio {ratio:.5f}, running "
+          f"statistics max {d_stats:.3e}")
+    assert abs(g["loss"] - c["loss"]) <= 1e-2 * c["loss"]
+    assert d_rgb <= 0.02 and cos > 0.9 and abs(ratio - 1.0) <= 0.1 and d_stats <= 1e-3

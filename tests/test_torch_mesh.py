@@ -11,7 +11,17 @@ The renders are 128^2 frames of the synthetic scene at a 0.02 m voxel, with
 the trained checkpoint, float32. Held: the cube's shape (the grid) exactly,
 its alpha within 1e-4 (the dense query and the density MLP in torch ops
 against XLA's; 2.4e-5 seen), the vertex and triangle counts and the
-triangles exactly, the vertices within 2e-3 voxel (5.4e-4 seen)."""
+triangles exactly, the vertices within 2e-3 voxel (5.4e-4 seen).
+
+Under `tpu.matmul_dtype bfloat16` the demo renderer's encoder and heads
+compute in bf16 (BaseRender's do not, in either package). The JAX
+package's level volumes are float32 there (its sparse convs return float32
+sums), so the dense query reads float32 volumes in both packages: on the
+same encoder features the sigma feature and sigma equal JAX's bit for bit.
+End to end, bf16 rounding flips in the encoder and the sparse stack (one
+ulp where the two float32 sums straddle a bf16 boundary) spread through the
+InstanceNorms and BatchNorms: the port's bf16 cube is held nearer JAX's
+bf16 cube than JAX's own float32 cube is, in max and median."""
 
 import os
 import random
@@ -52,7 +62,7 @@ def few_torch_threads():
     torch.set_num_threads(n)
 
 
-def _cfg(base, result_dir="."):
+def _cfg(base, result_dir=".", matmul_dtype="float32"):
     cfg = base.clone()
     cfg.defrost()
     cfg.merge_from_file(os.path.join(ROOT, "configs", "synthetic.yaml"))
@@ -63,7 +73,7 @@ def _cfg(base, result_dir="."):
     cfg.dataset.voxel_size = [0.02, 0.02, 0.02]
     cfg.tpu.eval_ray_cap = 4096
     cfg.tpu.eval_chunk = 1024
-    cfg.tpu.matmul_dtype = "float32"
+    cfg.tpu.matmul_dtype = matmul_dtype
     cfg.result_dir = str(result_dir)
     cfg.freeze()
     return cfg
@@ -145,18 +155,20 @@ def frame():
     return b, jax_load(CKPT, jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype), shapes), 4)
 
 
-def _port(name):
-    r = port_get("render", name)(_cfg(port_cfg), device="cpu")
+def _port(name, matmul_dtype="float32"):
+    r = port_get("render", name)(_cfg(port_cfg, matmul_dtype=matmul_dtype), device="cpu")
     load_eval_model(CKPT, r)
     return r.eval()
 
 
-def test_query_sigma_feat_dense_matches_jax(frame):
-    """The checkpoint's sigma head on seeded dense level volumes (zeros at
-    a third of the sites) at 4,096 points across the frame's extent."""
+def _query_sigma_feat_dense(frame, matmul_dtype):
+    """(the port's, the JAX package's) sigma feature of the checkpoint's
+    sigma head, computing in `matmul_dtype`, on seeded dense level volumes
+    (zeros at a third of the sites) at 4,096 points across the frame's
+    extent."""
     b, variables = frame
-    jr = jax_get("render", "demo_render")(_cfg(jax_cfg))
-    head = _port("demo_render").nerfhead
+    jr = jax_get("render", "demo_render")(_cfg(jax_cfg, matmul_dtype=matmul_dtype))
+    head = _port("demo_render", matmul_dtype).nerfhead
     out_sh = np.asarray(b["out_sh"]).astype(np.int32)
     rng = np.random.default_rng(3)
     shapes = [tuple(s >> (i + 1) for s in (96, 320, 224)) for i in range(4)]
@@ -165,12 +177,63 @@ def test_query_sigma_feat_dense_matches_jax(frame):
     dhw = (rng.random((4096, 3)) * out_sh).astype(np.float32)
     want = np.asarray(jr.nerfhead.apply(
         variables["head"], [jnp.asarray(v) for v in vols], jnp.asarray(dhw), jnp.asarray(out_sh),
-        method=lambda m, *a: m.sigmahead.query_sigma_feat_dense(*a)))
+        method=lambda m, *a: m.sigmahead.query_sigma_feat_dense(*a)), np.float32)
     with torch.no_grad():
         got = head.sigmahead.query_sigma_feat_dense(
             [torch.from_numpy(v) for v in vols], torch.from_numpy(dhw),
-            torch.from_numpy(out_sh)).numpy()
+            torch.from_numpy(out_sh)).float().numpy()
     assert got.shape == (4096, 64)
+    return got, want
+
+
+def test_query_sigma_feat_dense_matches_jax(frame):
+    """The checkpoint's sigma head on seeded dense level volumes (zeros at
+    a third of the sites) at 4,096 points across the frame's extent."""
+    got, want = _query_sigma_feat_dense(frame, "float32")
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def test_query_sigma_feat_dense_bf16_matches_jax(frame):
+    """The same under `tpu.matmul_dtype bfloat16`: the float32 volumes'
+    trilinear query, then out_geometry_fc in bf16 (JAX's output is a bf16
+    array); equal to JAX's (0 seen)."""
+    got, want = _query_sigma_feat_dense(frame, "bfloat16")
+    assert (got != 0).mean() > 0.5
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def test_mesh_sigma_bf16_matches_jax(frame):
+    """The demo mesh path's per-chunk sigma under bf16 on the JAX
+    package's own volume stage (its bf16 encoder features, float32 level
+    volumes and occupancy field): `render/base.mesh_sigma` under the
+    trilinear occupancy cull against JAX's chunk function, on 4,096 seeded
+    points in the frame's mesh bounds (0 seen)."""
+    from gpnerf_tpu_torch.ops.grid_sample import trilinear_dense_gather as port_gather
+    from gpnerf_tpu_torch.render.base import mesh_sigma, points_to_dhw_vox
+
+    b, variables = frame
+    jr = jax_get("render", "demo_render")(_cfg(jax_cfg, matmul_dtype="bfloat16"))
+    jb = {k: jnp.asarray(v) for k, v in b.items() if k not in ("pts", "inside")}
+    vol_fn, chunk_fn = jr._mesh_fns_demo()
+    featmaps, KE, dense_vols, out_sh, masks3d, can_bounds = vol_fn(variables, jb)
+    assert featmaps.dtype == jnp.bfloat16 and dense_vols[0].dtype == jnp.float32
+    cb = np.asarray(can_bounds)
+    pts = (cb[0] + np.random.default_rng(4).random((4096, 3)) * (cb[1] - cb[0])).astype(np.float32)
+    want = np.asarray(chunk_fn(variables, featmaps, KE, dense_vols, out_sh, masks3d, jb,
+                               jnp.asarray(pts)), np.float32)
+    r = _port("demo_render", "bfloat16")
+    pb = batch_to_device({k: v for k, v in b.items() if k not in ("pts", "inside")}, "cpu")
+    t = lambda a: torch.from_numpy(np.array(a, np.float32))  # noqa: E731
+    vol = {"featmaps": t(featmaps), "dense_vols": [t(v) for v in dense_vols],
+           "out_sh": torch.from_numpy(np.asarray(out_sh)), "pre": {"KE": t(KE)}}
+    p = torch.from_numpy(pts)
+    with torch.no_grad():
+        size1 = vol["out_sh"] // 2
+        pos1 = points_to_dhw_vox(p, pb, r.voxel_size) / vol["out_sh"].float() * (size1 - 1).float()
+        occ = port_gather(t(masks3d), pos1, dyn_size=size1)
+        got = torch.where(occ > 0, mesh_sigma(r.nerfhead, vol, pb, p, r.voxel_size), 0.0)
+    got = got.float().numpy()
+    assert (want > 0).sum() > 100
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 
@@ -192,6 +255,22 @@ def meshes(frame):
     return out
 
 
+@pytest.fixture(scope="module")
+def meshes_bf16(frame):
+    """name -> (the port's render_mesh, the JAX package's) under
+    `tpu.matmul_dtype bfloat16`, made once."""
+    b, variables = frame
+    out = {}
+    for name in RENDERS:
+        jr = jax_get("render", name)(_cfg(jax_cfg, matmul_dtype="bfloat16"))
+        jb = b if name == "BaseRender" else {k: v for k, v in b.items()
+                                             if k not in ("pts", "inside")}
+        want = jr.render_mesh(variables, jb, chunk=16384)
+        got = _port(name, "bfloat16").render_mesh(batch_to_device(jb, "cpu"), chunk=16384)
+        out[name] = (got, want)
+    return out
+
+
 @pytest.mark.parametrize("name", RENDERS)
 def test_render_mesh_matches_jax(meshes, name):
     got, want = meshes[name]
@@ -208,6 +287,28 @@ def test_render_mesh_matches_jax(meshes, name):
     assert len(gm.faces) == len(wm.faces)
     np.testing.assert_array_equal(gm.faces, wm.faces)
     np.testing.assert_allclose(gm.vertices, wm.vertices, rtol=0, atol=2e-3)
+
+
+def test_render_mesh_bf16_matches_jax(meshes, meshes_bf16):
+    """Both `render_mesh`s under `tpu.matmul_dtype bfloat16`. BaseRender
+    computes in float32 there in both packages (only `tpu.train_dtype`
+    casts it): the float32 case's bounds. The demo renderer: the cube on
+    JAX's grid, nearer JAX's bf16 cube than JAX's float32 cube is, in max
+    and in median over JAX's nonzero voxels (measured: 0.081 / 4.7e-4
+    against 0.093 / 9.7e-4), the vertex count within 1% of JAX's."""
+    got, want = meshes_bf16["BaseRender"]
+    np.testing.assert_allclose(got["cube"], want["cube"], rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(got["mesh"].faces, want["mesh"].faces)
+    got, want = (np.asarray(m["cube"], np.float64) for m in meshes_bf16["demo_render"])
+    ref32 = np.asarray(meshes["demo_render"][1]["cube"], np.float64)
+    assert got.shape == want.shape == ref32.shape
+    nz = want > 0
+    d_port, d_f32 = np.abs(got - want), np.abs(ref32 - want)
+    print(f"demo bf16 cube: port max {d_port.max():.4g} median {np.median(d_port[nz]):.4g}; "
+          f"JAX float32 max {d_f32.max():.4g} median {np.median(d_f32[nz]):.4g}")
+    assert d_port.max() < d_f32.max() and np.median(d_port[nz]) < np.median(d_f32[nz])
+    nv_port, nv_jax = (len(m["mesh"].vertices) for m in meshes_bf16["demo_render"])
+    assert abs(nv_port - nv_jax) <= 0.01 * nv_jax and nv_jax > 1000
 
 
 def test_demo_mesh_interleaves_the_hull_mesh(frame, meshes):

@@ -352,11 +352,25 @@ def test_loader_index_order_matches_jax():
     loader = ploader.DataLoader(tr_p, ploader.build_batchsampler(cfg_p, tr_p, 1, True, seed=9),
                                 prefetch=0)
     assert len(loader) == cfg_p.train.ep_iter
-    cfg_bad = cfg_p.clone()
-    cfg_bad.defrost()
-    cfg_bad.dataset.train.batch_sampler = "image_size"
-    with pytest.raises(NotImplementedError, match="batch_sampler"):
-        ploader.build_batchsampler(cfg_bad, tr_p, 1, True)
+    # the image_size batch sampler (refused before it was ported): JAX's
+    # (index, h, w) batches for the same permutation and np.random state
+    cfg_is = cfg_p.clone()
+    cfg_is.defrost()
+    cfg_is.dataset.train.batch_sampler = "image_size"
+    cfg_j_is = cfg_j.clone()
+    cfg_j_is.defrost()
+    cfg_j_is.dataset.train.batch_sampler = "image_size"
+    sj = jloader.build_batchsampler(cfg_j_is, tr_j, False, 2, True)
+    sp = ploader.build_batchsampler(cfg_is, tr_p, 2, True, seed=9)
+    sj.batch_sampler.sampler.rng = np.random.default_rng(9)
+    np.random.seed(4)
+    want = list(sj)
+    np.random.seed(4)
+    got = list(sp)
+    assert got == want and len(got) == cfg_p.train.ep_iter
+    assert all(len(b) == 2 and h % 32 == 0 and w % 32 == 0 and 256 < h <= 512 and 256 < w <= 672
+               for b in got for _, h, w in b)
+    assert len({(h, w) for b in got for _, h, w in b}) > 1
 
 
 def test_fresh_init_statistics_match_flax(frame):

@@ -212,6 +212,21 @@ def test_render_eval_matches_jax():
 ])
 def test_out_of_scope_switches_raise(key, value, match):
     cfg = small_cfg(port_cfg, **{key: value})
+    if key == "tpu.train_dtype":
+        # bf16 training, refused before the bf16 slice: now in scope
+        # (tests/test_torch_bf16_train.py holds it against JAX); the
+        # encoder's and the heads' layers compute in bf16 on real bf16
+        # tensors, the BatchNorms and the parameters stay float32
+        from gpnerf_tpu_torch.models.layers import MLP, ReflectConv
+        from gpnerf_tpu_torch.models.sparse_net import SparseConvNet
+
+        check_train_scope(cfg)
+        r = build_render(cfg, device="cpu")
+        layers = [m for m in r.modules() if isinstance(m, (ReflectConv, MLP, SparseConvNet))]
+        assert len(layers) > 20
+        assert all(m.compute_dtype == torch.bfloat16 and m.native for m in layers)
+        assert all(p.dtype == torch.float32 for p in r.parameters())
+        return
     if key == "head.rgb.use_rgbhead":
         # the mesh branch, refused before the mesh slice: now in scope
         # (tests/test_torch_mesh.py holds render_mesh against JAX)

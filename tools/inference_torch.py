@@ -12,7 +12,11 @@ the overflow counters of a progressive render and the mean render time per
 frame (with `head.rgb.use_rgbhead False`, the mesh branch, no means, as the
 JAX package's Trainer.evaluate); with `test.is_vis` it writes each frame's src | gt | pred image under
 `result_dir/test.test_seq`, and with `test.profile` it first logs
-`Renderer.profile`'s per-stage times of the first frame.
+`Renderer.profile`'s per-stage times of the first frame. The eval loader is
+batched by `dataset.img_num_per_gpu`, as tools/inference.py's; a batch of
+several frames (that key above 1 under a test sampler other than
+FrameSampler) raises NotImplementedError naming the key, where the JAX
+package's evaluation fails as well.
 
 Evaluation runs on the GPU. Only `device cpu` given on the command line
 selects the CPU; a YAML file's `device` key is the JAX package's platform
@@ -48,6 +52,7 @@ def main(argv=None):
     from gpnerf_tpu_torch.registry import get
     from gpnerf_tpu_torch.render.base import batch_to_device
     from gpnerf_tpu_torch.train.checkpoint import load_eval_model
+    from gpnerf_tpu_torch.train.trainer import one_frame
     from gpnerf_tpu_torch.utils.logging_utils import create_logger
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -58,20 +63,18 @@ def main(argv=None):
     logger, _ = create_logger(cfg, rank=0, phase="eval")
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     logger.info(f"device: {device} ({name}), torch {torch.__version__}")
-    if cfg.dataset.img_num_per_gpu != 1:
-        raise NotImplementedError(
-            f"dataset.img_num_per_gpu={cfg.dataset.img_num_per_gpu}: the port renders one "
-            "frame per batch")
-
     render = get("render", cfg.render.file)(cfg, device=device)
     eval_dataset = get("dataset", cfg.dataset.test.file)(cfg, is_train=False)
-    eval_loader = DataLoader(eval_dataset, build_batchsampler(cfg, eval_dataset, 1, False))
+    # batched by dataset.img_num_per_gpu as tools/inference.py does; a batch
+    # of several frames raises in train/trainer.one_frame
+    eval_loader = DataLoader(eval_dataset, build_batchsampler(
+        cfg, eval_dataset, cfg.dataset.img_num_per_gpu, False))
     load_eval_model(cfg.render.resume_path, render)
     render.eval()
     trainer = get("trainer", cfg.train.file)(cfg, render=render, logger=logger,
                                              performance_indicator=cfg.pi)
     if cfg.test.profile and hasattr(render, "profile"):
-        first = batch_to_device(next(iter(eval_loader)), device)
+        first = batch_to_device(one_frame(next(iter(eval_loader))), device)
         prof = render.profile(first)
         logger.info("time_slots: %s", json.dumps(
             {k: round(float(v), 4) for k, v in prof["time_slots"].items()}))

@@ -12,10 +12,14 @@ card. Without a CUDA device and without `device cpu` the script raises.
 The datasets are the registry's: the synthetic fixture, ZJU-MoCap
 (`ZjumocapDataset`) and THuman (`CustomDataset`, whose neg-ray convention
 a dataset name holding "thuman" turns on), as in configs/trainzju_valzju.yaml
-and configs/trainthu_valzju.yaml. Switches the port does not implement
-raise NotImplementedError naming the key (render/base.check_train_scope,
-data/loader.build_batchsampler): bf16 training, data parallelism, several
-frames per step, the `image_size` sampler. Float32 is float32: TF32 is off for
+and configs/trainthu_valzju.yaml. `tpu.train_dtype bfloat16` trains in
+bf16 mixed precision (float32 parameters, bf16 convolutions and Dense
+layers; render/base.build_render); `dataset.img_num_per_gpu` > 1 loads that
+many frames per batch and steps each (train/trainer.py); the
+`image_size` batch sampler is data/loader.py's. Data parallelism
+(`tpu.dp_size` > 1) raises NotImplementedError naming the key
+(render/base.check_train_scope), and so does a quick-val batch of several
+frames (train/trainer.one_frame). Float32 is float32: TF32 is off for
 matmuls and cuDNN convolutions.
 """
 
@@ -70,14 +74,13 @@ def build(cfg, device, logger):
     criterion = get("criterion", cfg.train.criterion_file)(cfg)
     train_ds = get("dataset", cfg.dataset.train.file)(cfg, is_train=True)
     eval_ds = get("dataset", cfg.dataset.test.file)(cfg, is_train=False)
-    if cfg.dataset.img_num_per_gpu != 1:
-        raise NotImplementedError(
-            f"dataset.img_num_per_gpu={cfg.dataset.img_num_per_gpu}: the port trains one "
-            "frame per step")
+    # dataset.img_num_per_gpu frames per loader batch, each its own step
+    # (train/trainer.py), as tools/train.py sizes its loaders on one device
+    n = cfg.dataset.img_num_per_gpu
     train_loader = DataLoader(
-        train_ds, build_batchsampler(cfg, train_ds, 1, True, seed=cfg.seed),
+        train_ds, build_batchsampler(cfg, train_ds, n, True, seed=cfg.seed),
         num_workers=cfg.workers)
-    eval_loader = DataLoader(eval_ds, build_batchsampler(cfg, eval_ds, 1, False))
+    eval_loader = DataLoader(eval_ds, build_batchsampler(cfg, eval_ds, n, False))
     optimizer, scheduler, schedule = make_optimizer(render, cfg)
     last_epoch = load_checkpoint(cfg, render, optimizer)
     logger.info(f"total parameters: {sum(p.numel() for p in render.parameters())}")
