@@ -42,7 +42,13 @@ from gpnerf_tpu_torch.ops.sparse_conv import (
 
 class SparseConvWeight(nn.Module):
     """A spconv conv's weight in the reference layout (kD, kH, kW, Cin,
-    Cout); `taps` reads it as (27, Cin, Cout)."""
+    Cout); `taps` reads it as (27, Cin, Cout).
+
+    A state dict may carry either spconv layout, sniffed by shape as the JAX
+    package's checkpoint reader does (gpnerf_tpu/train/torch_interop.py
+    `_from_torch`): 1.2.1's (kD, kH, kW, Cin, Cout) loads as it is,
+    2.x's (Cout, Cin, kD, kH, kW) is permuted into it; any other shape is
+    left to `load_state_dict`'s size check. `state_dict` writes 1.2.1's."""
 
     def __init__(self, cin, cout):
         super().__init__()
@@ -50,6 +56,13 @@ class SparseConvWeight(nn.Module):
 
     def taps(self):
         return self.weight.reshape(27, *self.weight.shape[3:])
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        w = state_dict.get(prefix + "weight")
+        if (isinstance(w, torch.Tensor) and w.dim() == 5 and tuple(w.shape[:3]) != (3, 3, 3)
+                and tuple(w.shape[2:]) == (3, 3, 3)):
+            state_dict[prefix + "weight"] = w.permute(2, 3, 4, 1, 0).contiguous()
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
 
 class _DoubleConv(nn.Sequential):
