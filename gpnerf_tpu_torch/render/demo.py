@@ -466,7 +466,8 @@ class Renderer(nn.Module):
         differences are mapped onto the closest slot; the fused render, when
         it is the configured path, is timed apart as `rtime_production`.
         Returns {"etime": encoder, "rtime": the op-by-op render without the
-        encoder, "time_slots": {...}[, "rtime_production"]}."""
+        encoder, "totals": each PROFILE_LADDER prefix's time, "time_slots":
+        {...}[, "rtime_production"]}."""
         frames = [batch] if isinstance(batch, dict) else list(batch)
         dev = frames[0]["src_imgs"].device
 
@@ -518,6 +519,7 @@ class Renderer(nn.Module):
             deltas[stage] = totals[stage] - prev
             prev = totals[stage]
         out["rtime"] = totals[None]
+        out["totals"] = totals
         out["time_slots"] = {
             "bc_attn": 0.0,  # code fusion is part of sp_encode
             "sigma_attn": 0.0,
