@@ -5,14 +5,15 @@ FrameSampler (every 30th frame x all test cams), BatchSampler,
 ImageSizeBatchSampler (a random 32-aligned image size per batch drawn from
 np.random, in the JAX package's order; the datasets read the index of each
 (index, h, w) and ignore the size, as the reference's do),
-IterationBasedBatchSampler (ep_iter iterations per epoch), and a loader
-that yields one frame (a dict of numpy arrays) per index batch of size 1,
-a list of frames per larger batch.
-
-The port trains on one device: the distributed sampler is not ported."""
+IterationBasedBatchSampler (ep_iter iterations per epoch),
+DistributedSampler (each rank's contiguous shard of an epoch-seeded
+permutation, for the data-parallel trainer), and a loader that yields one
+frame (a dict of numpy arrays) per index batch of size 1, a list of frames
+per larger batch."""
 
 from __future__ import annotations
 
+import math
 import multiprocessing as mp
 
 import numpy as np
@@ -39,6 +40,38 @@ class RandomSampler:
 
     def __len__(self):
         return self.n
+
+
+class DistributedSampler:
+    """Rank `rank`'s contiguous shard of `num_replicas` (samplers.py:86-142):
+    the indices, shuffled by `np.random.default_rng(epoch)` when `shuffle`,
+    padded by wrapping around to a multiple of `num_replicas`."""
+
+    def __init__(self, dataset, num_replicas, rank, shuffle=True):
+        self.dataset = dataset
+        self.num_replicas = num_replicas
+        self.rank = rank
+        self.epoch = 0
+        self.num_samples = int(math.ceil(len(dataset) / num_replicas))
+        self.total_size = self.num_samples * num_replicas
+        self.shuffle = shuffle
+
+    def __iter__(self):
+        n = len(self.dataset)
+        if self.shuffle:
+            indices = np.random.default_rng(self.epoch).permutation(n).tolist()
+        else:
+            indices = list(range(n))
+        indices += indices[: self.total_size - len(indices)]
+        assert len(indices) == self.total_size
+        offset = self.num_samples * self.rank
+        return iter(indices[offset: offset + self.num_samples])
+
+    def __len__(self):
+        return self.num_samples
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
 
 
 class FrameSampler:
@@ -140,14 +173,31 @@ class IterationBasedBatchSampler:
         return self.num_iterations
 
 
-def build_batchsampler(cfg, dataset, batch_size, is_train, seed=None):
-    """The batch sampler of the train or test split (reference
-    samplers.py:167-207): "default" or "image_size" (another name raises
-    ValueError, as the JAX package's does); `seed` seeds the shuffle."""
+def make_data_sampler(cfg, dataset, is_distributed, is_train, *, num_replicas=1, rank=0,
+                      seed=None):
+    """The index sampler of the train or test split (samplers.py:167-182):
+    FrameSampler for a FrameSampler test split, else DistributedSampler
+    under `is_distributed`, else a shuffle seeded by `seed` or the order."""
     split = cfg.dataset.train if is_train else cfg.dataset.test
     if not is_train and split.sampler == "FrameSampler":
         return FrameSampler(dataset)
-    sampler = RandomSampler(dataset, seed) if split.shuffle else SequentialSampler(dataset)
+    if is_distributed:
+        return DistributedSampler(dataset, num_replicas, rank, shuffle=split.shuffle)
+    return RandomSampler(dataset, seed) if split.shuffle else SequentialSampler(dataset)
+
+
+def build_batchsampler(cfg, dataset, batch_size, is_train, seed=None, *, is_distributed=False,
+                       num_replicas=1, rank=0):
+    """The batch sampler of the train or test split (reference
+    samplers.py:167-207): "default" or "image_size" (another name raises
+    ValueError, as the JAX package's does) over `make_data_sampler`; `seed`
+    seeds the shuffle of one process, `is_distributed` shards the split
+    over `num_replicas` ranks."""
+    split = cfg.dataset.train if is_train else cfg.dataset.test
+    sampler = make_data_sampler(cfg, dataset, is_distributed, is_train,
+                                num_replicas=num_replicas, rank=rank, seed=seed)
+    if isinstance(sampler, FrameSampler):
+        return sampler
     if split.batch_sampler == "default":
         batch_sampler = BatchSampler(sampler, batch_size, split.drop_last)
     elif split.batch_sampler == "image_size":

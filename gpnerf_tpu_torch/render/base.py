@@ -387,13 +387,35 @@ class Renderer(nn.Module):
         return self.render_eval(batch)
 
 
-def check_train_scope(cfg):
-    """Raise NotImplementedError, naming the key, for a training or
-    BaseRender switch outside what the port implements."""
-    if cfg.tpu.dp_size > 1:
+def resolved_dp(cfg, world):
+    """The data-parallel width of training over `world` ranks:
+    `tpu.dp_size` (0: every rank) clamped to the ranks, as the JAX package
+    clamps it to its devices (train/trainer.py:78-79)."""
+    want = cfg.tpu.dp_size if cfg.tpu.dp_size > 0 else world
+    return max(1, min(want, world))
+
+
+def check_train_scope(cfg, world=None):
+    """Raise NotImplementedError, naming the keys, for a training switch
+    outside what the port implements over `world` ranks (the process
+    group's size by default): a data-parallel group of some of the ranks
+    only, or several frames per step (`dataset.img_num_per_gpu` > 1) with
+    more than one rank, which the JAX package does not run in parallel
+    either (its trainer steps such a list on one device, train/trainer.py
+    :144-161)."""
+    if world is None:
+        from gpnerf_tpu_torch.utils.dist import get_world_size
+
+        world = get_world_size()
+    dp = resolved_dp(cfg, world)
+    if 1 < dp < world:
         raise NotImplementedError(
-            f"tpu.dp_size={cfg.tpu.dp_size}: data parallelism is not ported; the port "
-            "trains on one device")
+            f"tpu.dp_size={cfg.tpu.dp_size} over {world} ranks: the data-parallel group is "
+            "every rank of the process group (tpu.dp_size 0, or the world size)")
+    if world > 1 and cfg.dataset.img_num_per_gpu > 1:
+        raise NotImplementedError(
+            f"dataset.img_num_per_gpu={cfg.dataset.img_num_per_gpu} with {world} ranks "
+            f"(tpu.dp_size={cfg.tpu.dp_size}): a data-parallel step takes one frame per rank")
 
 
 def build_render(cfg, device="cuda"):

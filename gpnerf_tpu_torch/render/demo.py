@@ -426,7 +426,13 @@ class Renderer(nn.Module):
         out = self._ray_pipeline(batch, pre, tables, rd, stop_stage=stop_stage)
         if out is None:
             return None
-        rgb_map, stats = out
+        return self._assemble(batch, rd, *out)
+
+    def _assemble(self, batch, rd, rgb_map, stats):
+        """The render dict: the ray colors scattered into the image, the
+        overflow counters and counts. `rd` holds the frame's `ray_ok`,
+        `pix_idx`, `ray_overflow` and `can_bounds`, `stats` the ray
+        pipeline's counters over the same rays."""
         H, W = batch["tar_img"].shape[0:2]
         oob = H * W
         ray_ok = rd["ray_ok"]

@@ -28,11 +28,12 @@ def make_optimizer(model, cfg):
     return opt, sched, schedule
 
 
-def train_step(render, criterion, optimizer, scheduler, batch, generator=None, t_rand=None):
-    """One optimizer step on one frame. Returns (metrics, render dict):
-    the metrics of the JAX step, each loss term, `loss` and `overflow` (the
-    pyramid's largest overflow count), as 0-d tensors on the batch's
-    device."""
+def forward_backward(render, criterion, optimizer, batch, generator=None, t_rand=None):
+    """The forward pass on one frame, the loss and its gradient in each
+    parameter's `.grad` (zeros where no output reaches it). Returns
+    (metrics, render dict): the metrics of the JAX step, each loss term,
+    `loss` and `overflow` (the pyramid's largest overflow count), as 0-d
+    tensors on the batch's device."""
     optimizer.zero_grad()
     ret = render.render_train(batch, generator=generator, t_rand=t_rand)
     loss_dict = criterion(ret, batch, is_train=True)
@@ -42,9 +43,16 @@ def train_step(render, criterion, optimizer, scheduler, batch, generator=None, t
         for p in group["params"]:
             if p.grad is None:  # reached by no output: JAX's gradient is 0
                 p.grad = torch.zeros_like(p)
-    optimizer.step()
-    scheduler.step()
     metrics = {k: v.detach() for k, v in loss_dict.items()}
     metrics["loss"] = total.detach()
     metrics["overflow"] = ret["overflows"].max()
+    return metrics, ret
+
+
+def train_step(render, criterion, optimizer, scheduler, batch, generator=None, t_rand=None):
+    """One optimizer step on one frame: `forward_backward`, then the AdamW
+    and schedule steps. Returns its (metrics, render dict)."""
+    metrics, ret = forward_backward(render, criterion, optimizer, batch, generator, t_rand)
+    optimizer.step()
+    scheduler.step()
     return metrics, ret

@@ -1,10 +1,16 @@
 """Trainer and evaluation loop (gpnerf_tpu/train/trainer.py; reference
-BaseTrainer.py:55-308) on one device.
+BaseTrainer.py:55-308), on one device or data parallel over the ranks of a
+process group.
 
 One `train()` call is one epoch of `ep_iter` loader batches; a batch of
 several frames (`dataset.img_num_per_gpu` > 1) is one optimizer step per
 frame in the list's order, each counted, as the JAX package steps a list on
-one device (train/trainer.py:142-161). Every `valiter_interval` steps
+one device (train/trainer.py:142-161). Over several ranks the data-parallel
+width is `tpu.dp_size` clamped to the ranks (render/base.resolved_dp); above
+1 each step is parallel/dp.make_dp_train_step's, one frame per rank (each
+rank's loader yields its own shard; its jitter draws are seeded with
+cfg.seed + rank). Only rank 0 validates, writes scalars and saves
+checkpoints. Every `valiter_interval` steps
 (checked after each batch) `quick_val` renders one
 eval frame and logs mse/psnr/ssim; after each epoch but the first (every
 `save_interval`) a checkpoint in the reference .pth layout, with
@@ -16,8 +22,9 @@ renderer's `render_demo_fn`) and reports the metrics and the mean render
 time per frame (device synchronized around each frame; the progressive
 renderer's without its encoder).
 
-Out of scope: data parallelism (`tpu.dp_size` > 1 raises in
-render/base.check_train_scope); evaluating a batch of several frames
+Out of scope (NotImplementedError naming the keys): a data-parallel group
+of some ranks only, several frames per step with several ranks
+(render/base.check_train_scope); evaluating a batch of several frames
 (`one_frame` raises, where the JAX package's evaluation fails too)."""
 
 from __future__ import annotations
@@ -34,7 +41,12 @@ import torch
 from gpnerf_tpu_torch.data.loader import data_loop
 from gpnerf_tpu_torch.ops.image import imwrite, resize
 from gpnerf_tpu_torch.registry import register
-from gpnerf_tpu_torch.render.base import batch_to_device, src_norm
+from gpnerf_tpu_torch.render.base import (
+    batch_to_device,
+    check_train_scope,
+    resolved_dp,
+    src_norm,
+)
 from gpnerf_tpu_torch.render.demo import pred_img_hwc
 from gpnerf_tpu_torch.train.checkpoint import save_checkpoint
 from gpnerf_tpu_torch.train.evaluator import (
@@ -44,6 +56,7 @@ from gpnerf_tpu_torch.train.evaluator import (
     to_numpy,
 )
 from gpnerf_tpu_torch.train.step import train_step
+from gpnerf_tpu_torch.utils.dist import get_rank, get_world_size
 from gpnerf_tpu_torch.utils.metric_logger import MetricLogger, SmoothedValue
 
 MAX_EPOCH_FILES = 30
@@ -86,11 +99,27 @@ class Trainer:
         self.model_name = cfg.render.file
         self.iter_count = 0
         self.device = next(render.parameters()).device
+        self.rank = get_rank()
         self.generator = generator
         if generator is None and optimizer is not None:
-            self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+            self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + self.rank)
+        self.dp = 1
+        if optimizer is not None:
+            world = get_world_size()
+            check_train_scope(cfg, world)
+            self.dp = resolved_dp(cfg, world)
+            if self.dp > 1:
+                from gpnerf_tpu_torch.parallel.dp import make_dp_train_step
+
+                self._step = make_dp_train_step(render, criterion, optimizer, scheduler)
+            else:
+                self._step = lambda batch, generator: train_step(
+                    render, criterion, optimizer, scheduler, batch, generator=generator)
+            if logger is not None:
+                logger.info(f"data parallel over {self.dp} of {world} rank(s) "
+                            f"(tpu.dp_size={cfg.tpu.dp_size}); this is rank {self.rank}")
         self.writer = None
-        if optimizer is not None and self.log_dir:
+        if optimizer is not None and self.log_dir and self.rank == 0:
             from gpnerf_tpu_torch.utils.logging_utils import ScalarWriter
 
             self.writer = ScalarWriter(self.log_dir)
@@ -126,15 +155,14 @@ class Trainer:
         for data in metric_logger.log_every(train_loader, print_freq, header, self.logger):
             for frame in data if isinstance(data, list) else [data]:
                 batch = batch_to_device(frame, self.device)
-                metrics, _ = train_step(self.render, self.criterion, self.optimizer,
-                                        self.scheduler, batch, generator=self.generator)
+                metrics, _ = self._step(batch, generator=self.generator)
                 pending.append((self.iter_count, metrics))
                 self.iter_count += 1
             at_val = self.iter_count % self.cfg.train.valiter_interval == 0
             if len(pending) >= print_freq or at_val:
                 self._log_metrics(metric_logger, pending)
                 pending = []
-            if at_val and self.cfg.train.val_when_train:
+            if at_val and self.cfg.train.val_when_train and self.rank == 0:
                 performance = self.quick_val(eval_data_iter)
                 if self.writer:
                     self.writer.add_scalar(self.PI, performance, self.iter_count)
@@ -150,7 +178,7 @@ class Trainer:
             for key, val in log_stats.items():
                 self.writer.add_scalar(key, val, log_stats["iter"])
 
-        if self.epoch > 0 and self.epoch % self.cfg.train.save_interval == 0:
+        if self.rank == 0 and self.epoch > 0 and self.epoch % self.cfg.train.save_interval == 0:
             self.save(eval_loader)
         self.logger.info("Training time {}".format(
             datetime.timedelta(seconds=int(time.time() - start_time))))

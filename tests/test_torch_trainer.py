@@ -233,6 +233,23 @@ def test_out_of_scope_switches_raise(key, value, match):
         check_train_scope(cfg)
         assert build_render(cfg, device="cpu").mesh_th == 1.0 / cfg.test.mesh_th
         return
+    if key == "tpu.dp_size":
+        # data parallelism, refused before the data-parallel slice: now in
+        # scope (tests/test_torch_dp.py holds the 2-rank step against JAX's
+        # 2-device step). The width clamps to the ranks; a group of some
+        # ranks only, or several frames per step over ranks, still raise
+        from gpnerf_tpu_torch.render.base import resolved_dp
+
+        check_train_scope(cfg)
+        build_render(cfg, device="cpu")
+        assert (resolved_dp(cfg, 1), resolved_dp(cfg, 2), resolved_dp(cfg, 8)) == (1, 2, 2)
+        with pytest.raises(NotImplementedError, match=match):
+            check_train_scope(cfg, world=4)
+        two = small_cfg(port_cfg, **{"dataset.img_num_per_gpu": 2})
+        check_train_scope(two, world=1)
+        with pytest.raises(NotImplementedError, match="dataset.img_num_per_gpu"):
+            check_train_scope(two, world=2)
+        return
     if match is None:
         check_train_scope(cfg)
         r = build_render(cfg, device="cpu")
