@@ -131,12 +131,27 @@ Phases, each fatal on failure:
      progressive renderer (form (a), {"a": 2} launches); `--profile` adds
      the bf16 step's kernel table; a `Trainer.train` epoch of 2 batches of
      2 frames (`dataset.img_num_per_gpu 2`); a 128^2 bf16 step on the card
-     against the CPU; tools/train_bench_torch.py --iters 10 for float32 and
-     bfloat16, each in a process of its own;
+     against the CPU, and the same comparison stage by stage (encoder,
+     sparse stack, heads: outputs and gradients, bf16 and float32);
+     tools/train_bench_torch.py --iters 10 for float32 and bfloat16, each in
+     a process of its own;
   6. the inference CLI (tools/inference_torch.py) in a process of its own
      on configs/synthetic.yaml with the trained checkpoint: exit 0 and PSNR
      >= 20 dB;
-  7. one JSON line listing the kernels, the card's name and power limit,
+  7. the checkpoint with spconv 2.x's sparse weight layout, loaded onto the
+     card strict and as a resume, bitwise the 1.2.1 file's state; the tools:
+     tools/quality_sweep_torch.py's sweep over the 3 bench frames (every
+     key, >= 20 dB), StageTimer and device_memory_stats, and
+     tools/profile_demo_torch.py --async in a process of its own; data
+     parallelism in two processes (this script with --dp-worker; NCCL, one
+     rank per card, on a box of two cards or more, else gloo with both ranks
+     on the one card): one DP train step at full width from the checkpoint,
+     the ranks' parameters bitwise equal and within the step test's
+     tolerance of one process averaging the two frames' gradients, its s/it
+     beside phase 5's; the 2-rank progressive render of bench frame 0
+     against the single-process one (integers bitwise, colors within 1e-4,
+     kernel 1 launched on each rank);
+  8. one JSON line listing the kernels, the card's name and power limit,
      and the final JSON status line.
 
 TF32 is off for matmuls and cuDNN convolutions throughout, so float32
@@ -512,9 +527,12 @@ def point_stage_cost(call, outs):
 
 
 def same_bits(a, b):
-    """Bitwise equality of two tensors of one float dtype."""
+    """Bitwise equality of two tensors of one float dtype (plain equality
+    of integer tensors)."""
     import torch
 
+    if not a.is_floating_point():
+        return a.dtype == b.dtype and bool(torch.equal(a, b))
     bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
     return a.dtype == b.dtype and a.shape == b.shape and bool(
         torch.equal(a.contiguous().view(bits), b.contiguous().view(bits)))
@@ -1080,9 +1098,504 @@ def profile_steps(step, batches, card, step_ms):
         log(f"#   {e.self_device_time_total / 1e3 / n:9.4f} ms {e.count / n:6.1f}x  {e.key[:110]}")
 
 
+def layout_phase():
+    """Phase 7a: artifacts/bench_ckpt.pth with every sparse conv weight
+    permuted into spconv 2.x's (Cout, Cin, kD, kH, kW) loads onto the card,
+    strict and as a non-strict resume, into the state the unpermuted file
+    gives, bit for bit (models/sparse_net.SparseConvWeight's load hook)."""
+    import tempfile
+
+    import torch
+
+    from gpnerf_tpu_torch.registry import get
+    from gpnerf_tpu_torch.train.checkpoint import key_map, load_checkpoint, load_eval_model
+
+    cfg = make_cfg(512, "bfloat16")
+    cfg.defrost()
+    cfg.render.file = "BaseRender"
+    cfg.freeze()
+    ckpt = torch.load(CKPT, map_location="cpu", weights_only=False)
+    state = ckpt["state_dict"] if "state_dict" in ckpt else ckpt
+    sparse = [k for k, _, _, kind in key_map() if kind == "sparse"]
+    v2 = dict(state, **{k: state[k].permute(4, 3, 0, 1, 2).contiguous() for k in sparse})
+    ref = load_eval_model(CKPT, get("render", "BaseRender")(cfg, device="cuda")).state_dict()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "spconv2.pth")
+        torch.save({"epoch": 3, "state_dict": v2}, path)
+        strict = load_eval_model(path, get("render", "BaseRender")(cfg, device="cuda"))
+        resumed = get("render", "BaseRender")(cfg, device="cuda")
+        rcfg = cfg.clone()
+        rcfg.defrost()
+        rcfg.train.resume = True
+        rcfg.render.resume_path = path
+        rcfg.freeze()
+        check(load_checkpoint(rcfg, resumed) == 3, "spconv 2.x checkpoint: resume epoch")
+    for how, r in (("strict", strict), ("resume", resumed)):
+        got = r.state_dict()
+        check(set(got) == set(ref) and all(same_bits(got[k], ref[k]) for k in ref),
+              f"spconv 2.x checkpoint ({how}): state differs from the 1.2.1 file's")
+    log(f"# spconv 2.x layout: {len(sparse)} sparse weights permuted to (Cout, Cin, 3, 3, 3); "
+        f"load_eval_model and load_checkpoint on the card give the 1.2.1 file's {len(ref)} "
+        "tensors bit for bit")
+
+
+def tools_phase(card):
+    """Phase 7b: the quality and profiling tools on the card:
+    tools/quality_sweep_torch.py's `sweep` over the 3 bench frames (every
+    key of its lines, each frame >= 20 dB), utils/profiling.StageTimer over
+    one render's stages (each positive), device_memory_stats (live and peak
+    bytes nonzero), and tools/profile_demo_torch.py --async in a process of
+    its own (exit 0)."""
+    import io
+
+    import torch
+
+    from gpnerf_tpu_torch.render.base import batch_to_device, src_norm
+    from gpnerf_tpu_torch.utils.bench_frames import get_bench_frames
+    from gpnerf_tpu_torch.utils.profiling import StageTimer, device_memory_stats
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import quality_sweep_torch
+
+    dev = torch.device("cuda")
+    cfg, render = make_render(512, "bfloat16", "cuda")
+    host = get_bench_frames(cfg, 3)
+    buf = io.StringIO()
+    rows, summary = quality_sweep_torch.sweep(cfg, render, host, dev, out=buf)
+    for line in buf.getvalue().splitlines():
+        log(f"# quality sweep, 3 bench frames: {line}")
+    check(len(rows) == 3 and all(set(r) == {"i", "psnr", "ssim", "overflows", "counts"}
+                                 for r in rows), "quality sweep: per-frame keys")
+    check(set(summary) == {"n", "psnr_mean", "ssim_mean", "psnr_min", "max_overflows", "wall_s",
+                           "overrides"}, "quality sweep: summary keys")
+    check(summary["psnr_min"] >= 20.0, f"quality sweep: PSNR {summary['psnr_min']} < 20 dB")
+
+    timer = StageTimer()
+    b = batch_to_device(host[0], dev)
+    with torch.no_grad():
+        render.render_demo_fn()(b)
+        torch.cuda.synchronize()
+        timer.start()
+        feats = render.encoder(src_norm(b["src_imgs"]))
+        timer.stop("etime", feats)
+        pre, tables, rd = render._frame_stage(b, feats)
+        timer.stop("frame_stage", rd["rays_o"])
+        rgb, _ = render._ray_pipeline(b, pre, tables, rd)
+        timer.stop("ray_pipeline", rgb)
+    slots = {k: round(v * 1e3, 3) for k, v in timer.time_slots.items()}
+    mem = device_memory_stats()
+    log(f"# StageTimer on {card}, bench frame 0 (ms): {json.dumps(slots)}; device_memory_stats: "
+        f"{json.dumps(mem)}")
+    check(len(slots) == 3 and all(v > 0 for v in slots.values()), f"StageTimer: {slots}")
+    check(mem.get("bytes_in_use", 0) > 0 and mem.get("peak_bytes_in_use", 0) > 0
+          and mem.get("bytes_limit", 0) > 0, f"device_memory_stats: {mem}")
+
+    t0 = time.perf_counter()
+    prof = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "profile_demo_torch.py"),
+                           "--async"], cwd=ROOT, capture_output=True, text=True, timeout=900)
+    check(prof.returncode == 0, f"profile_demo_torch.py --async exited {prof.returncode}: "
+                                f"{prof.stderr[-3000:]}")
+    for line in prof.stdout.splitlines():
+        log(f"# profile_demo_torch.py --async: {line}")
+    log(f"# profile_demo_torch.py --async on {card}: exit 0 in {time.perf_counter() - t0:.1f} s")
+
+
+def dp_cfg(render_file):
+    """configs/synthetic.yaml at 512^2 with the checkpoint's code_dim: the
+    training renderer (1,024 rays x 64 samples) or the fast-mode demo
+    renderer."""
+    cfg = make_cfg(512, "bfloat16")
+    cfg.defrost()
+    cfg.render.file = render_file
+    cfg.freeze()
+    return cfg
+
+
+def dp_worker(out_dir, coordinator, world, rank, backend):
+    """One rank of phase 7c (`chip_smoke.py --dp-worker ...`): one
+    data-parallel step at full width from the checkpoint on its frame and
+    draws (its state written to out_dir/rank<r>.pt), 2 + 10 more steps timed
+    with CUDA events, then the 2-rank progressive render of bench frame 0
+    against the single-process render on this rank, with the point-stage
+    launches of the DP render; the findings to out_dir/rank<r>.json."""
+    import pickle
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from gpnerf_tpu_torch.ops import point_stages as ps
+    from gpnerf_tpu_torch.parallel import dp
+    from gpnerf_tpu_torch.registry import get
+    from gpnerf_tpu_torch.render.base import batch_to_device
+    from gpnerf_tpu_torch.train.checkpoint import load_eval_model
+    from gpnerf_tpu_torch.train.criterion import Criterion
+    from gpnerf_tpu_torch.train.step import make_optimizer
+    from gpnerf_tpu_torch.utils import dist
+
+    dev = dist.local_device(rank)
+    dist.init_distributed(coordinator, world, rank, backend=backend, device=dev)
+    with open(os.path.join(out_dir, "inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    res = {"rank": rank, "device": str(dev), "backend": backend}
+    cfg = dp_cfg("BaseRender")
+    render = load_eval_model(CKPT, get("render", cfg.render.file)(cfg, device=dev))
+    opt, sched, _ = make_optimizer(render, cfg)
+    render.train()
+    step = dp.make_dp_train_step(render, Criterion(cfg), opt, sched)
+    batch = batch_to_device(inp["frames"][rank], dev)
+    metrics, _ = step(batch, t_rand=torch.from_numpy(inp["t_rand"][rank]).to(dev))
+    res["metrics"] = {k: float(v) for k, v in metrics.items()}
+    torch.save({k: v.cpu() for k, v in render.state_dict().items()},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+    gen = torch.Generator(device=dev).manual_seed(100 + rank)
+    for _ in range(2):
+        step(batch, generator=gen)
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(10)]
+    for start, end in events:
+        start.record()
+        step(batch, generator=gen)
+        end.record()
+    torch.cuda.synchronize()
+    res["s_per_it"] = sorted(s.elapsed_time(e) / 1e3 for s, e in events)
+    res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    del render, opt, step
+
+    cfg = dp_cfg("demo_render")
+    demo = load_eval_model(CKPT, get("render", cfg.render.file)(cfg, device=dev))
+    fb = batch_to_device(inp["bench"], dev)
+    single = demo.render_demo_fn()(fb)
+    run = dp.make_dp_demo_render(demo)
+    run(fb)
+    torch.cuda.synchronize()
+    ps.LAUNCHES.clear()
+    multi = run(fb)
+    torch.cuda.synchronize()
+    res["launches"] = dict(ps.LAUNCHES)
+    res["same"] = {k: bool(torch.equal(single[k], multi[k]))
+                   for k in ("ray_ok", "ray_pix_idx", "mask_at_box", "overflows", "counts")}
+    res["pred_max"] = float((single["pred_chw"] - multi["pred_chw"]).abs().max())
+    res["overflows"] = multi["overflows"].tolist()
+    res["counts"] = multi["counts"].tolist()
+    res["psnr"] = psnr_of(multi, inp["bench"])
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.shutdown()
+    return 0
+
+
+def within_step_tolerance(before, a, b, lr, wd):
+    """tests/test_torch_train_step.py's tolerance between two AdamW
+    results `a` and `b` from `before` (dicts of parameter tensors): each
+    element within 1e-6, or, where the two steps' Adam directions differ in
+    sign or are not saturated, within 2 lr plus the float32 rounding of
+    both results, on at most 0.5% of the elements. Returns (ok, elements
+    beyond 1e-6, elements)."""
+    import numpy as np
+
+    n_all = n_over = 0
+    ok = True
+    for k in before:
+        p0, pa, pb = before[k].double(), a[k].double(), b[k].double()
+        sa = -(pa - p0) / lr - wd * p0
+        sb = -(pb - p0) / lr - wd * p0
+        special = (sa.sign() != sb.sign()) | (sa.abs() < 0.99) | (sb.abs() < 0.99)
+        over = (pa - pb).abs() > 1e-6
+        ulp = float(np.finfo(np.float32).eps) * float(pb.abs().max())
+        ok &= bool(special[over].all()) and float((pa - pb).abs().max()) <= 2 * lr + 2 * ulp
+        n_all += pa.numel()
+        n_over += int(over.sum())
+    return ok and n_over <= 5e-3 * n_all, n_over, n_all
+
+
+def dp_phase(card, single_s_per_it):
+    """Phase 7c: data parallelism, two processes of `chip_smoke.py
+    --dp-worker`: NCCL with one rank per card when the box has two or more,
+    else gloo with both ranks on cuda:0 (then NCCL across cards is not
+    exercised). Each rank takes one DP train step at full width from the
+    checkpoint (BaseRender, 1,024 rays x 64 samples, one 512^2 train frame
+    per rank): the ranks' parameters must be bitwise equal, and equal
+    within the step test's tolerance to one process that averages the two
+    frames' gradients (and running statistics) itself before AdamW. Then
+    the 2-rank progressive render of bench frame 0 in fast mode
+    (parallel/dp.make_dp_demo_render) must equal the single-process render
+    (integers bitwise, colors within 1e-4), and kernel 1 must launch on each
+    rank. Logs the DP step's s/it beside one process's."""
+    import pickle
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from gpnerf_tpu_torch.registry import get
+    from gpnerf_tpu_torch.render.base import batch_to_device
+    from gpnerf_tpu_torch.train.checkpoint import load_eval_model
+    from gpnerf_tpu_torch.train.criterion import Criterion
+    from gpnerf_tpu_torch.train.step import forward_backward, make_optimizer
+    from gpnerf_tpu_torch.utils.bench_frames import get_bench_frames
+
+    world = 2
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= world else "gloo"
+    where = (f"NCCL, one rank per card (cuda:0, cuda:1 of {n_cards})" if backend == "nccl" else
+             "gloo, both ranks on cuda:0 of the box's one card: NCCL across cards is not "
+             "exercised here")
+    log(f"# data parallel: {world} processes over {where}")
+    cfg = dp_cfg("BaseRender")
+    np.random.seed(0)
+    random.seed(0)
+    train_ds = get("dataset", cfg.dataset.train.file)(cfg, is_train=True)
+    frames = [train_ds[i] for i in range(world)]
+    g = torch.Generator().manual_seed(7)
+    t_rand = [torch.rand(cfg.train.n_rays, cfg.train.n_samples, generator=g).numpy()
+              for _ in range(world)]
+    bench = get_bench_frames(dp_cfg("demo_render"), 3)[0]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "inputs.pkl"), "wb") as f:
+            pickle.dump({"frames": frames, "t_rand": t_rand, "bench": bench}, f)
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        coordinator = f"127.0.0.1:{s.getsockname()[1]}"
+        s.close()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker", tmp,
+                                   coordinator, str(world), str(r), backend], cwd=ROOT,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for r in range(world)]
+        errs = []
+        try:
+            for p in procs:
+                errs.append(p.communicate(timeout=900)[1][-3000:])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        check(all(p.returncode == 0 for p in procs),
+              f"data-parallel workers exited {[p.returncode for p in procs]}: {errs}")
+        res = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+            res[-1]["state"] = torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+    log(f"# data parallel: both ranks exited 0 in {time.perf_counter() - t0:.1f} s")
+    a, b = res[0]["state"], res[1]["state"]
+    check(set(a) == set(b) and all(same_bits(a[k], b[k]) for k in a),
+          "data parallel: the ranks' states differ after the step")
+
+    # one process: the two frames' gradients and running statistics averaged
+    dev = torch.device("cuda")
+    render = load_eval_model(CKPT, get("render", cfg.render.file)(cfg, device=dev))
+    opt, sched, _ = make_optimizer(render, cfg)
+    render.train()
+    before = {k: p.detach().clone() for k, p in render.named_parameters()}
+    stats = {k: v for k, v in render.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    stats0 = {k: v.clone() for k, v in stats.items()}
+    grads, new_stats, losses = [], [], []
+    for i in range(world):
+        for k, v in stats.items():
+            v.copy_(stats0[k])
+        m, _ = forward_backward(render, Criterion(cfg), opt, batch_to_device(frames[i], dev),
+                                t_rand=torch.from_numpy(t_rand[i]).to(dev))
+        losses.append(float(m["loss"]))
+        grads.append({k: p.grad.clone() for k, p in render.named_parameters()})
+        new_stats.append({k: v.clone() for k, v in stats.items()})
+    for k, p in render.named_parameters():
+        p.grad = (grads[0][k] + grads[1][k]) / 2
+    opt.step()
+    sched.step()
+    with torch.no_grad():
+        for k, v in stats.items():
+            v.copy_((new_stats[0][k] + new_stats[1][k]) / 2)
+    mine = {k: p.detach().cpu() for k, p in render.named_parameters()}
+    ok, n_over, n_all = within_step_tolerance(
+        {k: v.cpu() for k, v in before.items()}, {k: a[k] for k in mine}, mine, cfg.train.lr,
+        cfg.train.weight_decay)
+    d_stats = max(float((a[k] - v.cpu()).abs().max()) for k, v in stats.items())
+    d_loss = abs(res[0]["metrics"]["loss"] - sum(losses) / world)
+    log(f"# data parallel step at 512^2 (1,024 rays x 64 samples per rank) against one process "
+        f"averaging the two frames' gradients: {n_over} of {n_all} parameter elements beyond "
+        f"1e-6 (within 2 lr), running statistics max |d| {d_stats:.3e}, mean loss "
+        f"{res[0]['metrics']['loss']:.6f} against {sum(losses) / world:.6f}")
+    check(ok, "data parallel step: parameters beyond the step test's tolerance of one process's")
+    check(d_stats <= 1e-5 and d_loss <= 1e-4 * abs(sum(losses)),
+          "data parallel step: running statistics or loss differ from one process's")
+    del render, opt
+    torch.cuda.empty_cache()
+
+    for r in res:
+        log(f"# data parallel rank {r['rank']} ({r['device']}, {r['backend']}) on {card}: DP step "
+            f"s/it min {r['s_per_it'][0]:.4f} median {r['s_per_it'][5]:.4f} max "
+            f"{r['s_per_it'][-1]:.4f} (10 steps, CUDA events; one process, phase 5: median "
+            f"{single_s_per_it[1]:.4f}), peak {r['peak_gib']:.3f} GiB; 2-rank fast render of "
+            f"bench frame 0: launches {json.dumps(r['launches'])}, overflows {r['overflows']}, "
+            f"counts {r['counts']}, PSNR {r['psnr']:.3f} dB, against one process: integers "
+            f"{json.dumps(r['same'])}, colors max |d| {r['pred_max']:.2e}")
+        check(all(r["same"].values()), f"2-rank render, rank {r['rank']}: integers differ")
+        check(r["pred_max"] <= 1e-4, f"2-rank render, rank {r['rank']}: colors {r['pred_max']}")
+        check(r["launches"] == {"a": 1}, f"2-rank render, rank {r['rank']}: launches "
+                                         f"{r['launches']}, expected one of form a")
+        check(r["psnr"] >= 20.0, f"2-rank render: PSNR {r['psnr']:.3f} < 20 dB")
+
+
+def bf16_stages_card_vs_cpu():
+    """Phase 5b, after the bf16 step: where the bf16 step's card-against-CPU
+    gap comes from, stage by stage with tests/test_torch_bf16_train.py's
+    method (the same inputs and seeded cotangents on both devices): the
+    encoder (from the source images), the code fusion and sparse stack
+    (train-mode BatchNorms, from the vertex features), the heads (from the
+    frame's sample points, the level matrices and the projected features).
+    For each stage and for bf16 and float32: the output's max |d| and
+    relative L2 and the parameter gradient's cosine and relative L2, card
+    against CPU. Logged, not gated: bf16 rounding decides where the
+    devices' float32 sums straddle a bf16 boundary."""
+    import numpy as np
+    import torch
+
+    from gpnerf_tpu_torch.config import cfg as base
+    from gpnerf_tpu_torch.ops.projection import project_and_gather
+    from gpnerf_tpu_torch.ops.rays import sample_points, sample_z_vals
+    from gpnerf_tpu_torch.registry import get
+    from gpnerf_tpu_torch.render.base import (
+        batch_to_device,
+        points_to_dhw_vox,
+        prepare_frame,
+        src_norm,
+    )
+
+    def cfg_of(dt):
+        cfg = base.clone()
+        cfg.defrost()
+        cfg.merge_from_file(os.path.join(ROOT, "configs", "synthetic.yaml"))
+        cfg.encoder.name = "tiny"
+        cfg.dataset.H = cfg.dataset.W = 128
+        cfg.head.sigma.code_dim = 16
+        cfg.train.n_rays, cfg.train.n_samples = 256, 8
+        cfg.tpu.train_dtype = dt
+        cfg.freeze()
+        return cfg
+
+    np.random.seed(0)
+    random.seed(0)
+    c32 = cfg_of("float32")
+    host = get("dataset", c32.dataset.train.file)(c32, is_train=True)[0]
+    state = get("render", "BaseRender")(c32, device="cpu").init_variables(0).state_dict()
+    t_rand = torch.rand(256, 8, generator=torch.Generator().manual_seed(3))
+    # the stage inputs, from the float32 renderer on the CPU
+    r32 = get("render", "BaseRender")(c32, device="cpu")
+    r32.load_state_dict(state, strict=True)
+    pb = batch_to_device(host, "cpu")
+    with torch.no_grad():
+        fm = r32.encoder(src_norm(pb["src_imgs"]))
+        pre = prepare_frame(pb, fm, r32.max_out_sh)
+        feats = [x.float() for x in r32.nerfhead.volume(pre["smpl_feat"], pre["vertex_rows"],
+                                                         pre["grids"], train=False)]
+        z = sample_z_vals(pb["near"], pb["far"], 8, perturb=True, t_rand=t_rand)
+        pts = sample_points(pb["ray_o"], pb["ray_d"], z)
+        dhw = points_to_dhw_vox(pts, pb, r32.voxel_size)
+        rgb_feat, mask = project_and_gather(pts.reshape(-1, 3), pre["KE"],
+                                            src_norm(pb["src_imgs"]) * 0.5 + 0.5, fm, 128, 128)
+    rgb_feat, mask = rgb_feat.reshape(256, 8, 3, -1), mask.reshape(256, 8, 3, 1)
+    rng = np.random.default_rng(1)
+    ct_enc = torch.from_numpy(rng.standard_normal(tuple(fm.shape)).astype(np.float32))
+    ct_lv = [torch.from_numpy(rng.standard_normal(tuple(x.shape)).astype(np.float32))
+             for x in feats]
+    ct_raw = torch.from_numpy(rng.standard_normal((256, 8, 4)).astype(np.float32))
+
+    def run(dt, d):
+        cfg = cfg_of(dt)
+        b = batch_to_device(host, d)
+        out = {}
+        r = get("render", "BaseRender")(cfg, device=d)
+        r.load_state_dict(state, strict=True)
+        y = r.encoder(src_norm(b["src_imgs"])).float()
+        (y * ct_enc.to(d)).sum().backward()
+        out["encoder"] = (y.detach(), [p.grad for p in r.encoder.parameters()])
+        grids = prepare_frame(b, torch.zeros(3, 32, 32, 32, device=d), r.max_out_sh)["grids"]
+        lv = r.nerfhead.volume(pre["smpl_feat"].to(d), b["vertex_rows"], grids, train=True)
+        sum((x.float() * c.to(d)).sum() for x, c in zip(lv, ct_lv)).backward()
+        sh = r.nerfhead.sigmahead
+        out["sparse stack"] = (torch.cat([x.detach().float().reshape(-1) for x in lv]),
+                               [p.grad for n, p in sh.named_parameters()
+                                if not n.startswith("out_geometry_fc") and p.grad is not None])
+        r.zero_grad()
+        lf = [x.detach().to(d, copy=True).requires_grad_() for x in feats]
+        raw, _ = r.nerfhead.point_forward(
+            r.sparse_query_ctx(lf, grids), dhw.to(d), torch.as_tensor(np.asarray(host["out_sh"]),
+                                                                      device=d),
+            rgb_feat.to(d), mask.to(d))
+        (raw.float() * ct_raw.to(d)).sum().backward()
+        out["heads"] = (raw.detach().float(),
+                        [p.grad for n, p in r.nerfhead.named_parameters() if p.grad is not None
+                         and n.startswith(("sigmahead.out_geometry_fc", "rgbhead"))]
+                        + [x.grad for x in lf])
+        return {k: (y.cpu().double(), torch.cat([g.reshape(-1).cpu().double() for g in gs]))
+                for k, (y, gs) in out.items()}
+
+    # each bf16 convolution of the encoder on the input its CPU forward
+    # gives it: both devices' outputs against the exact result of the same
+    # bf16 operands (the product in float64, each rounding of
+    # models/layers.ReflectConv done once, to bf16)
+    import torch.nn.functional as F
+
+    from gpnerf_tpu_torch.models.layers import ReflectConv
+
+    convs, inputs = {}, {}
+    for d in ("cpu", "cuda"):
+        r = get("render", "BaseRender")(cfg_of("bfloat16"), device=d)
+        r.load_state_dict(state, strict=True)
+        convs[d] = [m for m in r.encoder.modules() if isinstance(m, ReflectConv)]
+        if d == "cpu":
+            hooks = [m.register_forward_pre_hook(
+                lambda m, a, i=i: inputs.setdefault(i, a[0].detach()))
+                for i, m in enumerate(convs[d])]
+            with torch.no_grad():
+                r.encoder(src_norm(pb["src_imgs"]))
+            for h in hooks:
+                h.remove()
+    bf = torch.bfloat16
+    off = {"cpu": [0, 0.0], "cuda": [0, 0.0]}  # outputs off the exact rounding, max ulps
+    n_out = 0
+    with torch.no_grad():
+        for i, x in sorted(inputs.items()):
+            m = convs["cpu"][i]
+            p = m.padding[0]
+            xp = F.pad(x.float(), (p, p, p, p), mode="reflect") if p else x.float()
+            ref = F.conv2d(xp.to(bf).double(), m.weight.to(bf).double(), None, m.stride).to(bf)
+            if m.bias is not None:
+                ref = (ref.double() + m.bias.to(bf).double()[None, :, None, None]).to(bf)
+            ulp = torch.exp2(torch.floor(torch.log2(ref.float().abs().clamp_min(1e-30))) - 7)
+            n_out += ref.numel()
+            for d in ("cpu", "cuda"):
+                y = convs[d][i](x.to(d)).cpu()
+                diff = (y.float() - ref.float()).abs()
+                off[d][0] += int((diff > 0).sum())
+                off[d][1] = max(off[d][1], float((diff / ulp).max()))
+    log(f"# bf16 encoder convolutions ({len(inputs)} layers, {n_out} outputs) on the CPU forward's "
+        f"inputs, against the exactly rounded result: card off at {off['cuda'][0]} "
+        f"({off['cuda'][0] / n_out:.3e}, max {off['cuda'][1]:.2f} ulp), CPU off at "
+        f"{off['cpu'][0]} ({off['cpu'][0] / n_out:.3e}, max {off['cpu'][1]:.2f} ulp)")
+
+    for dt in ("bfloat16", "float32"):
+        card, cpu = run(dt, "cuda"), run(dt, "cpu")
+        for stage in ("encoder", "sparse stack", "heads"):
+            (yc, gc), (yh, gh) = card[stage], cpu[stage]
+            cos = float(gc @ gh / (gc.norm() * gh.norm()))
+            log(f"# {dt} stage {stage}, card against CPU: output max |d| "
+                f"{float((yc - yh).abs().max()):.3e}, rel L2 {float((yc - yh).norm() / yh.norm()):.3e}; "
+                f"gradient cosine {cos:.6f}, rel L2 {float((gc - gh).norm() / gh.norm()):.3e}")
+
+
 def main():
     import torch
 
+    if sys.argv[1:2] == ["--dp-worker"]:  # one rank of phase 7c
+        sys.path.insert(0, ROOT)
+        out_dir, coordinator, world, rank, backend = sys.argv[2:7]
+        return dp_worker(out_dir, coordinator, int(world), int(rank), backend)
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs an NVIDIA GPU", file=sys.stderr)
         return 2
@@ -1858,6 +2371,7 @@ def main():
     multi_frame_epoch(card)
     torch.cuda.empty_cache()
     bf16_step_card_vs_cpu()
+    bf16_stages_card_vs_cpu()
     torch.cuda.empty_cache()
     bench = train_bench_runs(card)
     log(f"# train bench on {card}: s/it float32 {bench['float32']['s_per_it']}, bfloat16 "
@@ -1880,6 +2394,14 @@ def main():
         f"(FrameSampler, 2 frames at 512^2) exited 0 in {time.perf_counter() - t0:.1f} s, "
         f"PSNR {cli_psnr:.3f} dB")
     check(cli_psnr >= 20.0, f"inference CLI PSNR {cli_psnr:.3f} < 20 dB")
+
+    # ---- phase 7: the spconv 2.x layout, the tools, data parallelism ----
+    torch.cuda.empty_cache()
+    layout_phase()
+    torch.cuda.empty_cache()
+    tools_phase(card)
+    torch.cuda.empty_cache()
+    dp_phase(card, f32["s_per_it"])
 
     log(f"# total {time.perf_counter() - t_all:.1f} s")
     want = {f"point_stages[{n}]" for n in [*ps.FORMS.values(), *key_modes]} | {

@@ -288,35 +288,8 @@ def runs(tmp_path_factory):
     t_rand = [np.asarray(jax.random.uniform(rngs[i], (cfg.train.n_rays, cfg.train.n_samples)))
               for i in range(WORLD)]
 
-    def loss_fn(p, batch, rng):
-        ret, _ = render.render_train(merge_variables(p, bstats), batch, rng)
-        return sum(crit(ret, batch, True).values())
-
-    # the gradient reference of tests/test_torch_train_step.py: JAX's loss
-    # with its BatchNorm and InstanceNorm statistics in float64
-    import gpnerf_tpu.models.encoder as jax_encoder
-    import gpnerf_tpu.models.sparse_net as jax_sparse_net
-    from test_torch_train_step import F64StatsBN, F64StatsIN
-
-    saved = jax_sparse_net.MaskedBatchNorm, jax_encoder.InstanceNorm
-    jax_sparse_net.MaskedBatchNorm, jax_encoder.InstanceNorm = F64StatsBN, F64StatsIN
-    try:
-        with jax.enable_x64(True):
-            gfun = jax.jit(jax.grad(loss_fn))
-            grads = [gfun(params, {k: jnp.asarray(v) for k, v in f.items()}, rngs[i])
-                     for i, f in enumerate(frames)]
-            gmean = jax.tree.map(lambda a, b: np.asarray((a + b) / 2), *grads)
-    finally:
-        jax_sparse_net.MaskedBatchNorm, jax_encoder.InstanceNorm = saved
-
-    optimizer, _ = make_optimizer(cfg)
-    step = make_dp_train_step(render, crit, optimizer, make_mesh(WORLD))
-    batches = {k: jnp.asarray(v) for k, v in stack_batches(frames).items()}
-    new_p, new_bs, _, metrics = step(params, bstats, optimizer.init(params), batches, rngs)
-
+    # the two port ranks run while JAX compiles its side
     dcfg = small_cfg(jax_cfg, **DEMO)
-    np.random.seed(0)
-    random.seed(0)
     random.seed(1)  # the bench protocol's seed of its second frame
     np.random.seed(1)
     demo_frame = jax_get("dataset", dcfg.dataset.test.file)(dcfg, is_train=False)[DEMO_ITEM]
@@ -326,21 +299,47 @@ def runs(tmp_path_factory):
     with open(tmp / "inputs.pkl", "wb") as f:
         pickle.dump({"state": from_jax_variables(variables), "frames": frames,
                      "t_rand": t_rand, "eval_frame": eval_frame, "demo_frame": demo_frame}, f)
-
     coordinator = f"127.0.0.1:{_free_port()}"
     env = dict(os.environ, PYTHONPATH=ROOT)
+    logs = [open(tmp / f"rank{r}.log", "w") for r in range(WORLD)]
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), str(tmp), coordinator,
-                               str(WORLD), str(r)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE) for r in range(WORLD)]
-    errs = []
-    for p in procs:
+                               str(WORLD), str(r)], cwd=ROOT, env=env, stdout=logs[r],
+                              stderr=subprocess.STDOUT) for r in range(WORLD)]
+    try:
+        def loss_fn(p, batch, rng):
+            ret, _ = render.render_train(merge_variables(p, bstats), batch, rng)
+            return sum(crit(ret, batch, True).values())
+
+        # the gradient reference of tests/test_torch_train_step.py: JAX's
+        # loss with its BatchNorm and InstanceNorm statistics in float64
+        import gpnerf_tpu.models.encoder as jax_encoder
+        import gpnerf_tpu.models.sparse_net as jax_sparse_net
+        from test_torch_train_step import F64StatsBN, F64StatsIN
+
+        saved = jax_sparse_net.MaskedBatchNorm, jax_encoder.InstanceNorm
+        jax_sparse_net.MaskedBatchNorm, jax_encoder.InstanceNorm = F64StatsBN, F64StatsIN
         try:
-            _, err = p.communicate(timeout=300)
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-            raise
-        errs.append(err.decode(errors="replace")[-3000:])
+            with jax.enable_x64(True):
+                gfun = jax.jit(jax.grad(loss_fn))
+                grads = [gfun(params, {k: jnp.asarray(v) for k, v in f.items()}, rngs[i])
+                         for i, f in enumerate(frames)]
+                gmean = jax.tree.map(lambda a, b: np.asarray((a + b) / 2), *grads)
+        finally:
+            jax_sparse_net.MaskedBatchNorm, jax_encoder.InstanceNorm = saved
+
+        optimizer, _ = make_optimizer(cfg)
+        step = make_dp_train_step(render, crit, optimizer, make_mesh(WORLD))
+        batches = {k: jnp.asarray(v) for k, v in stack_batches(frames).items()}
+        new_p, new_bs, _, metrics = step(params, bstats, optimizer.init(params), batches, rngs)
+        for p in procs:
+            p.wait(timeout=300)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for f in logs:
+            f.close()
+    errs = [(tmp / f"rank{r}.log").read_text()[-3000:] for r in range(WORLD)]
     assert all(p.returncode == 0 for p in procs), errs
     ranks = []
     for r in range(WORLD):
