@@ -7,6 +7,8 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py --profile    # plus a torch.profiler kernel table
     python3 chip_smoke.py --all-keys   # plus every point-stage key the
                                        # renderer's switches reach (~10 min)
+    python3 chip_smoke.py --dp-only    # phase 7c alone (data parallelism;
+                                       # NCCL across two cards, if present)
 
 Phases, each fatal on failure:
   1. device and power limit; build every CUDA kernel from
@@ -1310,7 +1312,7 @@ def within_step_tolerance(before, a, b, lr, wd):
     return ok and n_over <= 5e-3 * n_all, n_over, n_all
 
 
-def dp_phase(card, single_s_per_it):
+def dp_phase(card, single_s_per_it=None):
     """Phase 7c: data parallelism, two processes of `chip_smoke.py
     --dp-worker`: NCCL with one rank per card when the box has two or more,
     else gloo with both ranks on cuda:0 (then NCCL across cards is not
@@ -1429,8 +1431,9 @@ def dp_phase(card, single_s_per_it):
     for r in res:
         log(f"# data parallel rank {r['rank']} ({r['device']}, {r['backend']}) on {card}: DP step "
             f"s/it min {r['s_per_it'][0]:.4f} median {r['s_per_it'][5]:.4f} max "
-            f"{r['s_per_it'][-1]:.4f} (10 steps, CUDA events; one process, phase 5: median "
-            f"{single_s_per_it[1]:.4f}), peak {r['peak_gib']:.3f} GiB; 2-rank fast render of "
+            f"{r['s_per_it'][-1]:.4f} (10 steps, CUDA events"
+            + (f"; one process, phase 5: median {single_s_per_it[1]:.4f}" if single_s_per_it else "")
+            + f"), peak {r['peak_gib']:.3f} GiB; 2-rank fast render of "
             f"bench frame 0: launches {json.dumps(r['launches'])}, overflows {r['overflows']}, "
             f"counts {r['counts']}, PSNR {r['psnr']:.3f} dB, against one process: integers "
             f"{json.dumps(r['same'])}, colors max |d| {r['pred_max']:.2e}")
@@ -1627,6 +1630,12 @@ def main():
     card = f"{torch.cuda.get_device_name(0)} ({smi})"
     log(f"# device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}, "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if "--dp-only" in sys.argv[1:]:  # phase 7c alone, on form (a)'s library
+        build_point_keys([k for k, n in ps.FORMS.items() if n == "a"])
+        dp_phase(card)
+        log(f"# total {time.perf_counter() - t_all:.1f} s")
+        print(smi)
+        return 0
     t0 = time.perf_counter()
     # every key the switch space reaches (--all-keys) or FORMS' and the cover
     cover = cover_keys()

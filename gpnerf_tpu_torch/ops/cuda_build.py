@@ -8,7 +8,9 @@ PyTorch header is involved. Libraries go to gpnerf_tpu_torch/_build/
 and of the macro definitions, so an edited source rebuilds.
 
 `start_build` only starts nvcc, so a caller can start every source at once
-and then `load` them one after the other.
+and then `load` them one after the other. nvcc writes a file of its
+process's own that is renamed into place, so ranks of a data-parallel job
+that build the same library at once each load a whole one.
 """
 
 from __future__ import annotations
@@ -49,6 +51,10 @@ def build_command(source, name, defines=()):
     return cmd, lib
 
 
+def _tmp_path(lib_path):
+    return f"{lib_path}.{os.getpid()}.tmp"
+
+
 def start_build(source, name, defines=()):
     """Start nvcc unless the hashed library exists; returns the Popen (or
     None) to hand to `load`."""
@@ -56,6 +62,7 @@ def start_build(source, name, defines=()):
     if os.path.exists(lib_path):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
+    cmd[cmd.index("-o") + 1] = _tmp_path(lib_path)
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
 
@@ -72,6 +79,7 @@ def load(source, name, defines=(), proc=None, build_log=None, log_key=None):
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {source} {list(defines)}:\n{out}")
+        os.replace(_tmp_path(lib_path), lib_path)
         if build_log is not None:
             build_log[log_key] = {"seconds": time.perf_counter() - t0, "output": out}
     return ctypes.CDLL(lib_path)

@@ -41,10 +41,10 @@ def _staged(t, group):
     return t, False
 
 
-def all_reduce_(t, group=None, op=dist.ReduceOp.SUM):
-    """In-place all-reduce of `t` over `group`."""
+def all_reduce_(t, group=None):
+    """In-place sum of `t` over `group`."""
     s, copied = _staged(t, group)
-    dist.all_reduce(s, op=op, group=group)
+    dist.all_reduce(s, group=group)
     if copied:
         t.copy_(s)
     return t
@@ -79,13 +79,13 @@ def _flat_apply(tensors, fn):
         off += t.numel()
 
 
-def batchnorm_stats(render):
+def _batchnorm_stats(render):
     """The running means and variances of every MaskedBatchNorm."""
     return [b for m in render.modules() if isinstance(m, MaskedBatchNorm)
             for b in (m.running_mean, m.running_var)]
 
 
-def broadcast_state(render, group=None):
+def _broadcast_state(render, group=None):
     """Make every rank's parameters and floating buffers the group's first
     rank's: one broadcast of one buffer."""
     with torch.no_grad():
@@ -104,9 +104,9 @@ def make_dp_train_step(render, criterion, optimizer, scheduler, group=None):
     JAX's pmean takes it). Parameters and buffers are broadcast from the
     group's first rank when the step is built."""
     n = dist.get_world_size(group)
-    broadcast_state(render, group)
+    _broadcast_state(render, group)
     params = [p for g in optimizer.param_groups for p in g["params"]]
-    stats = batchnorm_stats(render)
+    stats = _batchnorm_stats(render)
 
     def mean_(flat):
         all_reduce_(flat, group)
@@ -119,7 +119,6 @@ def make_dp_train_step(render, criterion, optimizer, scheduler, group=None):
         scheduler.step()
         with torch.no_grad():
             _flat_apply(stats, mean_)
-        metrics["overflow"] = metrics["overflow"].float()
         keys = list(metrics)
         vec = torch.stack([metrics[k].float() for k in keys])
         mean_(vec)

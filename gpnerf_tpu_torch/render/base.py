@@ -32,8 +32,10 @@ The mesh paths of both renderers share `mesh_volume`, `mesh_sigma` and
 Under `tpu.train_dtype bfloat16` the encoder and the heads compute on real
 bf16 tensors (models/layers.py `native`) over float32 parameters.
 
-Out of scope, refused by `build_render` with the key named: data
-parallelism (`tpu.dp_size` > 1).
+Training runs data parallel over the ranks of a process group
+(parallel/dp.py); `build_render` refuses, naming the keys, a data-parallel
+group of some ranks only and several frames per step over several ranks
+(`check_train_scope`).
 """
 
 from __future__ import annotations

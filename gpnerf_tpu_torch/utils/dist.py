@@ -68,7 +68,7 @@ def local_device(local_rank=None):
     return dev
 
 
-def comm_device():
+def _comm_device():
     """Where the default group's collectives take their tensors: the current
     card under NCCL, the host under gloo."""
     if dist.get_backend() == "nccl":
@@ -83,7 +83,7 @@ def reduce_dict(input_dict, average=True):
         return {k: float(v) for k, v in input_dict.items()}
     keys = sorted(input_dict)
     vec = torch.tensor([float(input_dict[k]) for k in keys], dtype=torch.float64,
-                       device=comm_device())
+                       device=_comm_device())
     dist.all_reduce(vec)
     if average:
         vec /= get_world_size()

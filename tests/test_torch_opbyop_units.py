@@ -242,8 +242,13 @@ def test_profile_returns_the_reference_slots(small_renders, pallas_point):
     r = get(pallas_point=pallas_point)
     out = r.profile([b] if pallas_point else b, reps=1)
     assert r.pallas_point == pallas_point  # restored after the ladder
-    want = {"etime", "rtime", "time_slots"} | ({"rtime_production"} if pallas_point else set())
+    want = {"etime", "rtime", "totals", "time_slots"} | (
+        {"rtime_production"} if pallas_point else set())
     assert set(out) == want
+    # each prefix of the ladder, the whole op-by-op render last
+    assert list(out["totals"]) == list(port_demo.PROFILE_LADDER)
+    assert out["totals"][None] == out["rtime"]
+    assert out["time_slots"]["sp_encode"] == out["totals"]["volume"]
     # the slot names and mapping of gpnerf_tpu/render/demo.py:1833-1845
     assert list(out["time_slots"]) == [
         "bc_attn", "sigma_attn", "sigma_c", "sp_encode", "bc_time", "bf_sigma", "sigma_f",
