@@ -12,12 +12,12 @@ Run from the root of a checkout, with no arguments:
 
 Phases, each fatal on failure:
   1. device and power limit; build every CUDA kernel from
-     gpnerf_tpu_torch/csrc/: the point-stage kernel for FORMS' 28 keys
+     gpnerf_tpu_torch/csrc/: the point-stage kernel for FORMS' 32 keys
      (ops/point_stages.py: projection row types by geometry layouts, 3
      views) and the cover set (`cover_keys`: every row type, geometry table
      spec and occ_geom pairing the renderer's switch space reaches, forms
      (a) and (c) at 2, 4 and 8 views), with --all-keys also the other keys
-     of that space (`reachable_kernel_keys`, 330 in all); the quad-lerp
+     of that space (`reachable_kernel_keys`, 336 in all); the quad-lerp
      kernels and the row gather (one nvcc each, up to 6 per core at once);
      each library's ptxas registers and spills, blocks per SM, threads and
      shared memory per block;
@@ -38,6 +38,18 @@ Phases, each fatal on failure:
      sigma_query_cull image. Plus, for the fast and the reference mode, a
      128^2 frame rendered on the card and on the CPU (plain versions) that
      must agree;
+  3n. the shipped `tpu.matmul_dtype bfloat16` on real bf16 tensors: the
+     fast (3 frames), reference (2) and op-by-op fast (1) modes in bf16
+     and, in the same call, in float32, each with its kernel launches, zero
+     ray / sigma / rgb overflows, PSNR >= 20 dB, ms per frame and the
+     encoder's ms from CUDA events on one line per mode, and bf16 feature
+     maps; `render_demo_scan_fn` over the 3 fast frames, its counters and
+     checksums equal to the per-frame loop's, and its ms per frame; the
+     native 128^2 fast frame on the card against the CPU. The kernel keys
+     the bf16 renders reach are those of phases 3-3k, each held against
+     its plain version there (the `@bf16` FORMS take the bf16 (P, F)
+     feature); `--all-keys` holds every key of the switch space, the 192
+     that bf16 reaches among them;
   3d. the paper configs' projection tables (split, under the tight cull) on
      3 frames with per-frame CUDA-event times, and one frame each of the
      other table choices and switch pairs, every point-stage instantiation
@@ -317,7 +329,7 @@ SWITCHES = ("tight_cull", "frame_mode", "sigma_query_cull", "int4_feat", "kernel
 def reachable_kernel_keys():
     """Every point-stage key (3 views) the Renderer constructor's switches
     select: the boolean SWITCHES, coarse_nearest 0-2, l1_nearest 0, 1, 2
-    and 11, bfloat16 or float32, uint8 or float source images (330 keys,
+    and 11, bfloat16 or float32, uint8 or float source images (336 keys,
     ~50 s of host time)."""
     import itertools
 
@@ -454,8 +466,10 @@ def random_point_inputs(form, P, device, seed=0):
     tabs = (table(rows[0], C),) if len(rows) == 1 else (table(rows[0], CS), table(rows[1], CF))
     kw, feats = {}, None
     specs = geom_specs(layout)
-    if specs[0][2] == "feat":
+    if specs[0][2] in ("feat", "feat-bf16"):
         feats = torch.randn(P, specs[0][1], generator=g, device=device) * 0.5
+        if specs[0][2] == "feat-bf16":
+            feats = feats.to(torch.bfloat16)
     else:
         geom = []
         for i, (taps, ch, kind) in enumerate(specs):
@@ -628,12 +642,13 @@ def make_render(size, matmul_dtype, device, neg=False, **tpu):
     return cfg, render
 
 
-def card_vs_cpu_128(name, max_tol, exact=False, **tpu):
+def card_vs_cpu_128(name, max_tol, exact=False, dtype="float32", med_tol=2e-3, share_tol=1e-3,
+                    **tpu):
     """The same 128^2 frame on the card and on the CPU (plain versions),
-    float32 config: masks, counts and images must agree (|d| median < 2e-3,
-    at most 0.1% of the values beyond 0.05, none beyond max_tol); with
-    `exact` the ray set, the overflows and the ray and sigma-slot counts
-    must be equal."""
+    float32 config (or `dtype`): masks, counts and images must agree (|d|
+    median < med_tol, at most share_tol of the values beyond 0.05, none
+    beyond max_tol); with `exact` the ray set, the overflows and the ray
+    and sigma-slot counts must be equal."""
     import numpy as np
     import torch
 
@@ -642,7 +657,7 @@ def card_vs_cpu_128(name, max_tol, exact=False, **tpu):
 
     outs = {}
     for d in ("cuda", "cpu"):
-        cfg_s, r = make_render(128, "float32", d, **tpu)
+        cfg_s, r = make_render(128, dtype, d, **tpu)
         if d == "cuda":
             np.random.seed(0)
             random.seed(0)
@@ -666,8 +681,86 @@ def card_vs_cpu_128(name, max_tol, exact=False, **tpu):
     check(int(g["overflows"][0]) == 0, f"128^2 {name}: ray overflow")
     n_s, n_c = int(g["counts"][1]), int(c["counts"][1])
     check(abs(n_s - n_c) <= 0.001 * n_c, f"128^2 {name} card vs CPU: sample counts differ")
-    check(float(d_img.median()) < 2e-3 and float((d_img > 0.05).float().mean()) <= 1e-3
+    check(float(d_img.median()) < med_tol and float((d_img > 0.05).float().mean()) <= share_tol
           and float(d_img.max()) < max_tol, f"128^2 {name} card vs CPU: images differ")
+
+
+def native_phase(card, batches, host):
+    """Phase 3n: the shipped `tpu.matmul_dtype bfloat16` on real bf16
+    tensors. The fast mode (3 frames), the reference mode (2) and the
+    op-by-op fast mode (1), each in bf16 and, in the same call, in float32:
+    zero ray, sigma and rgb overflows, PSNR >= 20 dB, the kernels launched,
+    ms per frame and the encoder's ms from CUDA events; the bf16 encoder's
+    output a bf16 tensor. `render_demo_scan_fn` over the 3 fast frames
+    against the per-frame loop, and its ms per frame; the native fast
+    render at 128^2 on the card against the CPU."""
+    import torch
+
+    from gpnerf_tpu_torch.ops import point_stages as ps
+    from gpnerf_tpu_torch.ops import quad_lerp as ql
+    from gpnerf_tpu_torch.render.demo import stack_frames
+
+    rows = {}
+    for title, n, extra in (("fast mode", 3, {}), ("reference mode", 2, REF_MODE),
+                            ("op-by-op fast mode", 1, {"pallas_point": False})):
+        for dtype in ("bfloat16", "float32"):
+            r = make_render(512, dtype, "cuda", **extra)[1]
+            fn = r.render_demo_fn()
+            fn(batches[0])
+            torch.cuda.synchronize()
+            ps.LAUNCHES.clear()
+            ql.LAUNCHES.clear()
+            rets = [fn(b) for b in batches[:n]]
+            torch.cuda.synchronize()
+            launches = {**ps.LAUNCHES, **ql.LAUNCHES}
+            want = "quad_lerp_rows_vcp" if "op-by-op" in title else ps.form_name(r.kernel_form())
+            check(launches == {want: n}, f"3n {title} {dtype}: launches {launches}, expected "
+                                         f"{n} of {want}")
+            psnrs = []
+            for i, (ret, hb) in enumerate(zip(rets, host)):
+                ov = ret["overflows"].tolist()
+                check(ov[0] == 0 and ov[2] == 0 and ov[3] == 0, f"3n {title} {dtype} frame {i}: "
+                                                                 f"overflows {ov}")
+                check(bool(torch.isfinite(ret["pred_chw"]).all()), f"3n {title} {dtype}: non-finite")
+                psnrs.append(psnr_of(ret, hb))
+                check(psnrs[-1] >= 20.0, f"3n {title} {dtype} frame {i}: PSNR {psnrs[-1]:.3f} dB")
+            enc = r.encode_fn()(batches[0]["src_imgs"])
+            check(enc.dtype == (torch.bfloat16 if dtype == "bfloat16" else torch.float32),
+                  f"3n {title} {dtype}: feature maps {enc.dtype}")
+            it = iter(range(10**9))
+            frame_ms = cuda_ms(lambda: fn(batches[next(it) % n]), 3 * n)
+            enc_ms = cuda_ms(lambda: r.encode_fn()(batches[next(it) % n]["src_imgs"]), 3 * n)
+            rows[title, dtype] = (frame_ms, enc_ms, psnrs, launches)
+            log(f"# 3n {title}, matmul_dtype {dtype}: launches {json.dumps(launches)}, PSNR "
+                + " ".join(f"{p:.3f}" for p in psnrs) + " dB, overflows "
+                + json.dumps([ret["overflows"].tolist() for ret in rets]))
+            if title == "fast mode" and dtype == "bfloat16":
+                order = torch.arange(n, device=batches[0]["src_imgs"].device)
+                scan = r.render_demo_scan_fn()
+                stacked = stack_frames(batches[:n])
+                out = scan(stacked, order)
+                for i, ret in enumerate(rets):
+                    check(torch.equal(out["overflows"][i], ret["overflows"])
+                          and torch.equal(out["counts"][i], ret["counts"]),
+                          f"3n render_demo_scan_fn frame {i}: counters differ from the loop's")
+                    want_ck = ret["pred_chw"].sum() + ret["rgb_map"].sum() + ret["mask_at_box"].sum()
+                    check(abs(float(out["checksum"][i] - want_ck)) <= 1e-5 * abs(float(want_ck)),
+                          f"3n render_demo_scan_fn frame {i}: checksum differs from the loop's")
+                cycles = torch.arange(3 * n, device=order.device) % n
+                scan_ms = cuda_ms(lambda: scan(stacked, cycles), 1) / (3 * n)
+                log(f"# 3n render_demo_scan_fn over the {n} fast frames: overflows, counts and "
+                    f"checksums equal the loop's; on {card}: {scan_ms:.3f} ms/frame over order "
+                    f"{cycles.tolist()} (CUDA events)")
+            del r, fn, rets
+            torch.cuda.empty_cache()
+        (b_ms, b_enc, b_psnr, _), (f_ms, f_enc, f_psnr, _) = rows[title, "bfloat16"], rows[title, "float32"]
+        log(f"# timing on {card}: 3n {title}, the same call: native bf16 {b_ms:.3f} ms/frame, encoder "
+            f"{b_enc:.3f} ms, mean PSNR {sum(b_psnr) / len(b_psnr):.3f} dB; float32 {f_ms:.3f} "
+            f"ms/frame, encoder {f_enc:.3f} ms, mean PSNR {sum(f_psnr) / len(f_psnr):.3f} dB "
+            f"(CUDA events, {3 * len(b_psnr)} renders)")
+    card_vs_cpu_128("native bf16 fast mode", 0.15, dtype="bfloat16", med_tol=8e-3, share_tol=5e-3,
+                    ray_cap=16384)
+    return rows
 
 
 def mesh_cfg(size, voxel=None):
@@ -1858,8 +1951,10 @@ def main():
         return frame_ms, psnrs
 
     run_mode("fast mode", "a", 3, render, stages=True)
-    run_mode("fast mode, kernel_octet off", "a+b", 1,
+    run_mode("fast mode, kernel_octet off", "a+b@bf16", 1,
              make_render(512, "bfloat16", "cuda", kernel_octet=False)[1])
+    run_mode("float32, fast mode, kernel_octet off", "a+b", 1,
+             make_render(512, "float32", "cuda", kernel_octet=False)[1])
     render_fast = render
     del render
     run_mode("reference mode", "c", 2, make_render(512, "bfloat16", "cuda", **REF_MODE)[1], stages=True)
@@ -1867,9 +1962,11 @@ def main():
         ("reference mode, frame_mode", "c+e", {"frame_mode": True}),
         ("reference mode, sigma_query_cull", "c+e", {"sigma_query_cull": True}),
         ("reference mode, int4_feat", "c+d", {"int4_feat": True}),
-        ("reference mode, kernel_octet off", "b+c", {"kernel_octet": False}),
+        ("reference mode, kernel_octet off", "b+c@bf16", {"kernel_octet": False}),
+        ("float32, reference mode, kernel_octet off", "b+c", {"kernel_octet": False}),
     ):
-        run_mode(title, form_name, 1, make_render(512, "bfloat16", "cuda", **REF_MODE, **extra)[1])
+        dtype = "float32" if title.startswith("float32") else "bfloat16"
+        run_mode(title, form_name, 1, make_render(512, dtype, "cuda", **REF_MODE, **extra)[1])
         torch.cuda.empty_cache()
     # the windowless frame and the dense slots under the same trilinear cull
     # evaluate the same kernel on the same surviving samples
@@ -1879,6 +1976,13 @@ def main():
         f"vs dense slots under the tap alone: mean {float(d_ref.mean()):.2e} max {float(d_ref.max()):.2e} "
         "(the tap keeps the blanket's fringe samples)")
     check(float(m.max()) < 1e-3, "frame_mode and dense slots + sigma_query_cull images differ")
+
+    # ---- phase 3n: native bf16 against float32, the sequence entry ----
+    torch.cuda.empty_cache()
+    native = native_phase(card, batches, host)
+    for k in kernels:
+        if k["name"] in ("point_stages[a]", "point_stages[c]"):
+            k["launches"] += sum(v[3].get(k["name"][13:-1], 0) for v in native.values())
 
     # ---- phase 3d: the paper configs' tables and the switch pairs ----
     # configs/trainzju_valzju.yaml and trainthu_valzju.yaml leave
@@ -1904,7 +2008,9 @@ def main():
          {"int4_feat": True, "merge_lowres_src": False}, None),
         ("reference mode, frame_mode + int4_feat", "c+d+e", "bfloat16",
          {**REF_MODE, "frame_mode": True, "int4_feat": True}, None),
-        ("reference mode, int4_feat + kernel_octet off", "b+c+d", "bfloat16",
+        ("reference mode, int4_feat + kernel_octet off", "b+c+d@bf16", "bfloat16",
+         {**REF_MODE, "int4_feat": True, "kernel_octet": False}, None),
+        ("float32, reference mode, int4_feat + kernel_octet off", "b+c+d", "float32",
          {**REF_MODE, "int4_feat": True, "kernel_octet": False}, None),
         ("reference mode, merge_lowres_src", "a", "bfloat16",
          {**REF_MODE, "merge_lowres_src": True}, None),
@@ -1929,9 +2035,10 @@ def main():
         ("merge_coarse_octet off", "a@four-level", "bfloat16", {"merge_coarse_octet": False}),
         ("l1_nearest 1", "a@l1-nearest", "bfloat16", {"l1_nearest": 1}),
         ("l1_nearest 2", "a@l1-nearest", "bfloat16", {"l1_nearest": 2}),
-        ("l1_nearest 11", "a+b", "bfloat16", {"l1_nearest": 11}),
-        ("int4_coarse", "a+b", "bfloat16", {"int4_coarse": True}),
-        ("pack_octet_u32", "a+b@128", "bfloat16", {"pack_octet_u32": True}),
+        ("l1_nearest 11", "a+b@bf16", "bfloat16", {"l1_nearest": 11}),
+        ("int4_coarse", "a+b@bf16", "bfloat16", {"int4_coarse": True}),
+        ("pack_octet_u32", "a+b@128-bf16", "bfloat16", {"pack_octet_u32": True}),
+        ("float32, pack_octet_u32", "a+b@128", "float32", {"pack_octet_u32": True}),
         ("dense_conv", "a", "bfloat16", {"dense_conv": True}),
         ("quantize_volume off", "a@float", "bfloat16", {"quantize_volume": False}),
         ("float32, quantize_volume off", "a@float32", "float32", {"quantize_volume": False}),

@@ -32,8 +32,10 @@
 //               multiple of 32. The shipped default
 //               is 28032, 11064: the u8 level-1 octet table and the int8
 //               folded-coarse nearest table, F = 96. Row type 6, PS_G0 =
-//               61000 + F, is form (b): the (P, F) float geometry feature is
-//               an input, queried outside;
+//               61000 + F, is form (b): the (P, F) float32 geometry feature
+//               is an input, queried outside; row type 7, PS_G0 = 71000 +
+//               F, the same feature as bf16 (queried in bf16, as under
+//               tpu.matmul_dtype bfloat16);
 //   PS_V        the source views V (1-8), default 3;
 //   PS_OCC   1  form (e), occ_geom: sigma is also zeroed where the
 //               dequantized channel sum of the lerped level-1 block (table
@@ -172,7 +174,7 @@ namespace {
 namespace wmma = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
 
-enum Row { NONE = 0, I8 = 1, U8 = 2, I4 = 3, BF16 = 4, F32 = 5, FEAT = 6 };
+enum Row { NONE = 0, I8 = 1, U8 = 2, I4 = 3, BF16 = 4, F32 = 5, FEAT = 6, FEAT_BF16 = 7 };
 
 constexpr int V = PS_V;  // source views
 static_assert(V >= 1 && V <= 8, "1 to 8 source views");
@@ -203,13 +205,13 @@ __host__ __device__ constexpr int geo_table(int col, int g = 0) {
 __host__ __device__ constexpr bool geo_ok(int g = 0) {
   return g == NG ||
          (GEO[g].ch % 32 == 0 && GEO[g].ch > 0 &&
-          (GEO[g].row == FEAT ? NG == 1 && GEO[g].taps == 1
+          (GEO[g].row >= FEAT ? GEO[g].row <= FEAT_BF16 && NG == 1 && GEO[g].taps == 1
                               : GEO[g].taps >= 1 && GEO[g].taps <= 8 &&
                                     (GEO[g].row == I8 || GEO[g].row == U8 || GEO[g].row == BF16 ||
                                      GEO[g].row == F32)) &&
           geo_ok(g + 1));
 }
-constexpr bool FEATS = GEO[0].row == FEAT;  // form (b)
+constexpr bool FEATS = GEO[0].row == FEAT || GEO[0].row == FEAT_BF16;  // form (b)
 static_assert(NG >= 1 && geo_ok(), "geometry tables: 1-4 of 1-8 taps, 32k channels");
 static_assert((NG > 1 || GCODE[1] == 0) && (NG > 2 || GCODE[2] == 0) && (NG > 3 || GCODE[3] == 0),
               "geometry tables are PS_G0 .. PS_G<NG - 1>");
@@ -472,7 +474,7 @@ __device__ __forceinline__ void lerp_table(const uint8_t* rows, size_t vp, const
 template <int G>
 __device__ __forceinline__ void load_geom_scales(const Args& a, float* gs) {
   if constexpr (G < NG) {
-    if constexpr (GEO[G].row != FEAT) {
+    if constexpr (GEO[G].row < FEAT) {
       for (int i = threadIdx.x; i < GEO[G].ch; i += BLOCK) gs[geo_col(G) + i] = a.g_scale[G][i];
     }
     load_geom_scales<G + 1>(a, gs);
@@ -484,7 +486,7 @@ __device__ __forceinline__ void load_geom_scales(const Args& a, float* gs) {
 // order with explicit roundings (the plain version's order), one corner's
 // 32 channels loaded at a time in 16-byte words (every row and every
 // corner's 32-channel run is 16-byte aligned); float rows rounded to bf16
-// first. The feature input (form (b)) is read as it is.
+// first. The feature input (form (b)) is read as it is, float32 or bf16.
 template <int G, int J>
 __device__ __forceinline__ void geom_chunk(const Args& a, int P, int p, const float* gs, float (&f)[32]) {
   constexpr Geom g = GEO[G];
@@ -496,6 +498,16 @@ __device__ __forceinline__ void geom_chunk(const Args& a, int P, int p, const fl
     for (int j = 0; j < 8; ++j) {
       const float4 t = __ldg(fr + j);
       f[4 * j] = t.x, f[4 * j + 1] = t.y, f[4 * j + 2] = t.z, f[4 * j + 3] = t.w;
+    }
+  } else if constexpr (g.row == FEAT_BF16) {
+    const uint4* fr = reinterpret_cast<const uint4*>(
+        a.g_rows[G] + (static_cast<size_t>(p) * g.ch + col) * 2);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint4 q = __ldg(fr + j);
+      const uint32_t wd[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int c = 0; c < 8; ++c) f[8 * j + c] = bf16_bits((wd[c >> 1] >> (16 * (c & 1))) & 0xffffu);
     }
   } else {
     constexpr int EB = g.row == BF16 ? 2 : g.row == F32 ? 4 : 1;  // bytes per channel

@@ -6,6 +6,10 @@ stride-2 stages) with InstanceNorm and reflect padding; U-Net decoder
 upconv3/iconv3/upconv2/iconv2 with [upsampled, skip] concats and bilinear
 align_corners upsampling; 1x1 out_conv to `out_ch` at 1/4 resolution.
 Public layout is the JAX package's NHWC: (V, H, W, 3) -> (V, H/4, W/4, C).
+With a compute dtype every convolution takes and returns tensors of it; the
+InstanceNorms return float32, so the decoder's upsampled inputs and skips
+are float32 and the feature maps (out_conv's output) are of the compute
+dtype, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,9 +23,9 @@ from gpnerf_tpu_torch.ops.upsample import upsample_bilinear_nchw
 
 
 class BasicBlock(nn.Module):
-    def __init__(self, cin, planes, stride=1, compute_dtype=None, native=False):
+    def __init__(self, cin, planes, stride=1, compute_dtype=None):
         super().__init__()
-        dt = dict(compute_dtype=compute_dtype, native=native)
+        dt = dict(compute_dtype=compute_dtype)
         self.conv1 = ReflectConv(cin, planes, 3, stride, **dt)
         self.bn1 = InstanceNorm(planes)
         self.conv2 = ReflectConv(planes, planes, 3, 1, **dt)
@@ -44,10 +48,9 @@ class BasicBlock(nn.Module):
 class ConvINElu(nn.Module):
     """Decoder conv block: reflect conv with bias + InstanceNorm + ELU."""
 
-    def __init__(self, cin, cout, compute_dtype=None, native=False):
+    def __init__(self, cin, cout, compute_dtype=None):
         super().__init__()
-        self.conv = ReflectConv(cin, cout, 3, 1, bias=True, compute_dtype=compute_dtype,
-                                native=native)
+        self.conv = ReflectConv(cin, cout, 3, 1, bias=True, compute_dtype=compute_dtype)
         self.bn = InstanceNorm(cout)
 
     def forward(self, x):
@@ -66,12 +69,12 @@ class _Wrap(nn.Module):
 
 
 class ResUNet(nn.Module):
-    def __init__(self, out_ch=32, encoder="resnet34", compute_dtype=None, native=False):
+    def __init__(self, out_ch=32, encoder="resnet34", compute_dtype=None):
         super().__init__()
         layers = {"resnet34": [3, 4, 6], "resnet18": [2, 2, 2], "tiny": [1, 1, 1]}[
             encoder
         ]
-        dt = dict(compute_dtype=compute_dtype, native=native)
+        dt = dict(compute_dtype=compute_dtype)
         self.conv1 = ReflectConv(3, 64, 7, 2, **dt)
         self.bn1 = InstanceNorm(64)
         cin = 64
@@ -100,12 +103,12 @@ class ResUNet(nn.Module):
         return y.permute(0, 2, 3, 1).contiguous()
 
 
-def build_encoder(cfg, compute_dtype=None, native=False):
+def build_encoder(cfg, compute_dtype=None):
     """The encoder of `cfg` (JAX models/encoder.py `build_encoder`,
-    UNet.py:237-243); `compute_dtype` rounds as the JAX package's clone with
-    that dtype does, on real tensors of it with `native`
-    (models/layers.py)."""
-    return ResUNet(cfg.encoder.out_ch, cfg.encoder.name, compute_dtype, native)
+    UNet.py:237-243); with a `compute_dtype` its convolutions compute on
+    tensors of that dtype, as the JAX package's clone with that dtype does
+    (models/layers.py), and the feature maps it returns are of that dtype."""
+    return ResUNet(cfg.encoder.out_ch, cfg.encoder.name, compute_dtype)
 
 
 from gpnerf_tpu_torch.registry import register  # noqa: E402

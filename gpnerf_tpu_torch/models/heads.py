@@ -14,10 +14,11 @@ The progressive renderer's fused path runs density/color inside the
 point-stage kernel (ops/point_stages.py); its op-by-op path calls
 `density`, `color` and `query_sigma_feat_octet_folded` (or, with the
 coarse table unfolded, `query_sigma_feat_octet`) here. The training
-renderer (render/base.py) runs `volume(train=)` and `point_forward`. With a `compute_dtype` they round
-where the JAX package's heads, computing in that dtype, round (values stay
-in float32 tensors; models/layers.MLP); with `native` as well (the bf16
-training path) the rounded values are tensors of that dtype.
+renderer (render/base.py) runs `volume(train=)` and `point_forward`. With a
+`compute_dtype` the Dense layers, the queried geometry features and the
+activations are tensors of that dtype, as the JAX package's heads computing
+in it make them (models/layers.MLP); the attention and the sparse stack's
+sums and BatchNorms stay float32.
 """
 
 from __future__ import annotations
@@ -26,54 +27,50 @@ import torch
 from torch import nn
 
 from gpnerf_tpu_torch.models.attention import MultiHeadAttention
-from gpnerf_tpu_torch.models.layers import MLP, rounded
+from gpnerf_tpu_torch.models.layers import MLP, cast
 from gpnerf_tpu_torch.models.sparse_net import SparseConvNet
 from gpnerf_tpu_torch.ops.sparse_conv import _gather_rows
 
 
-def fused_mean_variance(x, compute_dtype=None):
+def fused_mean_variance(x):
     """Mean and variance across the views axis: x (..., V, C) -> ((..., 1,
-    C), (..., 1, C)). Under a `compute_dtype` the sums and the division run
-    in float32 and the results are rounded, as the difference is; its
-    square feeds the float32 sum unrounded (the compiled JAX program keeps
-    that excess precision)."""
+    C), (..., 1, C)) of x's dtype. The sums and the division run in float32
+    (JAX's mean of a bf16 tensor does); the difference is of x's dtype, and
+    its square feeds the float32 sum unrounded (the compiled JAX program
+    keeps that excess precision)."""
     V = x.shape[-2]
-    dt = compute_dtype
 
     def mean_views(t):
-        acc = t[..., 0, :]
+        acc = t[..., 0, :].float()
         for v in range(1, V):
-            acc = acc + t[..., v, :]
-        return rounded(acc / float(V), dt)[..., None, :]
+            acc = acc + t[..., v, :].float()
+        return (acc / float(V)).to(x.dtype)[..., None, :]
 
     mean = mean_views(x)
-    d = rounded(x - mean, dt)
+    d = (x - mean).float()
     return mean, mean_views(d * d)
 
 
-def _sigmoid(x, dt, native=False):
-    """Sigmoid; in a compute dtype as 1 / (1 + exp(-x)) with each of the
-    three operations rounded, the form the JAX package's compiled program
-    evaluates."""
-    if dt is None:
+def _sigmoid(x):
+    """Sigmoid; on a bf16 tensor as 1 / (1 + exp(-x)), three bf16
+    operations, the form the JAX package's compiled program evaluates."""
+    if x.dtype == torch.float32:
         return torch.sigmoid(x)
-    r = lambda t: rounded(t, dt, native)  # noqa: E731
-    return r(1.0 / r(1.0 + r(torch.exp(-x))))
+    return 1.0 / (1.0 + torch.exp(-x))
 
 
 class NeRFSigmaHead(nn.Module):
     def __init__(self, in_feat_ch=32, n_smpl=6890, code_dim=16,
                  attn_n_heads=4, spconv_n_layers=4,
-                 spconv_out_dim=(32, 32, 32, 32), compute_dtype=None, native=False):
+                 spconv_out_dim=(32, 32, 32, 32), compute_dtype=None):
         super().__init__()
         self.c = nn.Embedding(n_smpl, code_dim)
         d = code_dim // attn_n_heads
         self.xyzc_attn = MultiHeadAttention(attn_n_heads, code_dim, d, d, in_feat_ch)
         self.xyzc_net = SparseConvNet(
-            code_dim, spconv_n_layers, tuple(spconv_out_dim), compute_dtype, native
+            code_dim, spconv_n_layers, tuple(spconv_out_dim), compute_dtype
         )
-        self.out_geometry_fc = MLP(sum(spconv_out_dim), (64,), ("elu",), compute_dtype,
-                                   native)
+        self.out_geometry_fc = MLP(sum(spconv_out_dim), (64,), ("elu",), compute_dtype)
         self.nch1 = int(spconv_out_dim[0])
         self.compute_dtype = compute_dtype
 
@@ -110,7 +107,7 @@ class NeRFSigmaHead(nn.Module):
             feats = net.query_octet(octet_vols, dhw_vox, out_sh, scales=scales, out_dtype=dt)
         sigma_feat = self.out_geometry_fc(feats)
         if with_l1_occ:
-            return sigma_feat, rounded(feats[..., :self.nch1].sum(dim=-1), dt)
+            return sigma_feat, feats[..., :self.nch1].sum(dim=-1)
         return sigma_feat
 
     def query_sigma_feat_octet_folded(self, octet_l1, octet_coarse, dhw_vox,
@@ -128,27 +125,24 @@ class NeRFSigmaHead(nn.Module):
             octet_l1, octet_coarse, dhw_vox, out_sh, scales=scales, out_dtype=dt)
         f1, fc = feats[..., :self.nch1], feats[..., self.nch1:]
         lin = self.out_geometry_fc[0]
-        pre = rounded(rounded(f1, dt) @ rounded(lin.weight[:, :self.nch1], dt).T, dt)
-        pre = rounded(pre + rounded(fc, dt), dt)
-        pre = rounded(pre + rounded(lin.bias, dt), dt)
-        sigma_feat = rounded(torch.nn.functional.elu(pre), dt)
+        pre = cast(f1, dt) @ cast(lin.weight[:, :self.nch1], dt).T + cast(fc, dt)
+        sigma_feat = torch.nn.functional.elu(pre + cast(lin.bias, dt))
         if with_l1_occ:
-            return sigma_feat, rounded(f1.sum(dim=-1), dt)
+            return sigma_feat, f1.sum(dim=-1)
         return sigma_feat
 
 
 class NeRFRGBHead(nn.Module):
-    def __init__(self, in_feat_ch=32, n_views=3, compute_dtype=None, native=False):
+    def __init__(self, in_feat_ch=32, n_views=3, compute_dtype=None):
         super().__init__()
         C = in_feat_ch + 3
         self.compute_dtype = compute_dtype
-        self.native = native
-        dt = (compute_dtype, native)
-        self.base_fc = MLP(3 * C, (64, 32), ("elu", "elu"), *dt)
-        self.vis_fc = MLP(32, (32, 32), ("elu", "elu"), *dt)
-        self.rgb_fc = MLP(n_views * 32, (32, 16, 3), ("elu", "elu", "none"), *dt)
+        dt = compute_dtype
+        self.base_fc = MLP(3 * C, (64, 32), ("elu", "elu"), dt)
+        self.vis_fc = MLP(32, (32, 32), ("elu", "elu"), dt)
+        self.rgb_fc = MLP(n_views * 32, (32, 16, 3), ("elu", "elu", "none"), dt)
         self.out_geometry_fc = MLP(
-            64 + 2 * C, (64, 32, 16, 1), ("elu", "elu", "elu", "relu"), *dt
+            64 + 2 * C, (64, 32, 16, 1), ("elu", "elu", "elu", "relu"), dt
         )
 
     def density(self, sigma_feat, mean, var, num_valid_obs):
@@ -163,18 +157,17 @@ class NeRFRGBHead(nn.Module):
         globalfeat = torch.cat([mean, var], dim=-1).expand(
             *rgb_feat.shape[:-1], -1
         )
-        dt, nat = self.compute_dtype, self.native
         x = self.base_fc(torch.cat([globalfeat, rgb_feat], dim=-1))
-        x = rounded(x + self.vis_fc(rounded(x / V, dt, nat)), dt, nat)
+        x = x + self.vis_fc(x / V)
         x = x.reshape(*x.shape[:-2], V * x.shape[-1])
-        return _sigmoid(self.rgb_fc(x), dt, nat)
+        return _sigmoid(self.rgb_fc(x))
 
     def forward(self, rgb_feat, sigma_feat, mask):
         """rgb_feat (N_rays, N_samples, V, C+3), sigma_feat (..., 64), mask
-        (N_rays, N_samples, V, 1). Returns (rgb_in, rgb, sigma). `native`:
-        the mean and variance in rgb_feat's own dtype (float32 on the
-        training path), as the JAX package computes them."""
-        mean, var = fused_mean_variance(rgb_feat, None if self.native else self.compute_dtype)
+        (N_rays, N_samples, V, 1). Returns (rgb_in, rgb, sigma); the mean
+        and variance are in rgb_feat's own dtype (float32 on the training
+        path), as the JAX package computes them."""
+        mean, var = fused_mean_variance(rgb_feat)
         sigma = self.density(sigma_feat, mean[..., 0, :], var[..., 0, :], mask.sum(dim=-2))
         return rgb_feat[..., :3], self.color(rgb_feat, mean, var), sigma
 
@@ -185,16 +178,14 @@ class NeRFHead(nn.Module):
 
     def __init__(self, in_feat_ch=32, n_smpl=6890, code_dim=16,
                  attn_n_heads=4, spconv_n_layers=4,
-                 spconv_out_dim=(32, 32, 32, 32), compute_dtype=None, n_views=3,
-                 native=False):
+                 spconv_out_dim=(32, 32, 32, 32), compute_dtype=None, n_views=3):
         super().__init__()
         self.spconv_out_dim = tuple(spconv_out_dim)
         self.sigmahead = NeRFSigmaHead(
             in_feat_ch, n_smpl, code_dim, attn_n_heads, spconv_n_layers,
-            spconv_out_dim, compute_dtype, native,
+            spconv_out_dim, compute_dtype,
         )
-        self.rgbhead = NeRFRGBHead(in_feat_ch, n_views=n_views, compute_dtype=compute_dtype,
-                                   native=native)
+        self.rgbhead = NeRFRGBHead(in_feat_ch, n_views=n_views, compute_dtype=compute_dtype)
 
     def volume(self, smpl_feat, vertex_rows, levels, *, train=False):
         """Fuse vertex codes and build the sparse feature volume once per
@@ -228,10 +219,10 @@ class NeRFHead(nn.Module):
         return torch.cat([rgb, sigma], dim=-1), rgb_in
 
 
-def build_head(cfg, compute_dtype=None, native=False):
+def build_head(cfg, compute_dtype=None):
     """The heads of `cfg` (JAX models/heads.py `build_head`,
-    trainhead.py:166-177); `compute_dtype` rounds as the JAX package's clone
-    with that dtype does, on real tensors of it with `native`."""
+    trainhead.py:166-177); with a `compute_dtype` they compute on tensors of
+    that dtype where the JAX package's clone with that dtype does."""
     return NeRFHead(
         in_feat_ch=cfg.encoder.out_ch,
         n_smpl=cfg.head.sigma.n_smpl,
@@ -241,7 +232,6 @@ def build_head(cfg, compute_dtype=None, native=False):
         spconv_out_dim=tuple(cfg.head.sigma.outdims),
         compute_dtype=compute_dtype,
         n_views=cfg.src_view_num,
-        native=native,
     )
 
 

@@ -6,18 +6,14 @@ parameter names follow the reference checkpoint (`weight`, `bias`,
 `running_mean`, `running_var`), so `load_state_dict(strict=True)` on
 artifacts/bench_ckpt.pth fills them directly.
 
-`compute_dtype` reproduces the JAX package's reduced-precision casts. Two
-forms share one code path:
-
-  * the emulation (the inference paths under cfg.tpu.matmul_dtype
-    "bfloat16"): operands are rounded to that dtype and the arithmetic runs
-    in float32 on the rounded values, which is what XLA does for a bf16
-    convolution with float32 accumulation; values stay in float32 tensors;
-  * `native` (the training path under cfg.tpu.train_dtype "bfloat16"): the
-    casts make real tensors of that dtype, so convolutions and products take
-    bf16 operands (float32 accumulation in cuDNN, cuBLAS or the CPU's
-    kernels) and return bf16, and the ops that follow compute in the dtype
-    of what they are given, as the JAX package's do.
+`compute_dtype` reproduces the JAX package's reduced-precision layers
+(flax `Conv` / `Dense` with `dtype=bfloat16` over float32 parameters): the
+casts make real tensors of that dtype, so convolutions and products take
+bf16 operands (float32 accumulation in cuDNN, cuBLAS or the CPU's kernels)
+and return bf16, and the ops that follow compute in the dtype of what they
+are given, as the JAX package's do. Norms take their statistics in float32.
+`rounded` is the float32 emulation of one such rounding, kept for the plain
+versions of the kernels and the samplers' inner steps.
 """
 
 from __future__ import annotations
@@ -29,12 +25,17 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def rounded(x, dtype, native=False):
-    """`x` rounded to `dtype` (None: unchanged): a tensor of that dtype when
-    `native`, else float32 holding the rounded values."""
+def rounded(x, dtype):
+    """`x` rounded to `dtype` (None: unchanged), as float32 holding the
+    rounded values."""
     if dtype is None:
         return x
-    return x.to(dtype) if native else x.to(dtype).float()
+    return x.to(dtype).float()
+
+
+def cast(x, dtype):
+    """`x` as a tensor of `dtype` (None: unchanged)."""
+    return x if dtype is None else x.to(dtype)
 
 
 class ReflectConv(nn.Conv2d):
@@ -42,23 +43,21 @@ class ReflectConv(nn.Conv2d):
     `padding_mode='reflect'` convs, UNet.py:6-14,160-161)."""
 
     def __init__(self, cin, cout, kernel_size=3, stride=1, bias=False,
-                 compute_dtype=None, native=False):
+                 compute_dtype=None):
         super().__init__(
             cin, cout, kernel_size, stride, padding=(kernel_size - 1) // 2,
             padding_mode="reflect", bias=bias,
         )
         self.compute_dtype = compute_dtype
-        self.native = native
 
     def forward(self, x):
         p = self.padding[0]
         if p:
             x = F.pad(x, (p, p, p, p), mode="reflect")
-        dt, nat = self.compute_dtype, self.native
-        y = F.conv2d(rounded(x, dt, nat), rounded(self.weight, dt, nat), None, self.stride)
-        y = rounded(y, dt, nat)
+        dt = self.compute_dtype
+        y = F.conv2d(cast(x, dt), cast(self.weight, dt), None, self.stride)
         if self.bias is not None:
-            y = rounded(y + rounded(self.bias, dt, nat)[None, :, None, None], dt, nat)
+            y = y + cast(self.bias, dt)[None, :, None, None]
         return y
 
 
@@ -134,15 +133,13 @@ class MLP(nn.Sequential):
     nn.Sequential (Linear at even indices), so keys read `<name>.0.weight`,
     `<name>.2.weight`, ...
 
-    `compute_dtype` reproduces a Dense layer computing in that dtype with
-    float32 parameters (flax `Dense(dtype=bfloat16)`): input, weight and
-    bias are rounded to it, the product is rounded, the biased sum is
-    rounded, and the activation runs on the rounded value and is rounded
-    again. Values stay in float32 tensors, or with `native` are tensors of
-    that dtype (the output too)."""
+    `compute_dtype` is a Dense layer computing in that dtype with float32
+    parameters (flax `Dense(dtype=bfloat16)`): input, weight and bias are
+    cast to it, and the product, the biased sum and the activation are
+    tensors of it (the output too)."""
 
     def __init__(self, cin: int, features: Sequence[int],
-                 activations: Sequence[str], compute_dtype=None, native=False):
+                 activations: Sequence[str], compute_dtype=None):
         mods = []
         for f, act in zip(features, activations):
             mods.append(nn.Linear(cin, f))
@@ -151,16 +148,14 @@ class MLP(nn.Sequential):
             cin = f
         super().__init__(*mods)
         self.compute_dtype = compute_dtype
-        self.native = native
 
     def forward(self, x):
-        dt, nat = self.compute_dtype, self.native
+        dt = self.compute_dtype
         if dt is None:
             return super().forward(x)
         for m in self:
             if isinstance(m, nn.Linear):
-                x = rounded(rounded(x, dt, nat) @ rounded(m.weight, dt, nat).T, dt, nat)
-                x = rounded(x + rounded(m.bias, dt, nat), dt, nat)
+                x = cast(x, dt) @ cast(m.weight, dt).T + cast(m.bias, dt)
             else:
-                x = rounded(m(x), dt, nat)
+                x = m(x)
         return x

@@ -29,7 +29,7 @@ from gpnerf_tpu_torch.ops.grid_sample import (
     trilinear_dense_rows,
     trilinear_octet_rows,
 )
-from gpnerf_tpu_torch.models.layers import rounded
+from gpnerf_tpu_torch.models.layers import cast
 from gpnerf_tpu_torch.ops.sparse_conv import (
     SparseLevel,
     scatter_channel_sum,
@@ -72,9 +72,9 @@ class _DoubleConv(nn.Sequential):
             SparseConvWeight(cout, cout), MaskedBatchNorm(cout), nn.ReLU(),
         )
 
-    def run(self, x, level, compute_dtype, train=False, native=False):
+    def run(self, x, level, compute_dtype, train=False):
         for conv, bn in ((self[0], self[1]), (self[3], self[4])):
-            x = subm_conv_tbl(x, level, conv.taps(), compute_dtype=compute_dtype, native=native)
+            x = subm_conv_tbl(x, level, conv.taps(), compute_dtype=compute_dtype)
             x = F.relu(bn(x, level.valid, train=train))
         return x
 
@@ -83,22 +83,21 @@ class _StrideConv(nn.Sequential):
     def __init__(self, cin, cout):
         super().__init__(SparseConvWeight(cin, cout), MaskedBatchNorm(cout), nn.ReLU())
 
-    def run(self, x, level, compute_dtype, train=False, native=False):
-        x = stride_conv_tbl(x, level, self[0].taps(), compute_dtype=compute_dtype, native=native)
+    def run(self, x, level, compute_dtype, train=False):
+        x = stride_conv_tbl(x, level, self[0].taps(), compute_dtype=compute_dtype)
         return F.relu(self[1](x, level.valid, train=train))
 
 
 class SparseConvNet(nn.Module):
-    """`compute_dtype`: each conv's input and weight are rounded to it
-    before the row gather (real tensors of it with `native`), the sums are
-    float32 (ops/sparse_conv.py), the BatchNorms float32."""
+    """`compute_dtype`: each conv's input and weight are cast to it before
+    the row gather, the sums are float32 (ops/sparse_conv.py), the
+    BatchNorms float32, so the level features are float32."""
 
     def __init__(self, in_dim=32, n_layers=4, out_dim=(32, 32, 32, 32),
-                 compute_dtype=None, native=False):
+                 compute_dtype=None):
         super().__init__()
         self.n_layers = n_layers
         self.compute_dtype = compute_dtype
-        self.native = native
         mods = [_DoubleConv(in_dim, in_dim)]
         cin = in_dim
         for i in range(n_layers):
@@ -111,12 +110,12 @@ class SparseConvNet(nn.Module):
         feature matrices [(CAP_i, out_dim[i-1]) for levels 1..n_layers].
         `train`: each BatchNorm takes its statistics over the level's valid
         rows and updates its running estimates."""
-        dt, nat = self.compute_dtype, self.native
-        x = self.net[0].run(code, levels[0], dt, train, nat)
+        dt = self.compute_dtype
+        x = self.net[0].run(code, levels[0], dt, train)
         level_feats = []
         for i in range(self.n_layers):
-            x = self.net[2 * i + 1].run(x, levels[i + 1], dt, train, nat)
-            x = self.net[2 * i + 2].run(x, levels[i + 1], dt, train, nat)
+            x = self.net[2 * i + 1].run(x, levels[i + 1], dt, train)
+            x = self.net[2 * i + 2].run(x, levels[i + 1], dt, train)
             level_feats.append(x)
         return level_feats
 
@@ -187,10 +186,13 @@ def _conv3d(vol, w27, stride, compute_dtype=None):
     """Dense 3x3x3 conv of a (D, H, W, Cin) volume with the sparse tap
     layout w27 (27, Cin, Cout) (tap k = (kd*3 + kh)*3 + kw at offset (kd-1,
     kh-1, kw-1)), padding 1: a correlation, as F.conv3d computes. Inputs are
-    rounded to `compute_dtype` and the sums run in float32."""
+    cast to `compute_dtype` and the result is float32, as JAX's
+    preferred_element_type gives it: a bf16 convolution's sums are float32
+    in cuDNN and on the CPU, but it returns them rounded, so the operands
+    are widened (their products are exact in float32)."""
     k = w27.reshape(3, 3, 3, w27.shape[-2], w27.shape[-1]).permute(4, 3, 0, 1, 2)
-    x = rounded(vol.float(), compute_dtype).permute(3, 0, 1, 2)[None]
-    y = F.conv3d(x, rounded(k.float(), compute_dtype), stride=stride, padding=1)
+    x = cast(vol, compute_dtype).float().permute(3, 0, 1, 2)[None]
+    y = F.conv3d(x, cast(k, compute_dtype).float(), stride=stride, padding=1)
     return y[0].permute(1, 2, 3, 0)
 
 

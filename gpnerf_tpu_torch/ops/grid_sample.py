@@ -22,7 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from gpnerf_tpu_torch.models.layers import rounded
+from gpnerf_tpu_torch.models.layers import cast, rounded
 
 
 def _unnormalize(coord, size):
@@ -122,7 +122,8 @@ def lerp_dtype(table, out_dtype=None):
 def _quad_weighted_sum(rows, taps, scale, dtype):
     """sum_k rows[..., kC:(k+1)C] * taps[k] in tap order, then the dequant
     factor; every product and partial sum is rounded to `dtype` (None:
-    float32), as arithmetic carried out in that dtype rounds them."""
+    float32), as arithmetic carried out in that dtype rounds them, and the
+    result is a tensor of `dtype`."""
     C = rows.shape[-1] // 4
     out = None
     for k, t in enumerate(taps):
@@ -130,7 +131,7 @@ def _quad_weighted_sum(rows, taps, scale, dtype):
         out = term if out is None else rounded(out + term, dtype)
     if scale is not None:
         out = rounded(out * rounded(scale.float(), dtype), dtype)
-    return out
+    return cast(out, dtype)
 
 
 def bilinear_quad_nhwc(table, grid, h, w, scale=None, out_dtype=None):
@@ -139,8 +140,8 @@ def bilinear_quad_nhwc(table, grid, h, w, scale=None, out_dtype=None):
     dequantization factors of a quantized table, applied after the weighted
     sum. `out_dtype` (e.g. torch.bfloat16; default `lerp_dtype(table)`):
     the weights, products and sums are rounded to it, reproducing arithmetic
-    carried out in that dtype; the result is returned as float32 holding
-    those values."""
+    carried out in that dtype, and the result is a tensor of it (float32
+    without one)."""
     N, C4 = table.shape[0], table.shape[-1]
     dt = lerp_dtype(table, out_dtype)
     wx1, wy1, xi, yi, idx = _quad_base(grid, h, w)
@@ -190,8 +191,8 @@ def bilinear_quad_nhwc_pv_kernel(table, grid, h, w, scale=None, out_dtype=None):
     view-major order, the weights stay float32, the kernel accumulates in
     float32 and rounds once to `out_dtype` (default `lerp_dtype(table)`,
     float32 for integer tables), where the other two forms round every
-    product and partial sum. Returns (P, V, C) float32 values as a
-    transposed view of the kernel's (V, C, P) output."""
+    product and partial sum. Returns (P, V, C) of that dtype, a transposed
+    view of the kernel's (V, C, P) output."""
     from gpnerf_tpu_torch.ops.quad_lerp import quad_lerp_rows_vcp
 
     if (h, w) != (table.shape[1] - 1, table.shape[2] - 1):
@@ -201,7 +202,7 @@ def bilinear_quad_nhwc_pv_kernel(table, grid, h, w, scale=None, out_dtype=None):
     sc = torch.ones(C, device=grid.device) if scale is None else scale.float()
     out_vcp = quad_lerp_rows_vcp(rows, w4, sc.contiguous(),
                                  out_dtype=lerp_dtype(table, out_dtype) or torch.float32)
-    return out_vcp.permute(2, 0, 1).float()
+    return out_vcp.permute(2, 0, 1)
 
 
 def build_octet_table_3d(vol):
@@ -440,10 +441,10 @@ def nearest_row_and_weight(table: NearestTable, pos, size):
 
 
 def lerp_rows(rows, w, scale=None, dtype=None):
-    """Weighted sum of T packed taps: rows (P, T*C), w (P, T) -> (P, C)
-    float32, taps summed in order k = 0..T-1, then dequantized. `dtype`:
-    the rows, every product and partial sum are rounded to it (None:
-    float32)."""
+    """Weighted sum of T packed taps: rows (P, T*C), w (P, T) -> (P, C),
+    taps summed in order k = 0..T-1, then dequantized. `dtype`: the rows,
+    every product and partial sum are rounded to it, and the result is a
+    tensor of it (None: float32)."""
     T = w.shape[-1]
     C = rows.shape[-1] // T
     out = rounded(rounded(rows[:, :C].float(), dtype) * w[:, :1], dtype)
@@ -453,7 +454,7 @@ def lerp_rows(rows, w, scale=None, dtype=None):
         out = rounded(out + term, dtype)
     if scale is not None:
         out = rounded(out * rounded(scale, dtype), dtype)
-    return out
+    return cast(out, dtype)
 
 
 def _unpack_i4(rows):
@@ -519,7 +520,7 @@ def nearest_rows(table, pos, size, scale=None, out_dtype=None):
         out = term if out is None else rounded(out + term, dt)
     if scale is not None:
         out = rounded(out * rounded(scale, dt), dt)
-    return out
+    return cast(out, dt)
 
 
 def trilinear_dense_rows(vol, pos, dyn_size=None):

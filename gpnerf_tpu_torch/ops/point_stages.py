@@ -15,7 +15,8 @@ color MLP (see csrc/point_stages.cu). Its forms:
   (a) one merged int8 [rgb|feat] table, two geometry tables (fast mode);
       or merged bf16 / float32 rows with a unit scale (`a:bf16`, `a:f32`);
   (b) the geometry feature passed as a (P, F) tensor, F = 96 (`a+b`) or
-      128 (`a+b@128`);
+      128 (`a+b@128`), float32, or bf16 as the renderer queries it under
+      `tpu.matmul_dtype bfloat16` (`a+b@bf16`, `a+b@128-bf16`);
   (c) split projection tables: u8 full-resolution source rgb rows (dequant
       1/255) + int8 feature-grid rows, lerped and concatenated; or bf16 /
       float32 feature rows (`c:u8/bf16`, `c:u8/f32`), or bf16 / float32
@@ -75,8 +76,9 @@ V, MAX_V = 3, 8
 
 # Geometry layouts: name -> the geometry tables ((taps, channels, row type),
 # ...) whose lerped blocks join, in order, into the geometry feature; taps 8
-# are octet rows, 1 nearest rows; "feat" is a (P, F) float input queried
-# outside the kernel. Which switches select each: render/demo.py
+# are octet rows, 1 nearest rows; "feat" is a (P, F) float32 input queried
+# outside the kernel, "feat-bf16" the same in bf16. Which switches select
+# each: render/demo.py
 # `geometry_layout`. A key holds its tables by these names where one fits,
 # else as the specs themselves.
 GEOMS = {
@@ -89,12 +91,15 @@ GEOMS = {
     "float32": ((8, 32, "f32"), (8, 64, "f32")),     # the same under float32
     "feats96": ((1, 96, "feat"),),
     "feats128": ((1, 128, "feat"),),
+    "feats96-bf16": ((1, 96, "feat-bf16"),),
+    "feats128-bf16": ((1, 128, "feat-bf16"),),
 }
 
 # Row types: "i8", "u8", "i4" (split-packed int8 pairs), "bf16", "f32"; one
 # type is the merged table, two are the (source, feature) pair. The macros
 # of csrc/point_stages.cu follow (ROW_CODES, `_key_values`).
-ROW_CODES = {"i8": 1, "u8": 2, "i4": 3, "bf16": 4, "f32": 5, "feat": 6}
+ROW_CODES = {"i8": 1, "u8": 2, "i4": 3, "bf16": 4, "f32": 5, "feat": 6, "feat-bf16": 7}
+FEAT_ROWS = {torch.float32: "feat", torch.bfloat16: "feat-bf16"}
 
 
 class Key(NamedTuple):
@@ -135,6 +140,11 @@ FORMS = {
        for layout in ("coarse-octet", "unfolded", "four-level", "l1-nearest", "float")},
     Key(("i8",), "l1-nearest", True): "a+e@l1-nearest",
     Key(("i8",), "feats128", False): "a+b@128",
+    # the (P, F) feature queried in bf16 (tpu.matmul_dtype bfloat16)
+    Key(("i8",), "feats96-bf16", False): "a+b@bf16",
+    Key(("u8", "i8"), "feats96-bf16", False): "b+c@bf16",
+    Key(("u8", "i4"), "feats96-bf16", False): "b+c+d@bf16",
+    Key(("i8",), "feats128-bf16", False): "a+b@128-bf16",
 }
 
 
@@ -159,24 +169,27 @@ def check_key(key):
     lacks: one merged table of C channels (not int4: C is odd) or a source
     table of CS channels (not int4) beside a feature table of CF; 1 to 4
     geometry tables of 1 to 8 taps and a multiple of 32 channels of int8,
-    uint8, bf16 or float32 rows, or one (P, F) float input, F <= 192; occ_geom
+    uint8, bf16 or float32 rows, or one (P, F) float32 or bf16 input, F <=
+    192; occ_geom
     only on geometry tables whose table 0 has 32 channels (JAX asserts the
     first half too, pallas_point.py:364); 1 to MAX_V views."""
     key = make_key(*key)
     rows, geom, occ, views = key
     specs = geom_specs(geom)
     why = []
-    if not (len(rows) in (1, 2) and all(r in ROW_CODES and r != "feat" for r in rows)
+    if not (len(rows) in (1, 2) and all(r in ROW_CODES and r not in FEAT_ROWS.values()
+                                        for r in rows)
             and rows[0] != "i4"):
         why.append(f"projection row types {rows}: one merged table, or a source and a "
                    "feature table, of i8 / u8 / bf16 / f32 rows (int4 feature rows only)")
-    feat = len(specs) == 1 and specs[0][2] == "feat" and specs[0][0] == 1
+    feat = len(specs) == 1 and specs[0][2] in FEAT_ROWS.values() and specs[0][0] == 1
     tables_ok = 1 <= len(specs) <= 4 and all(
         1 <= t <= 8 and c > 0 and c % 32 == 0 and r in ("i8", "u8", "bf16", "f32")
         for t, c, r in specs)
     if not (feat or tables_ok) or not 32 <= sum(c for _, c, _ in specs) <= 192:
         why.append(f"geometry tables {specs}: 1-4 tables of 1-8 taps and 32k channels of "
-                   "i8 / u8 / bf16 / f32 rows, or one (P, F) feature input, F <= 192")
+                   "i8 / u8 / bf16 / f32 rows, or one (P, F) f32 / bf16 feature input, "
+                   "F <= 192")
     if occ and (feat or specs[0][1] != 32):
         why.append("occ_geom needs geometry tables whose table 0 holds the 32 level-1 "
                    "channels")
@@ -468,8 +481,11 @@ def _read_geometry(geom_tabs, feats, P):
     the feature input is one table whose weights and scale are None."""
     if feats is not None:
         F = feats.shape[-1]
-        _check(feats, torch.float32, (P, F), "geometry features")
-        return ((1, F, "feat"),), [(feats, None, None)]
+        if feats.dtype not in FEAT_ROWS:
+            raise NotImplementedError(f"point-stage kernel: geometry features must be float32 "
+                                      f"or bfloat16, got {feats.dtype}")
+        _check(feats, feats.dtype, (P, F), "geometry features")
+        return ((1, F, FEAT_ROWS[feats.dtype]),), [(feats, None, None)]
     specs = []
     for i, (g, w, sc) in enumerate(geom_tabs):
         taps = w.shape[0] if w.dim() == 2 else 0

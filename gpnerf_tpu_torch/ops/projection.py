@@ -8,13 +8,11 @@ from __future__ import annotations
 
 import torch
 
-from gpnerf_tpu_torch.models.layers import rounded
 from gpnerf_tpu_torch.ops.grid_sample import (
     bilinear_quad_nhwc,
     bilinear_quad_nhwc_pv,
     bilinear_quad_nhwc_pv_kernel,
     grid_sample_2d_nhwc,
-    lerp_dtype,
     quad_rows_and_weights,
 )
 
@@ -65,15 +63,14 @@ def project_and_gather_quad(xyz, KE, src_quad, feat_quad, h, w, *,
     order: src_quad (V, H+1, W+1, 12) float or uint8 pixel bytes (`src_scale`
     then carries the 1/255 dequant), feat_quad (V, Hf+1, Wf+1, 4C) float or
     int8 (`feat_scale` its per-channel dequant). Each table is sampled in
-    its `lerp_dtype`, and the rgb is rounded to the features' (the JAX
-    package casts it to their dtype). Returns rgb_feat (P, V, 3 + C), mask
-    (P, V)."""
+    its `lerp_dtype`, and the rgb is cast to the features' dtype (as the
+    JAX package casts it). Returns rgb_feat (P, V, 3 + C), mask (P, V)."""
     pixel, in_front = compute_projections(xyz, KE, neg_ray=neg_ray)
     norm_pix = normalize_pixels(pixel, h, w)
     rgb = bilinear_quad_nhwc_pv(src_quad, norm_pix, h, w, scale=src_scale)
     hf, wf = feat_quad.shape[1] - 1, feat_quad.shape[2] - 1
     feat = bilinear_quad_nhwc_pv(feat_quad, norm_pix, hf, wf, scale=feat_scale)
-    rgb = rounded(rgb, lerp_dtype(feat_quad))
+    rgb = rgb.to(feat.dtype)
     mask = (inbound_mask(pixel, h, w) & in_front).float()
     return torch.cat([rgb, feat], dim=-1), mask.T
 

@@ -29,7 +29,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from gpnerf_tpu_torch.models.layers import rounded
+from gpnerf_tpu_torch.models.layers import cast
 
 
 class SparseLevel(NamedTuple):
@@ -60,34 +60,37 @@ def _gather_rows(feats, idx):
     return torch.where((idx >= 0)[..., None], rows, 0.0)
 
 
-def _conv_gather_mm(feats, idx, valid, weight, compute_dtype, native=False):
+def _conv_gather_mm(feats, idx, valid, weight, compute_dtype):
     """feats (N, Cin); idx (CAP, 27) row ids (-1 absent); weight
     (27, Cin, Cout) -> (CAP, Cout) float32, zeroed off-valid. With a
-    compute dtype the rows and the weight are rounded to it before the
-    gather (with `native` as tensors of it: the gather moves half the
-    bytes), and the product of the rounded values accumulates and returns
-    in float32, as the JAX einsum's preferred_element_type does: the
-    operands are widened for it, since a product of bf16 tensors rounds
-    its result to bf16 and torch has no bf16 product with a float32
-    result on the CPU."""
-    feats = rounded(feats, compute_dtype, native)
-    weight = rounded(weight, compute_dtype, native)
+    compute dtype the rows and the weight are cast to it before the gather
+    (the gather moves half the bytes), and the product of the bf16 operands
+    accumulates and returns in float32, as the JAX einsum's
+    preferred_element_type does: on the card through cuBLAS's bf16 product
+    with a float32 result (`torch.mm(..., out_dtype=)`), which has no
+    autograd formula and no CPU kernel, so on the CPU and under autograd
+    the operands are widened instead (their products are exact in
+    float32)."""
+    feats = cast(feats, compute_dtype)
+    weight = cast(weight, compute_dtype)
     g = _gather_rows(feats, idx)  # (CAP, 27, Cin)
-    out = g.reshape(g.shape[0], -1).float() @ weight.reshape(-1, weight.shape[-1]).float()
+    a, w = g.reshape(g.shape[0], -1), weight.reshape(-1, weight.shape[-1])
+    grad = torch.is_grad_enabled() and (a.requires_grad or w.requires_grad)
+    if a.dtype != torch.float32 and a.is_cuda and not grad:
+        out = torch.mm(a, w, out_dtype=torch.float32)
+    else:
+        out = a.float() @ w.float()
     return torch.where(valid[:, None], out, 0.0)
 
 
-def subm_conv_tbl(feats, level: SparseLevel, weight, *, compute_dtype=None, native=False):
+def subm_conv_tbl(feats, level: SparseLevel, weight, *, compute_dtype=None):
     """Submanifold 3x3x3 conv through the level's neighbor table."""
-    return _conv_gather_mm(feats, level.nbr, level.valid, weight, compute_dtype, native)
+    return _conv_gather_mm(feats, level.nbr, level.valid, weight, compute_dtype)
 
 
-def stride_conv_tbl(feats_in, level: SparseLevel, weight, *, compute_dtype=None,
-                    native=False):
+def stride_conv_tbl(feats_in, level: SparseLevel, weight, *, compute_dtype=None):
     """Strided sparse conv k=3 s=2 p=1 through `level.down`."""
-    return _conv_gather_mm(
-        feats_in, level.down, level.valid, weight, compute_dtype, native
-    )
+    return _conv_gather_mm(feats_in, level.down, level.valid, weight, compute_dtype)
 
 
 def _flat_targets(level: SparseLevel):

@@ -28,8 +28,11 @@ def _interp_matrix(n_in: int, n_out: int) -> np.ndarray:
 
 
 def upsample_bilinear_nchw(x, scale: int = 2):
-    """x: (N, C, H, W) -> (N, C, H*scale, W*scale), align_corners=True."""
+    """x: (N, C, H, W) -> (N, C, H*scale, W*scale), align_corners=True.
+    A bf16 input is widened and the result is float32, as JAX promotes the
+    product of its float32 matrices with a bf16 tensor."""
     _, _, H, W = x.shape
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
     Ah = torch.from_numpy(_interp_matrix(H, H * scale)).to(x.device)
     Aw = torch.from_numpy(_interp_matrix(W, W * scale)).to(x.device)
     x = torch.einsum("oh,nchw->ncow", Ah, x)

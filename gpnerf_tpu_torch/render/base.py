@@ -30,7 +30,7 @@ The mesh paths of both renderers share `mesh_volume`, `mesh_sigma` and
 `mesh_from_alpha` here.
 
 Under `tpu.train_dtype bfloat16` the encoder and the heads compute on real
-bf16 tensors (models/layers.py `native`) over float32 parameters.
+bf16 tensors (models/layers.py) over float32 parameters.
 
 Training runs data parallel over the ranks of a process group
 (parallel/dp.py); `build_render` refuses, naming the keys, a data-parallel
@@ -167,7 +167,9 @@ def mesh_volume(encoder, nerfhead, batch, max_out_sh, *, neg_ray=False):
 def mesh_sigma(nerfhead, vol, batch, pts, voxel_size, *, neg_ray=False):
     """The density MLP's sigma (P,) at world points pts (P, 3) (JAX
     render/base.py:422-441): the dense multi-scale query, the projected
-    source colors and features, their mean and variance over the views."""
+    source colors and features, their mean and variance over the views.
+    Returned as float32 (a bf16 head's values widened) for the host's
+    alpha."""
     dhw = points_to_dhw_vox(pts, batch, voxel_size)
     sigma_feat = nerfhead.sigmahead.query_sigma_feat_dense(vol["dense_vols"], dhw,
                                                           vol["out_sh"])
@@ -177,7 +179,7 @@ def mesh_sigma(nerfhead, vol, batch, pts, voxel_size, *, neg_ray=False):
                                       vol["featmaps"], H, W, neg_ray=neg_ray)
     mean, var = fused_mean_variance(rgb_feat)
     return nerfhead.rgbhead.density(sigma_feat, mean[:, 0], var[:, 0],
-                                    vm.sum(dim=-1, keepdim=True))[:, 0]
+                                    vm.sum(dim=-1, keepdim=True))[:, 0].float()
 
 
 def mesh_from_alpha(alpha, th):
@@ -431,8 +433,8 @@ def build_render(cfg, device="cuda"):
     check_train_scope(cfg)
     dt = {"float32": None, "bfloat16": torch.bfloat16}[cfg.tpu.train_dtype]
     r = Renderer(
-        get("encoder", cfg.encoder.file)(cfg, compute_dtype=dt, native=True),
-        get("head", cfg.head.file)(cfg, compute_dtype=dt, native=True),
+        get("encoder", cfg.encoder.file)(cfg, compute_dtype=dt),
+        get("head", cfg.head.file)(cfg, compute_dtype=dt),
         voxel_size=tuple(cfg.dataset.voxel_size),
         max_out_sh=tuple(cfg.tpu.max_out_sh),
         n_samples=cfg.train.n_samples,

@@ -93,6 +93,17 @@ samples into the slot frame.
 `stop_stage` (one of STOP_STAGES) ends a render after the named stage and
 returns None; `Renderer.profile` times those prefixes.
 
+The entry points carry the JAX package's names: `render_demo_fn()` (batch
+-> render dict), `encode_fn()` (the encoder alone), `render(batch)` (the
+dict with the encoder's `etime` and the remainder's `rtime`) and
+`render_demo_scan_fn()` (a stacked sequence of frames rendered in the
+order of an index tensor, reduced per frame to overflows, counts and a
+checksum). Under a compute dtype (`tpu.matmul_dtype bfloat16`) the
+encoder, the sparse stack's operands, the tables built from the feature
+maps and volumes, the samplers and the heads compute on tensors of that
+dtype, as the JAX package's do; the level volumes, the occupancy, alpha
+and the composite stay float32.
+
 Index compactions and scatters write through one spare slot that absorbs
 the dropped entries (JAX's `mode="drop"`). Every real target is written
 once: compaction positions are an exclusive prefix sum over the kept
@@ -110,7 +121,7 @@ import torch
 from torch import nn
 
 from gpnerf_tpu_torch.models.heads import fused_mean_variance
-from gpnerf_tpu_torch.models.layers import rounded
+from gpnerf_tpu_torch.models.layers import cast
 from gpnerf_tpu_torch.models.sparse_net import (
     occupancy_volume,
     occupancy_volume_dense,
@@ -125,7 +136,6 @@ from gpnerf_tpu_torch.ops.grid_sample import (
     build_octet_table_scatter,
     build_quad_table_2d,
     interleave_midpoints_3d,
-    lerp_dtype,
     nearest_row_and_weight,
     octet_rows_and_weights,
     quantize_image_i4,
@@ -188,6 +198,21 @@ def pred_img_hwc(ret):
     if "pred_img" in ret:
         return ret["pred_img"].detach().cpu().numpy()
     return ret["pred_chw"].detach().permute(1, 2, 0).cpu().numpy()
+
+
+def stack_frames(batches):
+    """Device batches (render/base.batch_to_device) of one shape -> one
+    batch whose every entry has a leading frame axis (the host `out_sh`
+    stacked on the host): the `stacked` input of
+    `Renderer.render_demo_scan_fn`."""
+    return {k: (np.stack([b[k] for b in batches]) if isinstance(batches[0][k], np.ndarray)
+                else torch.stack([b[k] for b in batches])) for k in batches[0]}
+
+
+def synchronize(dev):
+    """Wait for `dev`'s queued work (a no-op off the card)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def _compact(mask_flat, cap):
@@ -353,7 +378,7 @@ class Renderer(nn.Module):
                                self.int4_feat, self.compute_dtype, src_uint8)
         layout = self.geometry_layout()
         mask_from_query = self._frame_mode_on() or self.sigma_query_cull
-        return make_key(rows, layout, mask_from_query and layout not in ("feats96", "feats128"),
+        return make_key(rows, layout, mask_from_query and not str(layout).startswith("feats"),
                         self.n_views)
 
     def geometry_layout(self):
@@ -363,9 +388,11 @@ class Renderer(nn.Module):
         and plain nearest rows; JAX render/demo.py:689-731), else the
         queried (P, F) feature, ops/point_stages.GEOMS' "feats96" (folded
         coarse) or "feats128" (int4, word-packed and lerp-axes tables, or
-        kernel_octet off). `kernel_form`'s key names specs a GEOMS entry
-        holds by that name."""
+        kernel_octet off), "-bf16" where it is queried in bf16.
+        `kernel_form`'s key names specs a GEOMS entry holds by that name."""
         feats = "feats96" if self.fold_coarse_fc else "feats128"
+        if self.compute_dtype == torch.bfloat16:
+            feats += "-bf16"
         q = self.quantize_volume
         if (not self.kernel_octet or self.int4_coarse or (q and self.pack_octet_u32)
                 or (self.l1_nearest >= 10 and not self.dense_conv)):
@@ -405,13 +432,65 @@ class Renderer(nn.Module):
             not self._uses_bins() and not self.neg_ray_val
             and self.samples_per_ray == self.n_samples))
 
+    def encode_fn(self):
+        """src_imgs (V, H, W, 3) -> the encoder's feature maps (JAX
+        `encode_fn`: the encoder alone, which `render` times as `etime`)."""
+        return self._encode
+
+    @torch.no_grad()
+    def _encode(self, src_imgs):
+        return self.encoder(src_norm(src_imgs))
+
     def render_demo_fn(self):
         """batch (render/base.batch_to_device) -> render dict."""
         return self.render_demo
 
     @torch.no_grad()
     def render_demo(self, batch):
-        return self._demo_impl(batch, self.encoder(src_norm(batch["src_imgs"])))
+        return self._demo_impl(batch, self._encode(batch["src_imgs"]))
+
+    @torch.no_grad()
+    def render(self, batch):
+        """Reference-style entry (JAX `Renderer.render`, demo_render.py:
+        429-498): the render dict plus `etime`, the encoder's seconds, and
+        `rtime`, the remainder's, each stage bracketed by device
+        synchronizations as the reference's cuda.synchronize calls (host
+        clock)."""
+        dev = batch["src_imgs"].device
+        synchronize(dev)
+        t0 = time.perf_counter()
+        featmaps = self._encode(batch["src_imgs"])
+        synchronize(dev)
+        etime = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ret = self._demo_impl(batch, featmaps)
+        synchronize(dev)
+        ret["rtime"] = time.perf_counter() - t0
+        ret["etime"] = etime
+        return ret
+
+    def render_demo_scan_fn(self):
+        """(stacked, order) -> per-frame reduced outputs (JAX
+        `render_demo_scan_fn`, the sequence `bench.py` times): renders
+        frame order[i] of `stacked` (`stack_frames` of device batches) for
+        each i in turn, with no host synchronization of its own between
+        frames (a device `order` is read to the host once, before the
+        first), and returns {"overflows" (F, 4), "counts" (F, 3),
+        "checksum" (F,)} stacked on the device, F = len(order); the
+        checksum is pred_chw.sum() + rgb_map.sum() + mask_at_box.sum(), so
+        no frame's image is left uncomputed."""
+        return self._demo_scan
+
+    @torch.no_grad()
+    def _demo_scan(self, stacked, order):
+        outs = {"overflows": [], "counts": [], "checksum": []}
+        for i in torch.as_tensor(order).tolist():
+            ret = self.render_demo({k: v[i] for k, v in stacked.items()})
+            outs["overflows"].append(ret["overflows"])
+            outs["counts"].append(ret["counts"])
+            outs["checksum"].append(ret["pred_chw"].sum() + ret["rgb_map"].sum()
+                                    + ret["mask_at_box"].sum())
+        return {k: torch.stack(v) for k, v in outs.items()}
 
     def _demo_impl(self, batch, featmaps, stop_stage=None):
         """Frame stage, ray pipeline and image assembly on encoded feature
@@ -491,7 +570,7 @@ class Renderer(nn.Module):
             end.synchronize()
             return start.elapsed_time(end) / 1e3
 
-        feats = {id(f): self.encoder(src_norm(f["src_imgs"])) for f in frames}
+        feats = {id(f): self._encode(f["src_imgs"]) for f in frames}
         orig = self.pallas_point
 
         def ladder_program(name, pallas_point):
@@ -500,7 +579,7 @@ class Renderer(nn.Module):
                 return self._demo_impl(f, feats[id(f)], stop_stage=name)
             return run
 
-        programs = {"etime": lambda f: self.encoder(src_norm(f["src_imgs"]))}
+        programs = {"etime": lambda f: self._encode(f["src_imgs"])}
         if orig:
             programs["rtime_production"] = ladder_program(None, True)
         programs.update({st: ladder_program(st, False) for st in PROFILE_LADDER})
@@ -777,12 +856,13 @@ class Renderer(nn.Module):
                    else occupancy_volume(level_feats, grids))
         if stop_stage == "occv":
             return None
-        featmaps = rounded(featmaps, dt)
-        src_unnorm = rounded(src_unnorm, dt)
-        # the tables are built from the volumes in the compute dtype, as JAX
-        # casts them (quantization scales are then computed in that dtype)
-        if dt is not None:
-            vols = [None if v is None else v.to(dt) for v in vols]
+        # the tables are built from the feature maps (the encoder's output,
+        # of the compute dtype), the source colors and the volumes in the
+        # compute dtype, as JAX casts them (quantization scales are then
+        # computed in that dtype)
+        featmaps = cast(featmaps, dt)
+        src_unnorm = cast(src_unnorm, dt)
+        vols = [None if v is None else cast(v, dt) for v in vols]
 
         # (3) gather tables
         tables = self._geometry_tables(vols, level_feats, flat1, g1, o)
@@ -1085,18 +1165,16 @@ class Renderer(nn.Module):
         head = self.nerfhead
         Hs, Ws = batch["src_imgs"].shape[1:3]
         if "feat_quad" in tables:
+            # quantized feature tables lerp in float32, bf16 ones in bf16
             rgb_feat, view_mask = project_and_gather_quad(
                 pts_c, pre["KE"], tables["src_quad"], tables["feat_quad"], Hs, Ws,
                 neg_ray=self.neg_ray_val, src_scale=tables["src_scale"],
                 feat_scale=tables["feat_scale"])
-            # quantized feature tables lerp in float32, bf16 ones in bf16
-            feat_dt = lerp_dtype(tables["feat_quad"])
         else:
             rgb_feat, view_mask = project_and_gather_quad_merged(
                 pts_c, pre["KE"], tables["src_quad"], Hs, Ws, neg_ray=self.neg_ray_val,
                 scale=tables["proj_scale"], out_dtype=dt,
                 vp_order=self.proj_vp_order, kernel=self.pallas_lerp)
-            feat_dt = dt
         if stop_stage == "cull":
             return None
 
@@ -1117,7 +1195,7 @@ class Renderer(nn.Module):
             sigma_feat = q
         if stop_stage == "sigma_q":
             return None
-        mean, var = fused_mean_variance(rgb_feat, feat_dt)  # (P, 1, C)
+        mean, var = fused_mean_variance(rgb_feat)  # (P, 1, C), rgb_feat's dtype
         num_valid_obs = view_mask.sum(dim=-1, keepdim=True)
         if stop_stage == "meanvar":
             return None
@@ -1126,7 +1204,8 @@ class Renderer(nn.Module):
         sigma = torch.cat([
             head.rgbhead.density(sigma_feat[c], mean[c, 0], var[c, 0], num_valid_obs[c])[:, 0]
             for c in chunks])
-        sigma = torch.where(sig_ok, sigma, 0.0)
+        # alpha and the composite in float32, as JAX casts the heads' output
+        sigma = torch.where(sig_ok, sigma.float(), 0.0)
         alpha = 1.0 - torch.exp(-sigma)
         if stop_stage == "sigma":
             return None
@@ -1134,7 +1213,7 @@ class Renderer(nn.Module):
         # color on the whole frame; the composite weighs masked points 0
         rgb = torch.cat([
             head.rgbhead.color(rgb_feat[c, None], mean[c, None], var[c, None])[:, 0]
-            for c in chunks])
+            for c in chunks]).float()
         alive = (alpha > 1e-14) & sig_ok
         rgb = torch.where(alive[:, None], rgb, 0.0)
         if stop_stage == "rgb":
@@ -1187,11 +1266,14 @@ class Renderer(nn.Module):
                 geom_tabs = None
         feats = None
         if geom_tabs is None:
+            # the (P, F) feature queried in the compute dtype (JAX's sparse
+            # net queries in its own), handed to the kernel as it is
             net = self.nerfhead.sigmahead.xyzc_net
+            dt = self.compute_dtype
             if len(octet_vols) == 2:
-                feats = net.query_octet2(*octet_vols, dhw_c, out_sh, scales=scales)
+                feats = net.query_octet2(*octet_vols, dhw_c, out_sh, scales=scales, out_dtype=dt)
             else:
-                feats = net.query_octet(octet_vols, dhw_c, out_sh, scales=scales)
+                feats = net.query_octet(octet_vols, dhw_c, out_sh, scales=scales, out_dtype=dt)
             if mask_from_query:
                 sig_ok = sig_ok & (feats[:, :nch].sum(dim=-1) > 0)
         Hs, Ws = batch["src_imgs"].shape[1:3]

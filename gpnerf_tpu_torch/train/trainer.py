@@ -45,9 +45,8 @@ from gpnerf_tpu_torch.render.base import (
     batch_to_device,
     check_train_scope,
     resolved_dp,
-    src_norm,
 )
-from gpnerf_tpu_torch.render.demo import pred_img_hwc
+from gpnerf_tpu_torch.render.demo import pred_img_hwc, synchronize
 from gpnerf_tpu_torch.train.checkpoint import save_checkpoint
 from gpnerf_tpu_torch.train.evaluator import (
     Evaluator,
@@ -72,11 +71,6 @@ def one_frame(data):
             f"dataset.img_num_per_gpu: an eval batch of {len(data)} frames; evaluation "
             "renders one frame per batch")
     return data
-
-
-def synchronize(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 class Trainer:
@@ -243,8 +237,9 @@ class Trainer:
         BaseTrainer.py:255-280). Returns (metrics or None, mean seconds per
         frame); metrics carry `overflows_max` for a progressive render,
         whose frame time excludes the encoder, as the reference's rtime
-        does: the encoder's time is taken alone on the first frame and
-        taken off every frame's (the JAX package's frame-0 estimate)."""
+        does: the first frame takes its split from `render.render` (its
+        `etime` and `rtime`), and every later frame's time is the whole
+        render's less that `etime` (the JAX package's frame-0 estimate)."""
         self.evaluator = Evaluator(self.cfg, self.cfg.test.test_seq)
         H, W = image_hw(self.cfg)
         os.makedirs(result_path, exist_ok=True)
@@ -256,17 +251,16 @@ class Trainer:
             batch = batch_to_device(one_frame(data), self.device)
             if count == 0:  # untimed warm-up on the first frame
                 render_fn(batch)
-                if is_demo:
-                    synchronize(self.device)
-                    t0 = time.perf_counter()
-                    self.render.encoder(src_norm(batch["src_imgs"]))
-                    synchronize(self.device)
-                    etime = time.perf_counter() - t0
-            synchronize(self.device)
-            t0 = time.perf_counter()
-            ret = render_fn(batch)
-            synchronize(self.device)
-            total_time += max(time.perf_counter() - t0 - etime, 0.0)
+            if is_demo and count == 0:
+                ret = self.render.render(batch)
+                etime, rtime = ret["etime"], ret["rtime"]
+            else:
+                synchronize(self.device)
+                t0 = time.perf_counter()
+                ret = render_fn(batch)
+                synchronize(self.device)
+                rtime = max(time.perf_counter() - t0 - etime, 0.0)
+            total_time += rtime
             if is_vis:
                 imwrite(f"{result_path}/{count}.jpg", self.process_img(ret, data, W, H)["render_img"])
             self.evaluator.evaluate(ret, data)

@@ -11,7 +11,7 @@ row convolutions (input and weight cast before the gather, float32 sums)
 and every Dense layer of the heads compute in bf16, each Dense's bf16
 output feeding the next; the norms, the attention fusion and the
 compositing stay float32. The port computes on real bf16 tensors there
-(models/layers.py `native`).
+(models/layers.py).
 
 Why the gradient is held stage by stage. At this size and random init the
 whole step's gradient amplifies any rounding detail: the JAX package's own

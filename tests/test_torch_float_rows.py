@@ -237,7 +237,8 @@ def test_merged_sampler_of_bf16_table_matches_jax(route):
         kernel=route == "kernel")
     ref = np.asarray(ref, np.float32)
     np.testing.assert_array_equal(vm.numpy(), np.asarray(vm_j))
-    assert got.dtype == torch.float32 and tuple(got.shape) == ref.shape == (500, 3, 35)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == ref.shape == (500, 3, 35)
+    got = got.float()
     # the values are bf16 on both sides; a weight or a partial sum that the
     # two projections round apart moves a value by one bf16 step (2^-8
     # relative) on a few values, and where a sum cancels to near zero, by
@@ -268,7 +269,8 @@ def test_split_sampler_with_bf16_features_matches_jax():
     assert ref.dtype == jnp.bfloat16
     ref = np.asarray(ref, np.float32)
     np.testing.assert_array_equal(vm.numpy(), np.asarray(vm_j))
-    assert got.shape == ref.shape == (500, 3, 35)
+    assert got.shape == ref.shape == (500, 3, 35) and got.dtype == torch.bfloat16
+    got = got.float()
     assert np.array_equal(got.numpy(), _bf16_values(got.numpy()))
     # as the merged sampler: one bf16 step where the projections round apart
     assert np.isclose(got.numpy(), ref, rtol=2 ** -7, atol=2e-2).all()

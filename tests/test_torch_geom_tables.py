@@ -231,7 +231,10 @@ def test_trilinear_octet_rows_every_table_kind(kind):
                                        out_dtype)
         ref = jgs.trilinear_octet_rows(t_j, jnp.asarray(pos), jnp.asarray(size),
                                        None if sc is None else jnp.asarray(sc), jdt)
+        # a tensor of the dtype JAX's array has
+        assert str(got.dtype).split(".")[-1] == str(ref.dtype), (got.dtype, ref.dtype)
         ref = np.asarray(ref, np.float32)
+        got = got.float()
         if out_dtype is None and kind != "bf16":
             np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-6)
         else:

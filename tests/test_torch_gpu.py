@@ -12,8 +12,9 @@ same render on the CPU, the kernel on a compacted render's points and the
 compacted render against the dense-slot one, the kernel on the windowed
 tap's points and the windowed renders on the card against the CPU, both
 mesh paths on the card against the CPU (float32, and the demo renderer's
-bf16 `matmul_dtype`), and one train step on the card against the CPU
-(float32 and bf16 mixed precision)."""
+bf16 `matmul_dtype`), one train step on the card against the CPU (float32
+and bf16 mixed precision), the native bf16 fast render on the card against
+the CPU and `render_demo_scan_fn` against the per-frame loop."""
 
 import os
 import random
@@ -124,7 +125,7 @@ def _geom_inputs(rs, layout, P, occ):
     as numpy: (feats, geom_tabs); occ empties table 0's rows of 40% of the
     points, so the occupancy cull bites."""
     tables = ps.geom_specs(layout)
-    if tables[0][2] == "feat":
+    if tables[0][2] in ("feat", "feat-bf16"):  # bf16 features are cast on the device
         return (rs.randn(P, tables[0][1]) * 0.5).astype(np.float32), ()
     geom = []
     for i, (taps, ch, kind) in enumerate(tables):
@@ -195,7 +196,10 @@ def _form_inputs(form, P, seed, dev):
     # the 96-wide geometry feature is [level 1 | folded coarse]: the folded
     # sigma-feat weight; 128 wide, the checkpoint's own
     fold = C0 if sum(t[1] for t in ps.geom_specs(layout)) == C0 + C1 else None
-    return (t_tabs, to(feats), to(vmask), to(sig_ok), ps.pack_head_weights(head, fold_nch=fold)), kw
+    feats = to(feats)
+    if ps.geom_specs(layout)[0][2] == "feat-bf16":
+        feats = feats.to(torch.bfloat16)
+    return (t_tabs, feats, to(vmask), to(sig_ok), ps.pack_head_weights(head, fold_nch=fold)), kw
 
 
 @pytest.mark.gpu
@@ -207,7 +211,9 @@ def _form_inputs(form, P, seed, dev):
                                   "a@coarse-octet", "a@unfolded", "a@four-level", "a@l1-nearest",
                                   "a@float", "a@float32", "c@coarse-octet", "c@unfolded",
                                   "c@four-level", "c@l1-nearest", "c@float", "a+e@l1-nearest",
-                                  "a+b@128"])
+                                  "a+b@128",
+                                  # the (P, F) feature queried in bf16
+                                  "a+b@bf16", "b+c@bf16", "b+c+d@bf16", "a+b@128-bf16"])
 def test_form_kernel_matches_plain(name, P):
     dev = _cuda()
     form = {v: k for k, v in ps.FORMS.items()}[name]
@@ -248,6 +254,8 @@ KEY_CASES = [
     ps.Key(("bf16", "i4"), "default", False),
     ps.Key(("u8", "bf16"), "default", True),
     ps.Key(("bf16",), "feats96", False),
+    ps.Key(("bf16",), "feats96-bf16", False),
+    ps.Key(("i8",), "feats128-bf16", False, 8),
     ps.Key(("f32", "i4"), "default", False),
     ps.Key(("f32",), "coarse-octet", False),
     ps.Key(("u8", "i8"), "four-level", True),
@@ -990,3 +998,75 @@ def test_bf16_train_step_on_card_matches_cpu():
           f"statistics max {d_stats:.3e}")
     assert abs(g["loss"] - c["loss"]) <= 1e-2 * c["loss"]
     assert d_rgb <= 0.02 and cos > 0.9 and abs(ratio - 1.0) <= 0.1 and d_stats <= 1e-3
+
+
+# --- the shipped tpu.matmul_dtype bfloat16 on real bf16 tensors, and the
+# sequence entry (render/demo.py `render_demo_scan_fn`)
+
+
+def _bf16_frames(n):
+    from gpnerf_tpu_torch.registry import get
+
+    cfg = _compaction_cfg("fast", matmul_dtype="bfloat16")
+    np.random.seed(0)
+    random.seed(0)
+    ds = get("dataset", cfg.dataset.test.file)(cfg, is_train=False)
+    return cfg, [ds[i] for i in range(n)]
+
+
+@pytest.mark.gpu
+def test_native_bf16_render_on_card_matches_cpu():
+    """The fast mode under `tpu.matmul_dtype bfloat16` (the encoder, the
+    sparse stack's operands and the heads on bf16 tensors), 128^2, on the
+    card against the CPU: cuDNN's and the CPU's bf16 convolutions sum in
+    other orders, so a feature map value lands one bf16 step apart here and
+    there; the ray set and the counts agree as in the float32 test, the
+    image within the bf16 gaps of tests/test_torch_native_bf16.py."""
+    dev = _cuda()
+    from gpnerf_tpu_torch.registry import get
+    from gpnerf_tpu_torch.render.base import batch_to_device
+    from gpnerf_tpu_torch.train.checkpoint import load_eval_model
+
+    cfg, (batch,) = _bf16_frames(1)
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        r = load_eval_model(CKPT, get("render", "demo_render")(cfg, device=d))
+        assert r.compute_dtype == torch.bfloat16
+        outs[d.type] = {k: v.cpu() for k, v in r.render_demo_fn()(batch_to_device(batch, d)).items()}
+    g, c = outs["cuda"], outs["cpu"]
+    same = float((g["mask_at_box"] == c["mask_at_box"]).float().mean())
+    m = g["mask_at_box"] & c["mask_at_box"]
+    d = (g["pred_chw"].reshape(3, -1)[:, m] - c["pred_chw"].reshape(3, -1)[:, m]).abs()
+    print(f"native bf16 128^2 card vs CPU: mask agreement {same:.6f}, counts "
+          f"{g['counts'].tolist()} vs {c['counts'].tolist()}, |d pred| median "
+          f"{float(d.median()):.3e} max {float(d.max()):.3e}")
+    assert same > 0.999
+    np.testing.assert_array_equal(g["overflows"].numpy()[[0, 2, 3]], 0)
+    for k in (1, 2):
+        assert abs(int(g["counts"][k]) - int(c["counts"][k])) <= 0.002 * int(c["counts"][k])
+    assert float(d.median()) < 8e-3 and float((d > 0.05).float().mean()) <= 5e-3
+    assert float(d.max()) < 0.15
+
+
+@pytest.mark.gpu
+def test_render_demo_scan_fn_on_card_matches_the_loop():
+    """`render_demo_scan_fn` over a stack of two 128^2 frames in the order
+    [0, 1, 0] on the card: its overflows and counts equal the per-frame
+    renders', its checksums their sums."""
+    dev = _cuda()
+    from gpnerf_tpu_torch.registry import get
+    from gpnerf_tpu_torch.render.base import batch_to_device
+    from gpnerf_tpu_torch.render.demo import stack_frames
+    from gpnerf_tpu_torch.train.checkpoint import load_eval_model
+
+    cfg, host = _bf16_frames(2)
+    frames = [batch_to_device(b, dev) for b in host]
+    r = load_eval_model(CKPT, get("render", "demo_render")(cfg, device=dev))
+    loop = [r.render_demo(f) for f in frames]
+    out = r.render_demo_scan_fn()(stack_frames(frames), torch.tensor([0, 1, 0], device=dev))
+    assert out["checksum"].device.type == "cuda"
+    for i, f in enumerate((0, 1, 0)):
+        assert torch.equal(out["overflows"][i], loop[f]["overflows"])
+        assert torch.equal(out["counts"][i], loop[f]["counts"])
+        want = loop[f]["pred_chw"].sum() + loop[f]["rgb_map"].sum() + loop[f]["mask_at_box"].sum()
+        torch.testing.assert_close(out["checksum"][i], want, rtol=1e-5, atol=0)

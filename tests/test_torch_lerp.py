@@ -153,7 +153,9 @@ def test_quad_samplers_match_jax(quad_case, form, out):
     got = pfn(torch.from_numpy(c["tab"]), torch.from_numpy(c["grid"]), c["H"], c["W"],
               scale=torch.from_numpy(c["sc"]), out_dtype=None if out is None else PDT[out])
     ref = np.asarray(ref, np.float32)
-    assert got.dtype == torch.float32 and tuple(got.shape) == ref.shape
+    # a tensor of the compute dtype, as JAX's array is
+    assert got.dtype == (torch.float32 if out is None else PDT[out]) and tuple(got.shape) == ref.shape
+    got = got.float()
     if form == "kernel":
         # float32 accumulation and one rounding on both sides
         _assert_lerp_close(got.numpy(), ref, out or "float32")
@@ -265,6 +267,8 @@ def test_project_and_gather_quad_merged_matches_jax(proj_case, route, out):
         vp_order=route == "vp_order", kernel=route == "kernel")
     ref = np.asarray(ref, np.float32)
     assert tuple(got.shape) == ref.shape == (257, 3, 11)
+    assert got.dtype == (torch.float32 if out is None else PDT[out])
+    got = got.float()
     np.testing.assert_array_equal(mask.numpy(), np.asarray(ref_mask, np.float32))
     if out is None:
         # pixel coordinates to a float32 ulp, see above (measured 4.8e-6)

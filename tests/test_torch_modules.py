@@ -125,11 +125,13 @@ def test_encoder_featmaps_bf16(frame):
     enc = ResUNet(32, "resnet34", torch.bfloat16)
     enc.load_state_dict(frame["port"].encoder.state_dict())
     with torch.no_grad():
-        out = enc(src_norm(frame["pb"]["src_imgs"])).numpy()
+        out = enc(src_norm(frame["pb"]["src_imgs"]))
+    assert out.dtype == torch.bfloat16  # real bf16 feature maps, as JAX's
+    out = out.float().numpy()
     # two bf16 computations whose sums run in different orders drift apart
     # at bf16 resolution (1 ulp = 0.0156 at magnitude 2-4) through 23 conv
     # layers, exactly as far as JAX's own bf16 and float32 encoders do:
-    # measured port-vs-JAX bf16 median 0.014 / 99th pct 0.11 / max 0.26,
+    # measured port-vs-JAX bf16 median 0.0156 / 99th pct 0.094 / max 0.21,
     # JAX bf16-vs-f32 median 0.010 / 0.11 / 0.30, at mean |featmap| 0.55
     d = np.abs(out - ref)
     d_ref = np.abs(ref - frame["jax"][0])

@@ -132,8 +132,9 @@ def _image_stats(a, b, mask):
 # 0.052 on row 0, 29 of 106,347. The float32 tail comes from the few points
 # whose density sits at the ReLU/alpha boundary, where a reassociated float32
 # sum flips a sample on or off (the fused path's bf16 kernel numerics gave a
-# median of 4.6e-4 in tests/test_torch_demo.py). bfloat16: 1.5e-3 / 1.1e-2 /
-# 0.025, 8 of 52,210; 1.1e-3 / 2.2e-2 / 0.058, 99 of 106,291: both sides
+# median of 4.6e-4 in tests/test_torch_demo.py). bfloat16, on real bf16
+# tensors: 1.2e-3 / 1.1e-2 / 0.025, 31 of 52,210; 9.7e-4 / 2.4e-2 / 0.039,
+# 0.058 on row 0, 211 of 106,291: both sides
 # round each of the 9 layers to bf16 (2^-8 relative) and the two encoders
 # already differ by bf16 steps (tests/test_torch_modules.py). Row 0 of the
 # blanket: a view flips in or out where a sample projects onto source row

@@ -118,10 +118,14 @@ def test_density_and_color_under_compute_dtype(heads, dtype):
                             method=lambda m, *a: m.rgbhead.density(*a))
     c_j = jr.nerfhead.apply(hv, cast(rgb_feat), cast(mean[:, None]), cast(var[:, None]),
                             method=lambda m, *a: m.rgbhead.color(*a))
-    t = torch.from_numpy
+    _, pdt = DTYPES[dtype]
+    t = (lambda a: torch.from_numpy(a)) if pdt is None else (
+        lambda a: torch.from_numpy(a).to(pdt))  # the bf16 tensors the op-by-op stages hand them
     with torch.no_grad():
-        s_p = head.rgbhead.density(t(sigma_feat), t(mean), t(var), t(nvo)).numpy()
-        c_p = head.rgbhead.color(t(rgb_feat), t(mean[:, None]), t(var[:, None])).numpy()
+        s_p = head.rgbhead.density(t(sigma_feat), t(mean), t(var), torch.from_numpy(nvo))
+        c_p = head.rgbhead.color(t(rgb_feat), t(mean[:, None]), t(var[:, None]))
+    assert s_p.dtype == c_p.dtype == (pdt or torch.float32)
+    s_p, c_p = s_p.float().numpy(), c_p.float().numpy()
     s_j, c_j = np.asarray(s_j, np.float32), np.asarray(c_j, np.float32)
     assert s_p.shape == s_j.shape == (N, 1) and c_p.shape == c_j.shape == (N, 3)
     assert (s_p[nvo[:, 0] < 1] == 0).all()
@@ -144,8 +148,10 @@ def test_fused_mean_variance_matches_jax(dtype):
     # compiled, as the renderer runs it: XLA then keeps the square's excess
     # precision into the float32 sum
     m_j, v_j = jax.jit(jax_mean_variance)(jnp.asarray(x) if jdt is None else jnp.asarray(x, jdt))
-    m_p, v_p = fused_mean_variance(torch.from_numpy(x), pdt)
+    m_p, v_p = fused_mean_variance(torch.from_numpy(x).to(pdt or torch.float32))
     assert tuple(m_p.shape) == tuple(v_p.shape) == (500, 1, 35)
+    assert m_p.dtype == v_p.dtype == (pdt or torch.float32)
+    m_p, v_p = m_p.float(), v_p.float()
     if jdt is None:
         np.testing.assert_allclose(m_p.numpy(), np.asarray(m_j), rtol=1e-6, atol=1e-7)
         np.testing.assert_allclose(v_p.numpy(), np.asarray(v_j), rtol=1e-5, atol=1e-7)
@@ -183,10 +189,12 @@ def test_folded_sigma_feature_query(heads, dtype, with_l1_occ):
         (ref, occ_j), (got, occ_p) = ref, got
         occ_j = np.asarray(occ_j, np.float32)
         # the cull is the sign of a sum of non-negative terms
-        np.testing.assert_array_equal(occ_p.numpy() > 0, occ_j > 0)
+        np.testing.assert_array_equal(occ_p.float().numpy() > 0, occ_j > 0)
         assert 0.1 < (occ_j > 0).mean() < 0.95
     ref = np.asarray(ref, np.float32)
     assert tuple(got.shape) == ref.shape == (600, 64)
+    assert got.dtype == (DTYPES[dtype][1] or torch.float32)
+    got = got.float()
     if jdt is None:
         np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
     else:

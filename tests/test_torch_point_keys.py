@@ -139,7 +139,7 @@ def test_switch_space_keys_validate_and_build_apart():
     """Every Renderer switch set (chip_smoke.py `reachable_kernel_keys`: 14
     booleans, coarse_nearest 0-2, l1_nearest 0, 1, 2 and 11, bfloat16 or
     float32) builds with pallas_point on; its keys for uint8 and float
-    source images validate, and the 330 distinct keys (28 of them FORMS')
+    source images validate, and the 336 distinct keys (32 of them FORMS')
     have distinct names and libraries. chip_smoke.py's cover set with FORMS
     puts every row type in table positions A and B, every geometry spec in
     every table position where the space has it, occ_geom on every table-0
@@ -147,7 +147,7 @@ def test_switch_space_keys_validate_and_build_apart():
     the key and the library name; V = 9 is refused."""
     smoke = _chip_smoke()
     keys = smoke.reachable_kernel_keys()
-    assert len(keys) == 330 and sum(k in ps.FORMS for k in keys) == 28
+    assert len(keys) == 336 and sum(k in ps.FORMS for k in keys) == 32
     assert all(ps.check_key(k) == k for k in keys)
     assert len({ps.form_name(k) for k in keys}) == len(keys)
     assert len({ps.build_command(k)[1] for k in keys}) == len(keys)

@@ -209,7 +209,7 @@ def test_bf16_tables_match_jax(case, batches):
         feat = port.encoder(src_norm(pb["src_imgs"]))
         _, pt, _ = port._frame_stage(pb, feat)
     jt = jax_tables(variables, {k: jnp.asarray(v) for k, v in b.items()},
-                    jnp.asarray(feat.numpy(), jnp.bfloat16))
+                    jnp.asarray(feat.float().numpy(), jnp.bfloat16))
     assert set(jt) == ({"src_quad"} if case == "merge_src_feat" else {"src_quad", "feat_quad"})
     for k, v in jt.items():
         assert pt[k].dtype == torch.bfloat16 and v.dtype == jnp.bfloat16, k
