@@ -44,8 +44,10 @@ Phases, each fatal on failure:
      ray / sigma / rgb overflows, PSNR >= 20 dB, ms per frame and the
      encoder's ms from CUDA events on one line per mode, and bf16 feature
      maps; `render_demo_scan_fn` over the 3 fast frames, its counters and
-     checksums equal to the per-frame loop's, and its ms per frame; the
-     native 128^2 fast frame on the card against the CPU. The kernel keys
+     checksums equal to the per-frame loop's, and its ms per frame beside
+     the loop's over 5 calls each in turns (min / median / max; with
+     --profile a trace of one call of each); the native 128^2 fast frame
+     on the card against the CPU. The kernel keys
      the bf16 renders reach are those of phases 3-3k, each held against
      its plain version there (the `@bf16` FORMS take the bf16 (P, F)
      feature); `--all-keys` holds every key of the switch space, the 192
@@ -165,7 +167,13 @@ Phases, each fatal on failure:
      beside phase 5's; the 2-rank progressive render of bench frame 0
      against the single-process one (integers bitwise, colors within 1e-4,
      kernel 1 launched on each rank);
-  8. one JSON line listing the kernels, the card's name and power limit,
+  8. the port's bench, bench_torch.py, in a process of its own at its full
+     protocol (10 bench frames at 512^2; the fast, reference-semantics and
+     neg-ray modes): exit 0, one bare JSON fast line, in every mode of its
+     record (BENCH_MODES_torch.json) zero ray, sigma and rgb overflows,
+     PSNR >= 20 dB and kernel 1 launched once per frame, `mfu` within (0,
+     1]; its three lines printed with the card's name and power limit;
+  9. one JSON line listing the kernels, the card's name and power limit,
      and the final JSON status line.
 
 TF32 is off for matmuls and cuDNN convolutions throughout, so float32
@@ -184,6 +192,8 @@ import subprocess
 import sys
 import time
 import warnings
+
+from bench_torch import REF_MODE  # the bench's reference-semantics mode
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, "artifacts", "bench_ckpt.pth")
@@ -249,6 +259,21 @@ def cuda_ms(fn, reps, with_host=False):
     torch.cuda.synchronize()
     dev_ms = start.elapsed_time(end) / reps
     return (dev_ms, host_ms) if with_host else dev_ms
+
+
+def events_ms(fn):
+    """Milliseconds of one call of `fn()` between CUDA events, the device
+    idle before it."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 def compare_point_stages(kern, plain, what, max_outliers=0):
@@ -579,10 +604,11 @@ def psnr_of(ret, host_batch):
     return float(-10.0 * math.log10(float(np.mean((rgb_pred - rgb_gt) ** 2))))
 
 
-def profile_render(fn, batches, card, frame_ms):
-    """torch.profiler over one pass of the frames: device time by kernel
-    (device-side events only) and the device's idle share against the
-    unprofiled frame time, printed."""
+def profile_render(fn, batches, card, frame_ms, frames_per_call=1, what=None):
+    """torch.profiler over one pass of `fn` over `batches` (each call
+    renders `frames_per_call` frames): device time by kernel (device-side
+    events only) and the device's idle share against the unprofiled frame
+    time, printed per frame."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -592,12 +618,12 @@ def profile_render(fn, batches, card, frame_ms):
         for b in batches:
             fn(b)
         torch.cuda.synchronize()
-    n = len(batches)
+    n = len(batches) * frames_per_call
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     events.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in events) / 1e3 / n
-    lines = [f"# profile on {card}: kernels busy {busy:.3f} ms per frame of "
+    lines = [f"# profile on {card}{f' of {what}' if what else ''}: kernels busy {busy:.3f} ms per frame of "
              f"{frame_ms:.3f} ms, idle share {1.0 - busy / frame_ms:.3f}; "
              f"{sum(e.count for e in events) / n:.0f} kernel launches per frame; "
              "by kernel (ms per frame, launches per frame):"]
@@ -609,23 +635,14 @@ def profile_render(fn, batches, card, frame_ms):
             fn(batches[0])
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
-    lines.insert(1, f"# profile: {syncs} synchronizing calls per frame "
+    syncs = sum("synchroniz" in str(w.message) for w in caught) / frames_per_call
+    lines.insert(1, f"# profile: {syncs:g} synchronizing calls per frame "
                     "(torch.cuda.set_sync_debug_mode)")
     for e in events:
         lines.append(f"#   {e.self_device_time_total / 1e3 / n:9.4f} ms "
                      f"{e.count / n:6.1f}x  {e.key[:110]}")
     for line in lines[:41]:
         log(line)
-
-
-REF_MODE = {
-    # the reference-semantics mode of the repository's benchmark: blanket
-    # cull, all 64 samples, no tap window, split tables, caps sized drop-free
-    "tight_cull": False, "samples_per_ray": 64, "tap_window": 0,
-    "merge_lowres_src": False, "ray_cap": 57344, "sigma_cap": 2293760,
-    "rgb_cap": 1048576,
-}
 
 
 def make_render(size, matmul_dtype, device, neg=False, **tpu):
@@ -685,7 +702,7 @@ def card_vs_cpu_128(name, max_tol, exact=False, dtype="float32", med_tol=2e-3, s
           and float(d_img.max()) < max_tol, f"128^2 {name} card vs CPU: images differ")
 
 
-def native_phase(card, batches, host):
+def native_phase(card, batches, host, profile=False):
     """Phase 3n: the shipped `tpu.matmul_dtype bfloat16` on real bf16
     tensors. The fast mode (3 frames), the reference mode (2) and the
     op-by-op fast mode (1), each in bf16 and, in the same call, in float32:
@@ -698,7 +715,7 @@ def native_phase(card, batches, host):
 
     from gpnerf_tpu_torch.ops import point_stages as ps
     from gpnerf_tpu_torch.ops import quad_lerp as ql
-    from gpnerf_tpu_torch.render.demo import stack_frames
+    from gpnerf_tpu_torch.render.demo import frame_checksum, stack_frames
 
     rows = {}
     for title, n, extra in (("fast mode", 3, {}), ("reference mode", 2, REF_MODE),
@@ -743,14 +760,27 @@ def native_phase(card, batches, host):
                     check(torch.equal(out["overflows"][i], ret["overflows"])
                           and torch.equal(out["counts"][i], ret["counts"]),
                           f"3n render_demo_scan_fn frame {i}: counters differ from the loop's")
-                    want_ck = ret["pred_chw"].sum() + ret["rgb_map"].sum() + ret["mask_at_box"].sum()
+                    want_ck = frame_checksum(ret)
                     check(abs(float(out["checksum"][i] - want_ck)) <= 1e-5 * abs(float(want_ck)),
                           f"3n render_demo_scan_fn frame {i}: checksum differs from the loop's")
-                cycles = torch.arange(3 * n, device=order.device) % n
-                scan_ms = cuda_ms(lambda: scan(stacked, cycles), 1) / (3 * n)
+                # the sequence entry against the loop over the same frames, in
+                # turns, one CUDA-event pair around each call
+                scan_ms, loop_ms = [], []
+                for _ in range(5):
+                    loop_ms.append(events_ms(lambda: [fn(b) for b in batches[:n]]) / n)
+                    scan_ms.append(events_ms(lambda: scan(stacked, order)) / n)
+                spread = lambda v: " / ".join(f"{x:.3f}" for x in sorted(v)[::2])  # noqa: E731
                 log(f"# 3n render_demo_scan_fn over the {n} fast frames: overflows, counts and "
-                    f"checksums equal the loop's; on {card}: {scan_ms:.3f} ms/frame over order "
-                    f"{cycles.tolist()} (CUDA events)")
+                    f"checksums equal the loop's; on {card}, ms/frame min / median / max over 5 "
+                    f"calls each, in turns: scan {spread(scan_ms)}, loop {spread(loop_ms)} "
+                    "(CUDA events)")
+                if profile:
+                    profile_render(lambda _: [fn(b) for b in batches[:n]], [None], card,
+                                   sorted(loop_ms)[2], frames_per_call=n,
+                                   what=f"the loop over the {n} fast frames")
+                    profile_render(lambda _: scan(stacked, order), [None], card,
+                                   sorted(scan_ms)[2], frames_per_call=n,
+                                   what=f"render_demo_scan_fn over the {n} fast frames")
             del r, fn, rets
             torch.cuda.empty_cache()
         (b_ms, b_enc, b_psnr, _), (f_ms, f_enc, f_psnr, _) = rows[title, "bfloat16"], rows[title, "float32"]
@@ -1293,6 +1323,44 @@ def tools_phase(card):
     for line in prof.stdout.splitlines():
         log(f"# profile_demo_torch.py --async: {line}")
     log(f"# profile_demo_torch.py --async on {card}: exit 0 in {time.perf_counter() - t0:.1f} s")
+
+
+def bench_phase(card):
+    """Phase 8: bench_torch.py in a process of its own, at its full
+    protocol. Checks its exit code, its one bare JSON line (the fast mode)
+    and the record it writes: the three modes, each with zero ray, sigma
+    and rgb overflows, PSNR >= 20 dB and kernel 1 launched once per frame
+    of a pass; `mfu` within (0, 1]. Returns the modes' launches per pass."""
+    record = os.path.join(ROOT, "BENCH_MODES_torch.json")
+    if os.path.exists(record):
+        os.remove(record)
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, os.path.join(ROOT, "bench_torch.py")], cwd=ROOT,
+                         capture_output=True, text=True, timeout=900)
+    check(run.returncode == 0, f"bench_torch.py exited {run.returncode}: {run.stderr[-3000:]}")
+    bare = [line for line in run.stdout.splitlines() if line.startswith("{")]
+    check(len(bare) == 1, f"bench_torch.py printed {len(bare)} bare JSON lines: {run.stdout[-2000:]}")
+    fast = json.loads(bare[0])
+    with open(record) as f:
+        modes = json.load(f)
+    check(set(modes) == {"fast", "reference_semantics", "thuman_neg_ray"},
+          f"bench_torch.py record holds {sorted(modes)}")
+    check(modes["fast"]["value"] == fast["value"], "bench_torch.py record and fast line differ")
+    mfu = fast.get("mfu")
+    check(mfu is not None and 0.0 < mfu <= 1.0, f"bench_torch.py mfu {mfu}")
+    for name, m in modes.items():
+        ov = m["overflows"]
+        check(ov[0] == 0 and ov[2] == 0 and ov[3] == 0, f"bench_torch.py {name}: overflows {ov}")
+        check(m["psnr"] >= 20.0, f"bench_torch.py {name}: PSNR {m['psnr']:.3f} < 20 dB")
+        check(sum(m["launches"].values()) == len(m["loop_frames"]["counts"]),
+              f"bench_torch.py {name}: kernel launches per pass {m['launches']}")
+    for line in run.stdout.splitlines() + run.stderr.splitlines():
+        if line.startswith(("{", "# ref-mode", "# neg-ray", "# mfu")) or " ms/frame (scan)" in line:
+            log(f"# bench: {line}")
+    log(f"# bench_torch.py on {card}: exited 0 in {time.perf_counter() - t0:.1f} s; ms/frame fast "
+        f"{modes['fast']['ms_per_frame']:.3f}, reference {modes['reference_semantics']['ms_per_frame']:.3f}"
+        f", neg-ray {modes['thuman_neg_ray']['ms_per_frame']:.3f}; mfu {mfu}")
+    return {name: m["launches"] for name, m in modes.items()}
 
 
 def dp_cfg(render_file):
@@ -1979,7 +2047,7 @@ def main():
 
     # ---- phase 3n: native bf16 against float32, the sequence entry ----
     torch.cuda.empty_cache()
-    native = native_phase(card, batches, host)
+    native = native_phase(card, batches, host, profile)
     for k in kernels:
         if k["name"] in ("point_stages[a]", "point_stages[c]"):
             k["launches"] += sum(v[3].get(k["name"][13:-1], 0) for v in native.values())
@@ -2518,6 +2586,13 @@ def main():
     tools_phase(card)
     torch.cuda.empty_cache()
     dp_phase(card, f32["s_per_it"])
+
+    # ---- phase 8: the port's bench, a process of its own ----
+    torch.cuda.empty_cache()
+    by_name = {k["name"]: k for k in kernels}
+    for launches in bench_phase(card).values():  # the fused modes: kernel 1's forms
+        for form, count in launches.items():
+            by_name[f"point_stages[{form}]"]["launches"] += count
 
     log(f"# total {time.perf_counter() - t_all:.1f} s")
     want = {f"point_stages[{n}]" for n in [*ps.FORMS.values(), *key_modes]} | {

@@ -209,6 +209,12 @@ def stack_frames(batches):
                 else torch.stack([b[k] for b in batches])) for k in batches[0]}
 
 
+def frame_checksum(ret):
+    """pred_chw.sum() + rgb_map.sum() + mask_at_box.sum() of a render dict,
+    on its device: `render_demo_scan_fn`'s per-frame checksum."""
+    return ret["pred_chw"].sum() + ret["rgb_map"].sum() + ret["mask_at_box"].sum()
+
+
 def synchronize(dev):
     """Wait for `dev`'s queued work (a no-op off the card)."""
     if dev.type == "cuda":
@@ -477,8 +483,8 @@ class Renderer(nn.Module):
         frames (a device `order` is read to the host once, before the
         first), and returns {"overflows" (F, 4), "counts" (F, 3),
         "checksum" (F,)} stacked on the device, F = len(order); the
-        checksum is pred_chw.sum() + rgb_map.sum() + mask_at_box.sum(), so
-        no frame's image is left uncomputed."""
+        checksum (`frame_checksum`) sums the image, the ray colors and the
+        mask, so no frame's image is left uncomputed."""
         return self._demo_scan
 
     @torch.no_grad()
@@ -488,8 +494,7 @@ class Renderer(nn.Module):
             ret = self.render_demo({k: v[i] for k, v in stacked.items()})
             outs["overflows"].append(ret["overflows"])
             outs["counts"].append(ret["counts"])
-            outs["checksum"].append(ret["pred_chw"].sum() + ret["rgb_map"].sum()
-                                    + ret["mask_at_box"].sum())
+            outs["checksum"].append(frame_checksum(ret))
         return {k: torch.stack(v) for k, v in outs.items()}
 
     def _demo_impl(self, batch, featmaps, stop_stage=None):

@@ -57,6 +57,18 @@ def is_main_process() -> bool:
     return get_rank() == 0
 
 
+def select_device(opts):
+    """The device of a CLI's dotted overrides `opts`: the CPU when they say
+    `device cpu`; else the card, which must exist (no fallback)."""
+    pairs = dict(zip(opts[0::2], opts[1::2])) if opts else {}
+    if pairs.get("device") == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: run on the GPU, or pass `device cpu` to run on "
+                           "the CPU")
+    return torch.device("cuda")
+
+
 def local_device(local_rank=None):
     """This rank's CUDA device, cuda:(local rank % device count), made
     current; `local_rank` defaults to LOCAL_RANK (torchrun), else the

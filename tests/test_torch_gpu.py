@@ -1070,3 +1070,33 @@ def test_render_demo_scan_fn_on_card_matches_the_loop():
         assert torch.equal(out["counts"][i], loop[f]["counts"])
         want = loop[f]["pred_chw"].sum() + loop[f]["rgb_map"].sum() + loop[f]["mask_at_box"].sum()
         torch.testing.assert_close(out["checksum"][i], want, rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+def test_bench_run_mode_on_card():
+    """bench_torch.run_mode at 128^2 on the card over 2 bench frames (reps
+    2, scan_cycles 2, iso_cycles 2): the scan's counters equal the loop's,
+    every time is positive, the guard passes it, kernel 1 launches once per
+    frame of a pass and the timer is the card's."""
+    dev = _cuda()
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    import bench_torch
+    from gpnerf_tpu_torch.registry import get
+    from gpnerf_tpu_torch.train.checkpoint import load_eval_model
+    from gpnerf_tpu_torch.utils.bench_frames import get_bench_frames
+
+    cfg = bench_torch.bench_cfg(["dataset.H", "128", "dataset.W", "128", "tpu.ray_cap", "9216"])
+    host = get_bench_frames(cfg, 2, verbose=False)
+    r = load_eval_model(CKPT, get("render", cfg.render.file)(cfg, device=dev))
+    rec = bench_torch.run_mode(r, cfg, reps=2, scan_cycles=2, iso_cycles=2, host=host)
+    print({k: v for k, v in rec.items() if k not in ("loop_frames", "scan_frames")})
+    assert rec["timer"] == "cuda events" and rec["device"] == "cuda"
+    assert rec["scan_frames"]["overflows"] == rec["loop_frames"]["overflows"] * 2
+    assert rec["scan_frames"]["counts"] == rec["loop_frames"]["counts"] * 2
+    assert bench_torch.headline_guard(rec) == []
+    times = [rec["ms_per_frame"], rec["loop_ms_per_frame"], rec["loop_dispatch_ms"],
+             *rec["loop_reps_ms"], *rec["frame_ms_spread"]]
+    assert all(t > 0 for t in times), times
+    assert rec["launches"] == {"a": 2}

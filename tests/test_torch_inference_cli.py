@@ -135,3 +135,42 @@ def test_needs_a_card_or_device_cpu(tmp_path):
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr and "device cpu" in out.stderr
     assert "psnr" not in out.stdout
+
+
+def _script_dir(tmp_path):
+    """A working directory with the repository's `tools` and `configs`, so
+    that a root script's relative paths resolve and its outputs stay here."""
+    for d in ("tools", "configs"):
+        os.symlink(os.path.join(ROOT, d), tmp_path / d)
+    return dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=ROOT)
+
+
+def test_test_torch_sh_on_zjumocap_tree(tmp_path, ckpt, zju_root):
+    """test_torch.sh, test.sh's command with the port's CLI, on the
+    fabricated ZJU tree at the small size: exit 0, the metric means, and
+    the images `test.is_vis` asks for."""
+    out = subprocess.run(
+        ["bash", os.path.join(ROOT, "test_torch.sh"), ckpt, *SMALL, "dataset.test.data_root",
+         zju_root, "dataset.test.seq_list", "['CoreView_387']", "test.test_seq", "CoreView_387",
+         "dataset.ratio", "0.125", "tpu.ray_cap", "8192", "tpu.merge_lowres_src", "True",
+         "result_dir", str(tmp_path / "results")],
+        cwd=tmp_path, env=_script_dir(tmp_path), capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    assert 0 < _metric(out.stdout, "psnr") < 60
+    assert {"0.jpg", "3.jpg", "metrics.npy"} <= set(os.listdir(tmp_path / "results" / "CoreView_387"))
+
+
+def test_train_torch_sh_on_zjumocap_tree(tmp_path, zju_root):
+    """train_torch.sh, train.sh's command with the port's CLI, on the
+    fabricated ZJU tree at the small size: two steps, exit 0."""
+    out = subprocess.run(
+        ["bash", os.path.join(ROOT, "train_torch.sh"), "device", "cpu", "workers", "0",
+         "encoder.name", "tiny", "head.sigma.code_dim", "16", "train.n_rays", "256",
+         "train.n_samples", "8", "tpu.eval_ray_cap", "4096", "tpu.eval_chunk", "1024",
+         "dataset.ratio", "0.125", "dataset.train.data_root", zju_root, "dataset.test.data_root",
+         zju_root, "dataset.train.seq_list", "['CoreView_387']", "dataset.test.seq_list",
+         "['CoreView_387']", "train.ep_iter", "2", "train.max_epoch", "0",
+         "train.val_when_train", "False"],
+        cwd=tmp_path, env=_script_dir(tmp_path), capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    assert os.path.isdir(tmp_path / "logs")

@@ -52,6 +52,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from gpnerf_tpu_torch.config import cfg as default_cfg, update_config  # noqa: E402
+from gpnerf_tpu_torch.utils.dist import select_device  # noqa: E402,F401 (the CLIs' device rule)
 
 
 def parse_args(argv=None):
@@ -61,20 +62,6 @@ def parse_args(argv=None):
     parser.add_argument("opts", help="modify config via dotted key/value pairs",
                         default=None, nargs=argparse.REMAINDER)
     return parser.parse_args(argv)
-
-
-def select_device(opts):
-    """'cpu' when the overrides say `device cpu`; else 'cuda', which must
-    exist."""
-    import torch
-
-    pairs = dict(zip(opts[0::2], opts[1::2])) if opts else {}
-    if pairs.get("device") == "cpu":
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: run on the GPU, or pass `device cpu` to run on "
-                           "the CPU")
-    return torch.device("cuda")
 
 
 def first_slurm_node(nodelist):
