@@ -37,13 +37,19 @@ The headline guard (`headline_guard`) refuses a result, exits non-zero and
 prints no line for it when the scan's overflows, counts or checksums differ
 from the loop's for the same frames, when the scan's ms per frame is below
 half the loop's best (the scan renders the same frames through the same
-code), or when `mfu` exceeds 1.
+code), when `mfu` exceeds 1, or when `pct_hbm_roof` exceeds 100.
 
 `mfu`: analytic FLOPs per frame (`analytic_flops_per_frame`) times fps over
-the card's published dense peak for `tpu.matmul_dtype` (`PEAK_FLOP_PER_S`);
-left out, with the reason on stderr, on the CPU and for a card or dtype
-the table does not hold. bench.py's `vs_baseline` (fps over a TPU target)
-and `roofline` (XLA's cost analysis) have no counterpart here.
+the card's published dense peak for `tpu.matmul_dtype`
+(utils/roofline.py `PEAK_FLOP_PER_S`). `roofline` (bench.py's key, there
+from XLA's cost analysis): `counted_GB_per_frame`, the mean over the bench
+frames of one counted, untimed fast render each (utils/roofline.py
+`counting`: the eager ops' operands and results, each hand-written kernel
+by its declared cost), `achieved_GBps` (that over the scan's ms per frame),
+`pct_hbm_roof` (its share of the card's `HBM_BYTES_PER_S`) and `peak_GBps`.
+Each is left out, with the reason on stderr, on the CPU and for a card or
+dtype the tables do not hold. bench.py's `vs_baseline` (fps over a TPU
+target) has no counterpart here.
 """
 
 from __future__ import annotations
@@ -57,21 +63,18 @@ import time
 
 import numpy as np
 
+from gpnerf_tpu_torch.utils.roofline import counting, peak_bytes_per_s, peak_flop_per_s
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 RECORD = "BENCH_MODES_torch.json"
 N_FRAMES = 10
-# dense tensor-core (bf16) and float32 peaks of the H100 SXM at its 700 W
-# limit, from NVIDIA's data sheet; float32 is float32 here (TF32 is off)
-PEAK_FLOP_PER_S = {
-    ("NVIDIA H100 80GB HBM3", "bfloat16"): 989e12,
-    ("NVIDIA H100 80GB HBM3", "float32"): 67e12,
-}
 # the headline guard's bounds: the scan renders the loop's frames through
-# the loop's code, so it is not twice as fast; an mfu above 1 is a timing
-# fault; the checksums of the same frame agree to float32 sums in another
-# order
+# the loop's code, so it is not twice as fast; an mfu above 1, or a share of
+# the HBM roof above 100%, is a timing or counting fault; the checksums of
+# the same frame agree to float32 sums in another order
 SCAN_FLOOR = 0.5
 MFU_CEIL = 1.0
+ROOF_PCT_CEIL = 100.0
 CHECKSUM_RTOL = 1e-5
 # the reference-semantics mode (bench.py:372-397): the reference's blanket
 # cull over all 64 samples, no tap window, full-resolution source rgb, caps
@@ -317,13 +320,38 @@ def run_mode(render, cfg, *, reps=3, scan_cycles=3, iso_cycles=5, batches=None, 
     }
 
 
-def headline_guard(rec, mfu=None):
-    """The reasons to refuse `rec` (a run_mode result) and its `mfu`; empty
-    when sound. Refused: a time that is not positive and finite; a scan
-    frame whose overflows or counts differ from the loop's for the same
-    frame, or whose checksum differs by more than CHECKSUM_RTOL of it; a
-    scan ms per frame below SCAN_FLOOR of the loop's best; mfu above
-    MFU_CEIL."""
+def frame_roofline(render, batches, ms_per_frame, device_name):
+    """bench.py's `roofline` key on the port: the mean bytes of one counted,
+    untimed `render_demo_fn()` call on each of `batches` (utils/roofline.py
+    `counting`), over `ms_per_frame`, as a share of the card's HBM peak.
+    None, with the reason on stderr, where `HBM_BYTES_PER_S` holds no peak
+    for `device_name` (the CPU among them)."""
+    peak = peak_bytes_per_s(device_name)
+    if peak is None:
+        why = "on the CPU" if device_name == "cpu" else f"no published HBM peak for {device_name!r}"
+        print(f"# roofline left out: {why} (utils/roofline.py HBM_BYTES_PER_S)", file=sys.stderr)
+        return None
+    fn = render.render_demo_fn()
+    device = next(render.parameters()).device
+    total = 0
+    for b in batches:
+        with counting(device) as c:
+            fn(b)
+        total += c.bytes
+    gb = total / len(batches) / 1e9
+    gbps = gb / (ms_per_frame / 1e3)
+    return {"counted_GB_per_frame": gb, "achieved_GBps": gbps,
+            "pct_hbm_roof": gbps / (peak / 1e9) * 100.0, "peak_GBps": peak / 1e9}
+
+
+def headline_guard(rec, mfu=None, pct_hbm_roof=None):
+    """The reasons to refuse `rec` (a run_mode result), its `mfu` and its
+    `pct_hbm_roof`; empty when sound. Refused: a time that is not positive
+    and finite; a scan frame whose overflows or counts differ from the
+    loop's for the same frame, or whose checksum differs by more than
+    CHECKSUM_RTOL of it; a scan ms per frame below SCAN_FLOOR of the loop's
+    best; mfu above MFU_CEIL; a share of the HBM roof above ROOF_PCT_CEIL
+    percent (more bytes a second than the card moves)."""
     reasons = []
     for k in ("ms_per_frame", "loop_ms_per_frame"):
         if not (math.isfinite(rec[k]) and rec[k] > 0):
@@ -346,12 +374,14 @@ def headline_guard(rec, mfu=None):
                            f"loop's best {rec['loop_ms_per_frame']:.6g} ms/frame")
     if mfu is not None and not mfu <= MFU_CEIL:
         reasons.append(f"mfu {mfu!r} is above {MFU_CEIL:g}")
+    if pct_hbm_roof is not None and not pct_hbm_roof <= ROOF_PCT_CEIL:
+        reasons.append(f"pct_hbm_roof {pct_hbm_roof!r} is above {ROOF_PCT_CEIL:g}")
     return reasons
 
 
-def refuse_unsound(title, rec, mfu=None):
+def refuse_unsound(title, rec, mfu=None, pct_hbm_roof=None):
     """Exit non-zero, naming the reasons, when headline_guard refuses."""
-    reasons = headline_guard(rec, mfu)
+    reasons = headline_guard(rec, mfu, pct_hbm_roof)
     if reasons:
         raise SystemExit(f"bench_torch: {title} refused: " + "; ".join(reasons))
 
@@ -477,8 +507,9 @@ def main(argv=None, root=ROOT):
         return r.eval()
 
     fast = run_mode(render, cfg, batches=dev_batches, host=host_batches)
+    roof = frame_roofline(render, dev_batches, fast["ms_per_frame"], name)
     del render
-    peak = PEAK_FLOP_PER_S.get((name, cfg.tpu.matmul_dtype))
+    peak = peak_flop_per_s(name, cfg.tpu.matmul_dtype)
     mfu = None
     if peak is None:
         why = "on the CPU" if device.type == "cpu" else (
@@ -488,10 +519,12 @@ def main(argv=None, root=ROOT):
         flops = analytic_flops_per_frame(H, W, fast["counts_mean"],
                                          code_dim=cfg.head.sigma.code_dim)
         mfu = flops * fast["fps"] / peak
-    refuse_unsound("fast mode", fast, mfu)
+    refuse_unsound("fast mode", fast, mfu, roof and roof["pct_hbm_roof"])
     fast_line = mode_line(f"synthetic-body {H}x{W} progressive render", fast, name, smi)
     if mfu is not None:
         fast_line["mfu"] = round(mfu, 6)
+    if roof is not None:
+        fast_line["roofline"] = fast["roofline"] = roof
     print(json.dumps(fast_line), flush=True)
     print(
         f"# {fast['ms_per_frame']:.3f} ms/frame (scan); loop {fast['loop_ms_per_frame']:.3f} "
@@ -502,6 +535,11 @@ def main(argv=None, root=ROOT):
         f"({smi}; {fast['timer']})",
         file=sys.stderr, flush=True,
     )
+    if roof is not None:
+        print(f"# roofline: counted {roof['counted_GB_per_frame']:.4f} GB/frame -> "
+              f"{roof['achieved_GBps']:.2f} GB/s at {fast['ms_per_frame']:.3f} ms/frame = "
+              f"{roof['pct_hbm_roof']:.3f}% of {roof['peak_GBps']:.0f} GB/s (per-stage: "
+              "tools/roofline_torch.py)", file=sys.stderr, flush=True)
     modes = {"fast": {**fast_line, **fast}}
     write_record(modes, root)
 

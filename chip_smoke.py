@@ -173,6 +173,14 @@ Phases, each fatal on failure:
      record (BENCH_MODES_torch.json) zero ray, sigma and rgb overflows,
      PSNR >= 20 dB and kernel 1 launched once per frame, `mfu` within (0,
      1]; its three lines printed with the card's name and power limit;
+  8r. the roofline: tools/roofline_torch.py in a process of its own on 2
+     bench frames (8 with --profile): exit 0, a row for each of the 14
+     stop stages and the whole render plus the production row, every
+     delta_GB >= 0, every share of the HBM roof in (0, 100]; bench frame
+     0's fast render counted (utils/roofline.py) on the card and on the
+     CPU, bytes and FLOPs equal or within 1% with the differing ops
+     printed; phase 8's fast line carrying `roofline` with `pct_hbm_roof`
+     in (0, 100]; its lines with the card's name and power limit;
   9. one JSON line listing the kernels, the card's name and power limit,
      and the final JSON status line.
 
@@ -194,12 +202,15 @@ import time
 import warnings
 
 from bench_torch import REF_MODE  # the bench's reference-semantics mode
+from gpnerf_tpu_torch.utils import roofline
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, "artifacts", "bench_ckpt.pth")
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core peak
-F32_FLOP_PER_S = 67e12  # float32 outside the tensor cores
+# the H100 SXM's published peaks (utils/roofline.py): HBM3, dense bf16
+# tensor cores, float32 outside the tensor cores
+HBM_BYTES_PER_S = roofline.HBM_BYTES_PER_S[roofline.H100]
+BF16_FLOP_PER_S = roofline.PEAK_FLOP_PER_S[(roofline.H100, "bfloat16")]
+F32_FLOP_PER_S = roofline.PEAK_FLOP_PER_S[(roofline.H100, "float32")]
 
 
 def log(*a):
@@ -541,28 +552,18 @@ def plain_in_chunks(call, chunk=262144):
     return tuple(torch.cat(o) for o in zip(*outs))
 
 
-def point_stage_cost(call, outs):
-    """(bytes, bound ms, bound_by) of one point-stage call: each input read
-    once and each output written once, over HBM; MLP multiply-adds at the
-    bf16 tensor-core rate plus the f32 lerps, whichever bound is larger."""
-    import torch
+def point_stage_cost(call):
+    """(bytes, bound ms, bound_by) of one point-stage call: its declared
+    cost (ops/point_stages.py `cost`: each input read once and each output
+    written once) over HBM; the MLP FLOPs at the bf16 tensor-core rate plus
+    the f32 lerps (`op_counts`), whichever bound is larger."""
+    from gpnerf_tpu_torch.ops import point_stages as ps
 
     tabs, feats, vmask, sig_ok, weights, kw = call
-    geom = kw.get("geom_tabs", ())
-    tensors = [vmask, sig_ok.to(torch.uint8), weights.flat, *outs]
-    for t in (*tabs, *geom):
-        tensors += list(t)
-    if feats is not None:
-        tensors.append(feats)
-    nbytes = sum(t.numel() * t.element_size() for t in tensors)
-    V, P = vmask.shape
-    Cp = sum(t[2].shape[0] for t in tabs)
-    macs = sum(w.shape[0] * w.shape[1] for w, _ in weights.layers)
-    macs += (V - 1) * sum(w.shape[0] * w.shape[1] for w, _ in weights.layers[5:9])  # per-view MLPs
-    lerp = sum(V * t[2].shape[0] * 2 * t[1].shape[1] for t in tabs) + 4 * V * Cp
-    lerp += sum(g[0].shape[1] * 2 + g[2].shape[0] for g in geom)
+    nbytes, _ = ps.cost(tabs, feats, vmask, sig_ok, weights, **kw)
+    mma, f32 = ps.op_counts(tabs, vmask, weights, kw.get("geom_tabs", ()))
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = P * (2 * macs / BF16_FLOP_PER_S + lerp / F32_FLOP_PER_S)
+    t_ops = mma / BF16_FLOP_PER_S + f32 / F32_FLOP_PER_S
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
     return nbytes, max(t_bytes, t_ops) * 1e3, bound_by
 
@@ -579,15 +580,14 @@ def same_bits(a, b):
         torch.equal(a.contiguous().view(bits), b.contiguous().view(bits)))
 
 
-def nbytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
 def lerp_cost(rows, w4, scale, out):
-    """(bytes, bound ms, bound_by) of one quad lerp: inputs read and output
-    written once over HBM; 9 float32 operations per output value."""
-    nb = nbytes(rows, w4, scale, out)
-    t_bytes, t_ops = nb / HBM_BYTES_PER_S, 9 * out.numel() / F32_FLOP_PER_S
+    """(bytes, bound ms, bound_by) of one quad lerp: its declared cost
+    (ops/quad_lerp.py `cost`: inputs read and output written once) over
+    HBM; its float32 operations at the float32 rate."""
+    from gpnerf_tpu_torch.ops import quad_lerp as ql
+
+    nb, ops = ql.cost(rows, w4, scale, out.dtype)
+    t_bytes, t_ops = nb / HBM_BYTES_PER_S, ops / F32_FLOP_PER_S
     return nb, max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1360,7 +1360,86 @@ def bench_phase(card):
     log(f"# bench_torch.py on {card}: exited 0 in {time.perf_counter() - t0:.1f} s; ms/frame fast "
         f"{modes['fast']['ms_per_frame']:.3f}, reference {modes['reference_semantics']['ms_per_frame']:.3f}"
         f", neg-ray {modes['thuman_neg_ray']['ms_per_frame']:.3f}; mfu {mfu}")
-    return {name: m["launches"] for name, m in modes.items()}
+    return {name: m["launches"] for name, m in modes.items()}, fast
+
+
+def count_diff(a, b, top=15):
+    """The ops (and declared kernels) whose bytes or FLOPs differ between two
+    counts (utils/roofline.py `Count`), largest byte gap first."""
+    keys = set(a.by_op) | set(b.by_op)
+    rows = [(k, a.by_op[k] - b.by_op[k], a.flops_by_op[k] - b.flops_by_op[k]) for k in keys]
+    rows = [r for r in rows if r[1] or r[2]]
+    return sorted(rows, key=lambda r: -abs(r[1]))[:top]
+
+
+def roofline_phase(card, profile, fast_line):
+    """Phase 8r: tools/roofline_torch.py in a process of its own on 2 bench
+    frames (8 under --profile): exit 0, one row per STOP_STAGES prefix and
+    the whole render plus the production row, every delta_GB >= 0, every
+    share of the HBM roof and the production row's in (0, 100]. Then bench
+    frame 0's fast render (fused) counted on the card and on the CPU
+    (utils/roofline.py `counting`): bytes and FLOPs equal, or within 1%
+    with the differing ops printed. And phase 8's fast line carries
+    `roofline` with `pct_hbm_roof` in (0, 100]."""
+    import torch
+
+    from bench_torch import bench_cfg
+    from gpnerf_tpu_torch.render.base import batch_to_device
+    from gpnerf_tpu_torch.render.demo import STOP_STAGES
+    from gpnerf_tpu_torch.utils.bench_frames import get_bench_frames
+
+    n = 8 if profile else 2
+    out_dir = os.path.join(ROOT, "results", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "roofline.json")
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, 'tools'); import roofline_torch; "
+         f"roofline_torch.main(sys.argv[1:], n_frames={n})", "--json", path],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    check(run.returncode == 0, f"roofline_torch.py exited {run.returncode}: {run.stderr[-3000:]}")
+    for line in run.stdout.splitlines():
+        log(f"# roofline: {line}")
+    with open(path) as f:
+        res = json.load(f)
+    rows, prod = res["ladder"], res["production"]
+    check([r["stage"] for r in rows] == [*STOP_STAGES, "None"],
+          f"roofline ladder stages {[r['stage'] for r in rows]}")
+    for r in rows:
+        check(r["delta_GB"] >= 0, f"roofline {r['stage']}: delta_GB {r['delta_GB']} < 0")
+        pct = r["pct_bw_roof"]
+        check(pct is None or 0.0 < pct <= 100.0, f"roofline {r['stage']}: pct_bw_roof {pct}")
+    check(prod["pct_bw_roof"] is not None and 0.0 < prod["pct_bw_roof"] <= 100.0,
+          f"roofline production: pct_bw_roof {prod['pct_bw_roof']}")
+    log(f"# tools/roofline_torch.py on {card} ({res['device']}, {res['nvidia_smi']}): exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s over {n} frames, {len(rows)} ladder rows + production; "
+        f"production {prod['total_ms']} ms, {prod['total_GB']} GB, {prod['achieved_GBps']} GB/s = "
+        f"{prod['pct_bw_roof']}% of {res['peak_GBps']} GB/s")
+
+    cfg = bench_cfg([])
+    (host,) = get_bench_frames(cfg, 1)
+    counts = {}
+    for d in ("cuda", "cpu"):
+        cfg_d, render = make_render(512, cfg.tpu.matmul_dtype, d)
+        check(render.pallas_point, "phase 8r: the fast mode is not fused")
+        batch = batch_to_device(host, d)
+        with torch.no_grad(), roofline.counting(d) as c:
+            render.render_demo_fn()(batch)
+        counts[d] = c
+        del render, batch
+    g, c = counts["cuda"], counts["cpu"]
+    db, df = abs(g.bytes - c.bytes) / c.bytes, abs(g.flops - c.flops) / c.flops
+    log(f"# roofline count of bench frame 0 (fast, fused) on {card}: {g.bytes} B, {g.flops} FLOPs, "
+        f"kernels {dict(g.kernels)}, host<->card {g.transfer_bytes} B, host ops {g.host_ops}; on "
+        f"the CPU {c.bytes} B, {c.flops} FLOPs, kernels {dict(c.kernels)}; gap {db:.3e} / {df:.3e}")
+    for k, b, fl in count_diff(g, c):
+        log(f"#   card - CPU: {k} {b:+d} B {fl:+d} FLOPs")
+    check(db <= 0.01 and df <= 0.01, f"phase 8r: card and CPU counts differ by {db:.3e} / {df:.3e}")
+
+    roof = fast_line.get("roofline")
+    check(roof is not None and 0.0 < roof["pct_hbm_roof"] <= 100.0,
+          f"bench_torch.py fast line roofline {roof}")
+    log(f"# bench_torch.py roofline on {card}: {json.dumps(roof)}")
 
 
 def dp_cfg(render_file):
@@ -1849,7 +1928,7 @@ def main():
             kern_ms = cuda_ms(lambda: ps.fused_point_stages_tabs(
                 tabs, feats, vmask, sig_ok, weights, **kw), 10)
             plain_ms = cuda_ms(lambda: plain_in_chunks(call), 2)
-            nb, bound_ms, bound_by = point_stage_cost(call, k_out)
+            nb, bound_ms, bound_by = point_stage_cost(call)
             row = {"name": name, "views": key.views, "ms": kern_ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by, "mbytes": nb / 1e6,
                    "max_abs_err": max(stats["max_abs_d_alpha"], stats["max_abs_d_rgb"]),
@@ -1992,7 +2071,7 @@ def main():
         kern_ms = cuda_ms(lambda: ps.fused_point_stages_tabs(tabs, feats, vmask, sig_ok, weights, **kw),
                           20 if P < 10**6 else 5)
         plain_ms = cuda_ms(lambda: plain_in_chunks(call), 5 if P < 10**6 else 1)
-        nbytes, bound_ms, bound_by = point_stage_cost(call, k_out)
+        nbytes, bound_ms, bound_by = point_stage_cost(call)
         log(line + f"; point_stages[{form_name}] kernel {kern_ms:.3f} ms at P={P}, plain {plain_ms:.3f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), "
             f"mean PSNR {sum(psnrs) / len(psnrs):.3f} dB")
@@ -2462,7 +2541,7 @@ def main():
     k_ms = cuda_ms(lambda: rg.row_gather(g_table, g_idx), 20)
     p_ms = cuda_ms(lambda: rg.row_gather_plain(g_table, g_idx), 5)
     lib_ms = cuda_ms(lambda: torch.index_select(g_table, 0, g_idx), 20)
-    nb = nbytes(g_table, g_idx, g_out)
+    nb, _ = rg.cost(g_table, g_idx)  # the table read once, the rows written once
     log(f"# timing on {card}: row_gather kernel {k_ms:.4f} ms at {g_idx.numel()} rows of "
         f"{g_table.shape[1]} f32, plain {p_ms:.4f} ms, index_select {lib_ms:.4f} ms, bound "
         f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes, {nb / 1e6:.1f} MB)")
@@ -2590,9 +2669,14 @@ def main():
     # ---- phase 8: the port's bench, a process of its own ----
     torch.cuda.empty_cache()
     by_name = {k["name"]: k for k in kernels}
-    for launches in bench_phase(card).values():  # the fused modes: kernel 1's forms
+    bench_launches, fast_line = bench_phase(card)
+    for launches in bench_launches.values():  # the fused modes: kernel 1's forms
         for form, count in launches.items():
             by_name[f"point_stages[{form}]"]["launches"] += count
+
+    # ---- phase 8r: the roofline ----
+    torch.cuda.empty_cache()
+    roofline_phase(card, profile, fast_line)
 
     log(f"# total {time.perf_counter() - t_all:.1f} s")
     want = {f"point_stages[{n}]" for n in [*ps.FORMS.values(), *key_modes]} | {

@@ -63,6 +63,7 @@ from gpnerf_tpu_torch.models.layers import rounded
 from gpnerf_tpu_torch.ops import cuda_build
 from gpnerf_tpu_torch.ops.cuda_build import BUILD_DIR  # noqa: F401 (kept under this name)
 from gpnerf_tpu_torch.ops.grid_sample import lerp_rows
+from gpnerf_tpu_torch.utils import roofline
 
 SOURCE = os.path.join(cuda_build.CSRC_DIR, "point_stages.cu")
 
@@ -555,19 +556,47 @@ def _launch(tabs, feats, vmask, sig_ok, weights, geom_tabs, occ_geom):
     return (alpha, rgb, occm) if occ_geom else (alpha, rgb)
 
 
+def op_counts(tabs, vmask, weights: PointWeights, geom_tabs=()):
+    """(tensor-core FLOPs, float32 operations) of one call: the twelve
+    layers' multiply-adds x 2 (the four per-view layers once per view), and
+    the lerps (two per tap and channel of each table, plus 4 per view and
+    channel for dequant, mean and variance)."""
+    V, P = vmask.shape
+    Cp = sum(t[2].shape[0] for t in tabs)
+    macs = sum(w.shape[0] * w.shape[1] for w, _ in weights.layers)
+    macs += (V - 1) * sum(w.shape[0] * w.shape[1] for w, _ in weights.layers[5:9])
+    lerp = sum(V * t[2].shape[0] * 2 * t[1].shape[1] for t in tabs) + 4 * V * Cp
+    lerp += sum(g[0].shape[1] * 2 + g[2].shape[0] for g in geom_tabs)
+    return 2 * macs * P, lerp * P
+
+
+def cost(tabs, feats, vmask, sig_ok, weights: PointWeights, *, geom_tabs=(), occ_geom=False):
+    """(bytes, FLOPs) of one call (utils/roofline.py): every input read
+    once (sig_ok as uint8, the packed weights), the outputs alpha, rgb
+    [and occm] written once; `op_counts` summed."""
+    P = vmask.shape[1]
+    ins = roofline.nbytes(vmask, weights.flat, feats,
+                          *(t for tab in (*tabs, *geom_tabs) for t in tab)) + P  # + sig_ok
+    outs = 4 * P * (4 + int(occ_geom))  # alpha, rgb [, occm], float32
+    return ins + outs, sum(op_counts(tabs, vmask, weights, geom_tabs))
+
+
 def fused_point_stages_tabs(tabs, feats, vmask, sig_ok, weights: PointWeights, *,
                             geom_tabs=(), occ_geom=False):
     """Point stages on the device the inputs live on: the plain torch
     version for CPU tensors, the CUDA kernel for CUDA tensors. Same
-    arguments and returns as `point_stages_tabs_plain` (sig_ok as uint8/bool)."""
+    arguments and returns as `point_stages_tabs_plain` (sig_ok as uint8/bool).
+    A count (utils/roofline.py) takes the call at its declared `cost`."""
     dev = tabs[0][0].device
-    if dev.type == "cpu":
-        return point_stages_tabs_plain(tabs, feats, vmask, sig_ok, weights,
-                                       geom_tabs=geom_tabs, occ_geom=occ_geom)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"point stages: unsupported device {dev}")
-    return _launch(tabs, feats, vmask, sig_ok.to(torch.uint8), weights,
-                   tuple(geom_tabs), occ_geom)
+    with roofline.note_kernel("point_stages", *cost(tabs, feats, vmask, sig_ok, weights,
+                                                     geom_tabs=geom_tabs, occ_geom=occ_geom)):
+        if dev.type == "cpu":
+            return point_stages_tabs_plain(tabs, feats, vmask, sig_ok, weights,
+                                           geom_tabs=geom_tabs, occ_geom=occ_geom)
+        return _launch(tabs, feats, vmask, sig_ok.to(torch.uint8), weights,
+                       tuple(geom_tabs), occ_geom)
 
 
 def fused_point_stages(rows, w4, pscale, geom_tabs, vmask, sig_ok,

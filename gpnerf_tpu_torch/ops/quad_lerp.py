@@ -17,7 +17,8 @@ On a CPU tensor each wrapper runs its plain version (`*_plain`, the same
 function in torch ops); on a CUDA tensor it launches the kernel of
 csrc/quad_lerp.cu, built at first use (ops/cuda_build.py), or raises.
 Kernel and plain version agree bitwise. `LAUNCHES` counts launches per
-wrapper name.
+wrapper name; a count (utils/roofline.py) takes each call at its declared
+`cost`.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 
 from gpnerf_tpu_torch.models.layers import rounded
 from gpnerf_tpu_torch.ops import cuda_build
+from gpnerf_tpu_torch.utils import roofline
 
 LAUNCHES = collections.Counter()
 BUILD_LOG = {}
@@ -56,6 +58,14 @@ def quad_lerp_rows_cm_plain(rows, w4, scale, *, out_dtype=torch.bfloat16):
     """The flat channel-major kernel's function in torch ops: rows (N, 4C),
     w4 (4, N) -> (C, N) `out_dtype`."""
     return quad_lerp_rows_vcp_plain(rows, w4[None], scale, out_dtype=out_dtype)[0]
+
+
+def cost(rows, w4, scale, out_dtype):
+    """(bytes, FLOPs) of one call of either form (utils/roofline.py): rows,
+    w4 and scale read once, the (rows x C) output of `out_dtype` written
+    once; 9 float32 operations per output value."""
+    n_out = rows.shape[0] * (rows.shape[-1] // 4)
+    return roofline.nbytes(rows, w4, scale) + n_out * out_dtype.itemsize, 9 * n_out
 
 
 def start_build():
@@ -115,6 +125,11 @@ def quad_lerp_rows_vcp(rows_vmajor, w4, scale, *, out_dtype=torch.bfloat16):
     """View-major quad lerp on the device the rows live on: the plain version
     for CPU tensors, the CUDA kernel for CUDA tensors. rows (V*P, 4C) int8,
     uint8, bfloat16 or float32; w4 (V, 4, P) f32; scale (C,) f32 -> (V, C, P)."""
+    with roofline.note_kernel("quad_lerp_rows_vcp", *cost(rows_vmajor, w4, scale, out_dtype)):
+        return _quad_lerp_rows_vcp(rows_vmajor, w4, scale, out_dtype)
+
+
+def _quad_lerp_rows_vcp(rows_vmajor, w4, scale, out_dtype):
     dev = rows_vmajor.device
     if dev.type == "cpu":
         return quad_lerp_rows_vcp_plain(rows_vmajor, w4, scale, out_dtype=out_dtype)
@@ -138,6 +153,11 @@ def quad_lerp_rows_vcp(rows_vmajor, w4, scale, *, out_dtype=torch.bfloat16):
 def quad_lerp_rows_cm(rows, w4, scale, *, out_dtype=torch.bfloat16):
     """Flat channel-major quad lerp: rows (N, 4C), w4 (4, N) f32, scale (C,)
     f32 -> (C, N); plain version on the CPU, CUDA kernel on CUDA tensors."""
+    with roofline.note_kernel("quad_lerp_rows_cm", *cost(rows, w4, scale, out_dtype)):
+        return _quad_lerp_rows_cm(rows, w4, scale, out_dtype)
+
+
+def _quad_lerp_rows_cm(rows, w4, scale, out_dtype):
     dev = rows.device
     if dev.type == "cpu":
         return quad_lerp_rows_cm_plain(rows, w4, scale, out_dtype=out_dtype)

@@ -9,7 +9,7 @@ bfloat16 rows are what the microbenchmark uses); indices are int32 or int64
 and in range by contract, as in that microbenchmark. On a CPU tensor the
 wrapper runs `row_gather_plain`; on a CUDA tensor it launches the kernel,
 built at first use (ops/cuda_build.py), or raises. `LAUNCHES` counts kernel
-launches.
+launches; a count (utils/roofline.py) takes each call at its declared `cost`.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import ctypes
 import torch
 
 from gpnerf_tpu_torch.ops import cuda_build
+from gpnerf_tpu_torch.utils import roofline
 
 LAUNCHES = collections.Counter()
 BUILD_LOG = {}
@@ -30,6 +31,13 @@ _lib = None
 def row_gather_plain(table, idx):
     """The kernel's function in torch ops."""
     return table[idx.long()]
+
+
+def cost(table, idx):
+    """(bytes, FLOPs) of one call (utils/roofline.py): the table, which the
+    kernel reads once into the L2 cache, and the indices read once, the (N,
+    C) rows written once; no FLOPs."""
+    return roofline.nbytes(table, idx) + idx.shape[0] * table.shape[1] * table.element_size(), 0
 
 
 def start_build():
@@ -54,6 +62,11 @@ def load_library(proc=None):
 def row_gather(table, idx):
     """table (T, C), idx (N,) int32/int64 -> (N, C): the plain version for
     CPU tensors, the CUDA kernel for CUDA tensors."""
+    with roofline.note_kernel("row_gather", *cost(table, idx)):
+        return _row_gather(table, idx)
+
+
+def _row_gather(table, idx):
     dev = table.device
     if dev.type == "cpu":
         return row_gather_plain(table, idx)

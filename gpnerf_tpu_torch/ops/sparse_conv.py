@@ -30,6 +30,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from gpnerf_tpu_torch.models.layers import cast
+from gpnerf_tpu_torch.utils import roofline
 
 
 class SparseLevel(NamedTuple):
@@ -78,6 +79,10 @@ def _conv_gather_mm(feats, idx, valid, weight, compute_dtype):
     grad = torch.is_grad_enabled() and (a.requires_grad or w.requires_grad)
     if a.dtype != torch.float32 and a.is_cuda and not grad:
         out = torch.mm(a, w, out_dtype=torch.float32)
+    elif a.dtype != torch.float32 and not grad:
+        # a count (utils/roofline.py) takes the widened product as the card's
+        with roofline.stand_in("aten.mm", *roofline.mm_cost(a, w, torch.float32)):
+            out = a.float() @ w.float()
     else:
         out = a.float() @ w.float()
     return torch.where(valid[:, None], out, 0.0)

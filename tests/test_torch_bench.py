@@ -16,13 +16,17 @@ size (ray_cap 9216 holds the 8,284 rays of the larger frame):
     36 of 52,935 on the first frame); its PSNR and SSIM equal the JAX
     package's Evaluator on the port's own images within 1e-6;
   * the headline guard refuses a scan timed at 1 us, BENCH_r05's mfu of
-    40.4 and one changed checksum, and passes the sound record;
+    40.4, one changed checksum and a share of the HBM roof of 120%, and
+    passes the sound record and a share of 40%;
+  * `main` under `device cpu` leaves `mfu` and `roofline` out of the fast
+    line and says why on stderr;
   * without a card and without `device cpu`, `main` raises naming the key;
   * the record goes to BENCH_MODES_torch.json under the given root, and
     bench.py's BENCH_MODES.json is left as it was;
-  * bench_torch.py imports neither jax, the JAX package nor bench.py.
+  * bench_torch.py, utils/roofline.py and tools/roofline_torch.py import
+    neither jax, the JAX package nor bench.py.
 
-~65 s alone, most of it the 11 renders of `run_mode` and JAX's compile."""
+~90 s alone, most of it the 22 renders of `run_mode` and JAX's compile."""
 
 import ast
 import hashlib
@@ -182,14 +186,16 @@ def test_quality_equals_jax_evaluator(frames, bench_run, jax_counters):
 
 def _forge(rec, what):
     rec = json.loads(json.dumps(rec))
-    mfu = 0.01
+    mfu, pct = 0.01, None
     if what == "scan timed at 1 us":
         rec["ms_per_frame"], rec["fps"] = 1e-3, 1e6
     elif what == "mfu 40.4":
         mfu = 40.4
     elif what == "changed checksum":
         rec["scan_frames"]["checksum"][1] *= 1.0 + 1e-3
-    return rec, mfu
+    elif what.startswith("pct_hbm_roof"):
+        pct = float(what.split()[1])
+    return rec, mfu, pct
 
 
 @pytest.mark.parametrize("what,refused", [
@@ -197,17 +203,38 @@ def _forge(rec, what):
     ("scan timed at 1 us", "below 0.5 x the loop's best"),
     ("mfu 40.4", "mfu 40.4 is above 1"),
     ("changed checksum", "scan frame 1 (frame 1): checksum"),
+    ("pct_hbm_roof 120", "pct_hbm_roof 120.0 is above 100"),
+    ("pct_hbm_roof 40", None),
 ])
 def test_headline_guard(bench_run, what, refused):
-    rec, mfu = _forge(bench_run[0], what)
-    reasons = bench_torch.headline_guard(rec, mfu)
+    rec, mfu, pct = _forge(bench_run[0], what)
+    reasons = bench_torch.headline_guard(rec, mfu, pct)
     if refused is None:
         assert reasons == []
-        bench_torch.refuse_unsound("fast mode", rec, mfu)
+        bench_torch.refuse_unsound("fast mode", rec, mfu, pct)
     else:
         assert len(reasons) == 1 and refused in reasons[0], reasons
         with pytest.raises(SystemExit, match="fast mode refused"):
-            bench_torch.refuse_unsound("fast mode", rec, mfu)
+            bench_torch.refuse_unsound("fast mode", rec, mfu, pct)
+
+
+def test_cpu_run_leaves_roofline_out(monkeypatch, tmp_path, capsys):
+    """`main` under `device cpu` (the fast mode alone, its 2 frames, one rep
+    of each protocol): the fast line has neither `mfu` nor `roofline`, and
+    stderr says why."""
+    monkeypatch.setattr(bench_torch, "N_FRAMES", 2)
+    monkeypatch.setenv("BENCH_REF", "0")
+    monkeypatch.setenv("BENCH_NEG", "0")
+    run_mode = bench_torch.run_mode
+    monkeypatch.setattr(bench_torch, "run_mode", lambda *a, **k: run_mode(
+        *a, **{**k, "reps": 1, "scan_cycles": 1, "iso_cycles": 1}))
+    monkeypatch.setenv("BENCH_CKPT", CKPT)
+    modes = bench_torch.main(ARGV, root=str(tmp_path))
+    out, err = capsys.readouterr()
+    (line,) = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    assert "roofline" not in line and "mfu" not in line and line["device"] == "cpu"
+    assert "roofline" not in modes["fast"]
+    assert "# roofline left out: on the CPU" in err and "# mfu left out: on the CPU" in err
 
 
 def test_main_raises_without_card(monkeypatch):
@@ -230,14 +257,20 @@ def test_record_goes_to_its_own_file(bench_run, tmp_path):
 
 
 def test_imports_neither_jax_nor_bench_py():
-    with open(os.path.join(ROOT, "bench_torch.py")) as f:
-        tree = ast.parse(f.read())
-    names = set()
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            names |= {a.name for a in node.names}
-        elif isinstance(node, ast.ImportFrom):
-            names.add(node.module)
-    tops = {n.split(".")[0] for n in names}
-    assert not tops & {"jax", "jaxlib", "flax", "gpnerf_tpu", "bench"}, names
-    assert "gpnerf_tpu_torch" in tops and "torch" in tops
+    """bench_torch.py, and the roofline it reports (utils/roofline.py and
+    its CLI tools/roofline_torch.py)."""
+    for path in ("bench_torch.py", "tools/roofline_torch.py",
+                 "gpnerf_tpu_torch/utils/roofline.py"):
+        with open(os.path.join(ROOT, path)) as f:
+            tree = ast.parse(f.read())
+        names = set()
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names |= {a.name for a in node.names}
+            elif isinstance(node, ast.ImportFrom):
+                names.add(node.module)
+        tops = {n.split(".")[0] for n in names}
+        assert not tops & {"jax", "jaxlib", "flax", "gpnerf_tpu", "bench"}, (path, names)
+        assert "torch" in tops, path
+        if path != "gpnerf_tpu_torch/utils/roofline.py":
+            assert "gpnerf_tpu_torch" in tops, path

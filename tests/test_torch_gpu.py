@@ -14,7 +14,9 @@ tap's points and the windowed renders on the card against the CPU, both
 mesh paths on the card against the CPU (float32, and the demo renderer's
 bf16 `matmul_dtype`), one train step on the card against the CPU (float32
 and bf16 mixed precision), the native bf16 fast render on the card against
-the CPU and `render_demo_scan_fn` against the per-frame loop."""
+the CPU, `render_demo_scan_fn` against the per-frame loop, and the
+roofline's count (utils/roofline.py) of a frame on the card against the
+CPU's, with the copies between host and card kept apart."""
 
 import os
 import random
@@ -1100,3 +1102,54 @@ def test_bench_run_mode_on_card():
              *rec["loop_reps_ms"], *rec["frame_ms_spread"]]
     assert all(t > 0 for t in times), times
     assert rec["launches"] == {"a": 2}
+
+
+# --- the roofline's count (utils/roofline.py) on the card
+
+
+@pytest.mark.gpu
+def test_roofline_counts_transfers_apart():
+    """A copy from the host to the card, and back, goes to transfer_bytes
+    and is no device traffic."""
+    dev = _cuda()
+    from gpnerf_tpu_torch.utils.roofline import counting
+
+    x = torch.randn(100, 100)
+    with counting(dev) as c:
+        y = x.to(dev)
+        y.cpu()
+    assert c.transfer_bytes == 2 * 100 * 100 * 4 and c.bytes == 0 and c.flops == 0
+
+
+@pytest.mark.gpu
+def test_roofline_count_on_card_matches_cpu():
+    """Bench frame 0 at 128^2 through the fused fast render (bf16 as
+    shipped), counted on the card and on the CPU: the same bytes and FLOPs
+    (the kernel by its declared cost, the CPU's plain stand-ins as the
+    card's calls), within 1% where a device branch differs."""
+    dev = _cuda()
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    import bench_torch
+    from gpnerf_tpu_torch.registry import get
+    from gpnerf_tpu_torch.render.base import batch_to_device
+    from gpnerf_tpu_torch.train.checkpoint import load_eval_model
+    from gpnerf_tpu_torch.utils.bench_frames import get_bench_frames
+    from gpnerf_tpu_torch.utils.roofline import counting
+
+    cfg = bench_torch.bench_cfg(["dataset.H", "128", "dataset.W", "128", "tpu.ray_cap", "9216"])
+    (host,) = get_bench_frames(cfg, 1, verbose=False)
+    counts = {}
+    for d in (dev, torch.device("cpu")):
+        r = load_eval_model(CKPT, get("render", cfg.render.file)(cfg, device=d))
+        with counting(d) as c:
+            r.render_demo_fn()(batch_to_device(host, d))
+        counts[d.type] = c
+    g, c = counts["cuda"], counts["cpu"]
+    diff = {k: g.by_op[k] - c.by_op[k] for k in set(g.by_op) | set(c.by_op)
+            if g.by_op[k] != c.by_op[k]}
+    print(f"128^2 count: card {g.bytes} B {g.flops} FLOPs, CPU {c.bytes} B {c.flops} FLOPs, "
+          f"differing ops {diff}")
+    assert g.kernels == c.kernels and dict(g.kernels) == {"point_stages": 1}
+    assert abs(g.bytes - c.bytes) <= 0.01 * c.bytes and abs(g.flops - c.flops) <= 0.01 * c.flops
