@@ -167,6 +167,15 @@ Phases, each fatal on failure:
      beside phase 5's; the 2-rank progressive render of bench frame 0
      against the single-process one (integers bitwise, colors within 1e-4,
      kernel 1 launched on each rank);
+  7d. the diagnostic tools, each in a process of its own on 2 bench frames
+     at 512^2: tools/diag_ref_mode_torch.py (exit 0, the JAX tool's keys,
+     each frame's bands within its mask_at_box; the phase renders both
+     modes of the same frames itself, and in each mode the bands' squared
+     error plus that of the pixels neither mode covers must equal the
+     frame's over mask_at_box), tools/diag_ref_points_torch.py (exit 0, P
+     the reference frame's, the seven op times positive) and
+     tools/trace_demo_torch.py (exit 0, kernel 1 among its top rows); their
+     kernel-1 launches join the kernels line;
   8. the port's bench, bench_torch.py, in a process of its own at its full
      protocol (10 bench frames at 512^2; the fast, reference-semantics and
      neg-ray modes): exit 0, one bare JSON fast line, in every mode of its
@@ -610,8 +619,9 @@ def profile_render(fn, batches, card, frame_ms, frames_per_call=1, what=None):
     events only) and the device's idle share against the unprofiled frame
     time, printed per frame."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from gpnerf_tpu_torch.utils.profiling import kernel_table
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -619,13 +629,11 @@ def profile_render(fn, batches, card, frame_ms, frames_per_call=1, what=None):
             fn(b)
         torch.cuda.synchronize()
     n = len(batches) * frames_per_call
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    events.sort(key=lambda e: -e.self_device_time_total)
-    busy = sum(e.self_device_time_total for e in events) / 1e3 / n
+    rows = kernel_table(prof)
+    busy = sum(ms for _, ms, _ in rows) / n
     lines = [f"# profile on {card}{f' of {what}' if what else ''}: kernels busy {busy:.3f} ms per frame of "
              f"{frame_ms:.3f} ms, idle share {1.0 - busy / frame_ms:.3f}; "
-             f"{sum(e.count for e in events) / n:.0f} kernel launches per frame; "
+             f"{sum(c for _, _, c in rows) / n:.0f} kernel launches per frame; "
              "by kernel (ms per frame, launches per frame):"]
     # host-device synchronizations inside one frame (each drains the queue)
     torch.cuda.set_sync_debug_mode("warn")
@@ -638,9 +646,8 @@ def profile_render(fn, batches, card, frame_ms, frames_per_call=1, what=None):
     syncs = sum("synchroniz" in str(w.message) for w in caught) / frames_per_call
     lines.insert(1, f"# profile: {syncs:g} synchronizing calls per frame "
                     "(torch.cuda.set_sync_debug_mode)")
-    for e in events:
-        lines.append(f"#   {e.self_device_time_total / 1e3 / n:9.4f} ms "
-                     f"{e.count / n:6.1f}x  {e.key[:110]}")
+    for name, ms, count in rows:
+        lines.append(f"#   {ms / n:9.4f} ms {count / n:6.1f}x  {name[:110]}")
     for line in lines[:41]:
         log(line)
 
@@ -1203,8 +1210,9 @@ def profile_steps(step, batches, card, step_ms):
     """torch.profiler over one train step per batch: device busy time per
     step and the idle share against the timed step."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from gpnerf_tpu_torch.utils.profiling import kernel_table
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1212,15 +1220,13 @@ def profile_steps(step, batches, card, step_ms):
             step(b)
         torch.cuda.synchronize()
     n = len(batches)
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    events.sort(key=lambda e: -e.self_device_time_total)
-    busy = sum(e.self_device_time_total for e in events) / 1e3 / n
+    rows = kernel_table(prof)
+    busy = sum(ms for _, ms, _ in rows) / n
     log(f"# profile on {card}: train step, kernels busy {busy:.3f} ms per step of {step_ms:.3f} ms, "
-        f"idle share {1.0 - busy / step_ms:.3f}; {sum(e.count for e in events) / n:.0f} kernel "
+        f"idle share {1.0 - busy / step_ms:.3f}; {sum(c for _, _, c in rows) / n:.0f} kernel "
         "launches per step; by kernel (ms per step, launches per step):")
-    for e in events[:25]:
-        log(f"#   {e.self_device_time_total / 1e3 / n:9.4f} ms {e.count / n:6.1f}x  {e.key[:110]}")
+    for name, ms, count in rows[:25]:
+        log(f"#   {ms / n:9.4f} ms {count / n:6.1f}x  {name[:110]}")
 
 
 def layout_phase():
@@ -1323,6 +1329,96 @@ def tools_phase(card):
     for line in prof.stdout.splitlines():
         log(f"# profile_demo_torch.py --async: {line}")
     log(f"# profile_demo_torch.py --async on {card}: exit 0 in {time.perf_counter() - t0:.1f} s")
+
+
+def diag_tools_phase(card):
+    """Phase 7d: tools/diag_ref_mode_torch.py, tools/diag_ref_points_torch.py
+    and tools/trace_demo_torch.py, each in a process of its own on 2 bench
+    frames at 512^2, with their checks (module docstring). Returns kernel
+    1's launches in these processes, by form."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import diag_ref_mode_torch as drm
+    import diag_ref_points_torch as drp
+
+    from gpnerf_tpu_torch.utils.bench_frames import get_bench_frames
+
+    def run_tool(what, argv):
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, *argv], cwd=ROOT, capture_output=True, text=True,
+                             timeout=600)
+        check(run.returncode == 0, f"{what} exited {run.returncode}: {run.stderr[-3000:]}")
+        for line in run.stdout.splitlines():
+            log(f"# {what}: {line}")
+        marks = [x for x in run.stderr.splitlines() if x.startswith("# kernel launches ")]
+        launches = json.loads(marks[-1][len("# kernel launches "):]) if marks else {}
+        log(f"# {what} on {card}: exit 0 in {time.perf_counter() - t0:.1f} s; kernel launches "
+            f"{launches}")
+        return run.stdout, launches
+
+    launches = {}
+
+    def add(counts):  # kernel 1's counts are keyed by form name (ops/point_stages.py)
+        for name, n in counts.items():
+            if name not in ("quad_lerp_rows_vcp", "quad_lerp_rows_cm", "row_gather"):
+                key = f"point_stages[{name}]"
+                launches[key] = launches.get(key, 0) + n
+
+    # diag_ref_mode: the bands against the frames' own squared error
+    out, counts = run_tool("diag_ref_mode_torch.py", ["tools/diag_ref_mode_torch.py", "2"])
+    add(counts)
+    lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    band_keys = {"px", "mse_tight", "mse_ref", "sse_tight", "sse_ref"}
+    check(len(lines) == 3 and [x.get("frame") for x in lines[:2]] == [0, 1]
+          and all(set(x) == {"frame", *drm.BANDS} and all(set(x[b]) == band_keys for b in drm.BANDS)
+                  for x in lines[:2])
+          and set(lines[2]) == {"total"} and set(lines[2]["total"]) == set(drm.BANDS)
+          and all(set(v) == {"px", "sse_tight", "sse_ref"} for v in lines[2]["total"].values()),
+          f"diag_ref_mode_torch.py lines: {lines}")
+    cfg_t, cfg_r = drm.mode_cfg(False), drm.mode_cfg(True)
+    host = get_bench_frames(cfg_t, 2)
+    dev = torch.device("cuda")
+    outs = {"tight": drm.render_outs(cfg_t, host, dev), "ref": drm.render_outs(cfg_r, host, dev)}
+    for i, (b, line) in enumerate(zip(host, lines)):
+        mab = np.asarray(b["mask_at_box"]).reshape(outs["tight"][i][1].shape)
+        covered = {m: outs[m][i][1] & mab for m in outs}
+        neither = mab & ~covered["tight"] & ~covered["ref"]
+        px = sum(line[k]["px"] for k in drm.BANDS)
+        check(px <= mab.sum() and px + neither.sum() == mab.sum(),
+              f"diag_ref_mode frame {i}: bands {px} px + neither {int(neither.sum())} px against "
+              f"mask_at_box {int(mab.sum())}")
+        gt = np.asarray(b["tar_img"], np.float32)
+        gt = (gt / 255.0 if gt.max() > 1.5 else gt) * mab[..., None]
+        for m in outs:
+            err = ((outs[m][i][0] - gt) ** 2).sum(-1)
+            frame_sse, neither_sse = float(err[mab].sum()), float(err[neither].sum())
+            bands_sse = sum(line[k][f"sse_{m}"] for k in drm.BANDS)
+            gap = abs(bands_sse + neither_sse - frame_sse)
+            log(f"# diag_ref_mode frame {i} {m}: bands {bands_sse:.4f} + neither {neither_sse:.4f} "
+                f"against the frame's {frame_sse:.4f} over mask_at_box (gap {gap:.3e})")
+            check(gap <= 1e-4 * frame_sse, f"diag_ref_mode frame {i} {m}: SSE gap {gap}")
+
+    # diag_ref_points: the reference frame's P, seven positive times
+    out, counts = run_tool("diag_ref_points_torch.py", ["tools/diag_ref_points_torch.py", "2"])
+    add(counts)
+    res = json.loads([x for x in out.splitlines() if x.startswith("{")][-1])
+    t = drp.ref_cfg().tpu
+    want_p = t.samples_per_ray * t.ray_cap if t.dense_slots else t.sigma_cap
+    ops = {"octet_query", "octet_l1_only", "coarse_nearest_only", "proj_quad_current",
+           "proj_rgb_only", "proj_feat_only", "heads_op_by_op"}
+    check(res["P"] == want_p and set(res["ms"]) == ops and all(v > 0 for v in res["ms"].values()),
+          f"diag_ref_points_torch.py: {res} (P {want_p} wanted)")
+
+    # trace_demo: kernel 1 among the top rows
+    out, counts = run_tool("trace_demo_torch.py", [
+        "-c", "import sys; sys.path.insert(0, 'tools'); import trace_demo_torch; "
+        "trace_demo_torch.main(sys.argv[1:], n_frames=2)", CKPT, "40"])
+    add(counts)
+    top = out.split("   busy ")[0]
+    check("point_stages_kernel" in top, "trace_demo_torch.py: kernel 1 not among the top rows")
+    return launches
 
 
 def bench_phase(card):
@@ -2665,10 +2761,15 @@ def main():
     tools_phase(card)
     torch.cuda.empty_cache()
     dp_phase(card, f32["s_per_it"])
+    by_name = {k["name"]: k for k in kernels}
+
+    # ---- phase 7d: the diagnostic tools, each a process of its own ----
+    torch.cuda.empty_cache()
+    for name, count in diag_tools_phase(card).items():
+        by_name[name]["launches"] += count
 
     # ---- phase 8: the port's bench, a process of its own ----
     torch.cuda.empty_cache()
-    by_name = {k["name"]: k for k in kernels}
     bench_launches, fast_line = bench_phase(card)
     for launches in bench_launches.values():  # the fused modes: kernel 1's forms
         for form, count in launches.items():

@@ -8,6 +8,8 @@ metric logger's peak device memory. Here:
     synchronizes the devices of the CUDA tensors it is given, so their
     work is charged to the stage that queued it;
   * `trace`: a `torch.profiler` context that writes a Chrome trace;
+  * `kernel_table`: a finished profile's time by kernel, largest first
+    (tools/trace_demo_torch.py, chip_smoke.py `profile_render`);
   * `device_memory_stats`: the caching allocator's live and peak bytes and
     the card's capacity.
 """
@@ -51,6 +53,22 @@ def trace(log_dir="gpnerf_trace"):
     with torch.profiler.profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}.json"))
+
+
+def kernel_table(prof, device_type="cuda"):
+    """[(name, total ms, launches)] of a finished `torch.profiler` run,
+    largest time first: on a card the device-side events (each kernel by
+    its own device time, no host op); on the CPU, which has no device
+    events, each op by its self CPU time."""
+    from torch.autograd import DeviceType
+
+    if device_type == "cuda":
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    else:
+        rows = [(e.key, e.self_cpu_time_total / 1e3, e.count) for e in prof.key_averages()
+                if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0]
+    return sorted(rows, key=lambda r: -r[1])
 
 
 def device_memory_stats(device=None):

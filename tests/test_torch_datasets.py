@@ -11,6 +11,7 @@ test_synthetic_neg_ray_camera_conversion)."""
 
 import os
 import random
+import time
 
 import numpy as np
 import pytest
@@ -28,22 +29,48 @@ from gpnerf_tpu_torch.utils.bench_frames import get_bench_frames
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 
-@pytest.fixture(scope="module", autouse=True)
-def same_host_kernels():
-    """Both packages take the same route through their host kernels
-    (native/gpnerf_host.cpp via ctypes, else numpy), whose results differ in
-    the last bits (ray near/far) or more (the synthetic scene's z-splat).
+def restore_host_kernels(tries=10, wait_s=1.0):
+    """Retry a failed load of the JAX package's host library until it loads
+    or `tries` retries have passed, then require both packages to take the
+    same route through their host kernels (native/gpnerf_host.cpp via
+    ctypes, else numpy), whose results differ in the last bits (ray
+    near/far) or more (the synthetic scene's z-splat).
 
     The JAX package builds its library in place on first use, and the test
     workers collect tests/test_native.py together, so in a fresh checkout
     several processes build it at once: one may load a half-written file,
     take numpy for the rest of its life, and then compare numpy batches with
-    the port's native ones. Such a failed load is retried here, once the
-    concurrent builds are done (the port builds under a name of its own and
-    renames it into place, gpnerf_tpu_torch/native.py)."""
-    if not jax_native.available():
+    the port's native ones. Such a failed load is retried here, a second
+    apart while a concurrent build may still be writing (the port builds
+    under a name of its own and renames it into place,
+    gpnerf_tpu_torch/native.py, so its load does not fail that way); with
+    no toolchain neither package loads and both take numpy."""
+    for attempt in range(tries):
+        if jax_native.available() or not port_native.available():
+            break
+        if attempt:
+            time.sleep(wait_s)
         jax_native._tried = False
     assert jax_native.available() == port_native.available()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def same_host_kernels():
+    """Every test file that compares a batch the port's host code built
+    with one the JAX package built imports this fixture:
+    `restore_host_kernels` before its first test."""
+    restore_host_kernels()
+
+
+def test_guard_restores_a_failed_native_load(monkeypatch):
+    """A worker that loaded a half-written library is left with `_tried`
+    set and no library; the guard loads it again."""
+    assert port_native.available()
+    monkeypatch.setattr(jax_native, "_tried", True)
+    monkeypatch.setattr(jax_native, "_lib", None)
+    assert not jax_native.available()
+    restore_host_kernels()
+    assert jax_native._lib is not None and jax_native.available()
 
 
 def _zju_cfg(base, root, **extra):

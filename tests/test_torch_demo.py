@@ -24,6 +24,7 @@ from gpnerf_tpu_torch.ops import point_stages as ps
 from gpnerf_tpu_torch.registry import get as port_get
 from gpnerf_tpu_torch.render.base import batch_to_device
 from gpnerf_tpu_torch.train.checkpoint import load_eval_model
+from test_torch_datasets import same_host_kernels  # noqa: F401  (autouse: host-kernel route)
 
 CKPT = os.path.join(os.path.dirname(__file__), "..", "artifacts", "bench_ckpt.pth")
 H = W = 128

@@ -32,6 +32,7 @@ from gpnerf_tpu_torch.config import cfg as port_cfg
 from gpnerf_tpu_torch.registry import get as port_get
 from gpnerf_tpu_torch.train.checkpoint import load_eval_model
 from gpnerf_tpu_torch.utils import bench_frames, profiling
+from test_torch_datasets import same_host_kernels  # noqa: F401  (autouse: host-kernel route)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 CKPT = os.path.join(ROOT, "artifacts", "bench_ckpt.pth")
