@@ -1,0 +1,5 @@
+"""CUDA kernel launches per optimizer step in the traced window."""
+
+
+def read(ctx):
+    return ctx.trace.launches / ctx.trace.units if ctx.trace.units else None
