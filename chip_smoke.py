@@ -157,7 +157,8 @@ Phases, each fatal on failure:
   7. the checkpoint with spconv 2.x's sparse weight layout, loaded onto the
      card strict and as a resume, bitwise the 1.2.1 file's state; the tools:
      tools/quality_sweep_torch.py's sweep over the 3 bench frames (every
-     key, >= 20 dB), StageTimer and device_memory_stats, and
+     key, >= 20 dB), one profiled request of bench frame 0 holding every
+     render span and counter of utils/profiling.py, device_memory_stats, and
      tools/profile_demo_torch.py --async in a process of its own; data
      parallelism in two processes (this script with --dp-worker; NCCL, one
      rank per card, on a box of two cards or more, else gloo with both ranks
@@ -1273,17 +1274,21 @@ def layout_phase():
 def tools_phase(card):
     """Phase 7b: the quality and profiling tools on the card:
     tools/quality_sweep_torch.py's `sweep` over the 3 bench frames (every
-    key of its lines, each frame >= 20 dB), utils/profiling.StageTimer over
-    one render's stages (each positive), device_memory_stats (live and peak
+    key of its lines, each frame >= 20 dB), one profiled request of bench
+    frame 0 (upload, render, download) whose trace holds each render span of
+    utils/profiling.py and whose counters are all positive,
+    device_memory_stats (live and peak
     bytes nonzero), and tools/profile_demo_torch.py --async in a process of
     its own (exit 0)."""
     import io
 
     import torch
 
-    from gpnerf_tpu_torch.render.base import batch_to_device, src_norm
+    from gpnerf_tpu_torch.render.base import batch_to_device
+    from gpnerf_tpu_torch.render.demo import pred_img_hwc
+    from gpnerf_tpu_torch.utils import profiling
     from gpnerf_tpu_torch.utils.bench_frames import get_bench_frames
-    from gpnerf_tpu_torch.utils.profiling import StageTimer, device_memory_stats
+    from gpnerf_tpu_torch.utils.profiling import device_memory_stats
 
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     import quality_sweep_torch
@@ -1301,23 +1306,26 @@ def tools_phase(card):
                            "overrides"}, "quality sweep: summary keys")
     check(summary["psnr_min"] >= 20.0, f"quality sweep: PSNR {summary['psnr_min']} < 20 dB")
 
-    timer = StageTimer()
-    b = batch_to_device(host[0], dev)
-    with torch.no_grad():
-        render.render_demo_fn()(b)
+    fn = render.render_demo_fn()
+    pred_img_hwc(fn(batch_to_device(host[0], dev)))
+    profiling.reset_counters()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        pred_img_hwc(fn(batch_to_device(host[0], dev)))
         torch.cuda.synchronize()
-        timer.start()
-        feats = render.encoder(src_norm(b["src_imgs"]))
-        timer.stop("etime", feats)
-        pre, tables, rd = render._frame_stage(b, feats)
-        timer.stop("frame_stage", rd["rays_o"])
-        rgb, _ = render._ray_pipeline(b, pre, tables, rd)
-        timer.stop("ray_pipeline", rgb)
-    slots = {k: round(v * 1e3, 3) for k, v in timer.time_slots.items()}
+    seen = {e.key: e.count for e in prof.key_averages()}
+    names = ("gpnerf.upload", "gpnerf.render", "gpnerf.encoder", "gpnerf.frame_stage",
+             "gpnerf.ray_pipeline", "gpnerf.point_stages", "gpnerf.assemble", "gpnerf.download")
+    spans = {n: seen.get(n, 0) for n in names}
+    counts = profiling.counters()
+    profiling.reset_counters()
     mem = device_memory_stats()
-    log(f"# StageTimer on {card}, bench frame 0 (ms): {json.dumps(slots)}; device_memory_stats: "
-        f"{json.dumps(mem)}")
-    check(len(slots) == 3 and all(v > 0 for v in slots.values()), f"StageTimer: {slots}")
+    log(f"# profiled request on {card}, bench frame 0: spans {json.dumps(spans)}; counters "
+        f"{json.dumps(counts)}; device_memory_stats: {json.dumps(mem)}")
+    check(all(v >= 1 for v in spans.values()), f"render spans: {spans}")
+    check(set(counts) == {"renders", "upload_bytes", "point_slots", "colored_points"}
+          and counts["renders"] == 1 and all(v > 0 for v in counts.values()),
+          f"counters: {counts}")
     check(mem.get("bytes_in_use", 0) > 0 and mem.get("peak_bytes_in_use", 0) > 0
           and mem.get("bytes_limit", 0) > 0, f"device_memory_stats: {mem}")
 

@@ -61,13 +61,17 @@ from gpnerf_tpu_torch.ops.sparse_conv import (
 )
 from gpnerf_tpu_torch.registry import get, register
 from gpnerf_tpu_torch.utils.mesh_io import Trimesh
+from gpnerf_tpu_torch.utils.profiling import count, span
 
 
+@span("gpnerf.upload")
 def batch_to_device(batch, device):
     """Host batch dict (numpy, from data/) -> tensors on `device`. Integer
     rulebooks (int16 on the host) become int64 index tensors with -1 kept
-    as "absent"; `out_sh` stays a host array (it sizes per-frame buffers)."""
+    as "absent"; `out_sh` stays a host array (it sizes per-frame buffers).
+    Counts the bytes copied as `upload_bytes`."""
     out = {}
+    nbytes = 0
     for k, v in batch.items():
         if k == "out_sh":
             out[k] = np.asarray(v)
@@ -77,7 +81,9 @@ def batch_to_device(batch, device):
             k.startswith("lvl") or k == "vertex_rows"
         ):
             a = a.astype(np.int64)
+        nbytes += a.nbytes
         out[k] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    count("upload_bytes", nbytes)
     return out
 
 

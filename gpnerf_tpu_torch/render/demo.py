@@ -168,6 +168,7 @@ from gpnerf_tpu_torch.render.base import (
     prepare_frame,
     src_norm,
 )
+from gpnerf_tpu_torch.utils.profiling import count, span
 
 # The geometry-table switches (`Renderer._geometry_tables`); `build_render`
 # hands them to the constructor by name.
@@ -192,6 +193,7 @@ OCCUPANCY_THRESHOLD = 0.1
 _ZFAR = 1e9
 
 
+@span("gpnerf.download")
 def pred_img_hwc(ret):
     """Host-side (H, W, 3) numpy image of a render dict (`pred_img`, or the
     channel planes `pred_chw`)."""
@@ -443,6 +445,7 @@ class Renderer(nn.Module):
         `encode_fn`: the encoder alone, which `render` times as `etime`)."""
         return self._encode
 
+    @span("gpnerf.encoder")
     @torch.no_grad()
     def _encode(self, src_imgs):
         return self.encoder(src_norm(src_imgs))
@@ -451,8 +454,10 @@ class Renderer(nn.Module):
         """batch (render/base.batch_to_device) -> render dict."""
         return self.render_demo
 
+    @span("gpnerf.render")
     @torch.no_grad()
     def render_demo(self, batch):
+        count("renders", 1)
         return self._demo_impl(batch, self._encode(batch["src_imgs"]))
 
     @torch.no_grad()
@@ -512,6 +517,7 @@ class Renderer(nn.Module):
             return None
         return self._assemble(batch, rd, *out)
 
+    @span("gpnerf.assemble")
     def _assemble(self, batch, rd, rgb_map, stats):
         """The render dict: the ray colors scattered into the image, the
         overflow counters and counts. `rd` holds the frame's `ray_ok`,
@@ -825,6 +831,7 @@ class Renderer(nn.Module):
             scales.append(sc)
         return {"octet_vols": octet_vols, "octet_scales": scales, "folded": self.fold_coarse_fc}
 
+    @span("gpnerf.frame_stage")
     def _frame_stage(self, batch, featmaps, stop_stage=None):
         """Volume, occupancy, gather tables, AABB of the occupied voxels,
         splats, rays and near/far. Returns (pre, tables, rays), or None
@@ -1041,6 +1048,7 @@ class Renderer(nn.Module):
         s_lo = torch.floor((zmin - margin - near) / dz).long()
         return torch.where(zmin > 1e8, 0, s_lo.clamp(0, S - W))
 
+    @span("gpnerf.ray_pipeline")
     def _ray_pipeline(self, batch, pre, tables, rd, stop_stage=None):
         """Sample cull (splat bins, or the occupancy tap over the window or
         every sample), per-ray K-slot compaction over the (K, R) slot frame
@@ -1153,8 +1161,11 @@ class Renderer(nn.Module):
             "n_sigma": sig_ok.sum() if n_sigma is None else n_sigma,
             "n_rgb": (alpha > 1e-14).sum(),
         }
+        count("point_slots", pts_c.shape[0])
+        count("colored_points", stats["n_rgb"])
         return rgb_map, stats
 
+    @span("gpnerf.point_stages")
     def _point_stages(self, batch, pre, tables, pts_c, dhw_c, sig_ok, mask_from_query,
                       stop_stage=None):
         """Projection gather, density and color of the P frame points:

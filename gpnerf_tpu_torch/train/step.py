@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from gpnerf_tpu_torch.train.lr import exponential_epoch_schedule
+from gpnerf_tpu_torch.utils.profiling import span
 
 
 def make_optimizer(model, cfg):
@@ -34,15 +35,18 @@ def forward_backward(render, criterion, optimizer, batch, generator=None, t_rand
     (metrics, render dict): the metrics of the JAX step, each loss term,
     `loss` and `overflow` (the pyramid's largest overflow count), as 0-d
     tensors on the batch's device."""
-    optimizer.zero_grad()
-    ret = render.render_train(batch, generator=generator, t_rand=t_rand)
-    loss_dict = criterion(ret, batch, is_train=True)
-    total = sum(loss_dict.values())
-    total.backward()
-    for group in optimizer.param_groups:
-        for p in group["params"]:
-            if p.grad is None:  # reached by no output: JAX's gradient is 0
-                p.grad = torch.zeros_like(p)
+    with span("gpnerf.train.forward"):
+        optimizer.zero_grad()
+        ret = render.render_train(batch, generator=generator, t_rand=t_rand)
+    with span("gpnerf.train.loss"):
+        loss_dict = criterion(ret, batch, is_train=True)
+        total = sum(loss_dict.values())
+    with span("gpnerf.train.backward"):
+        total.backward()
+        for group in optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:  # reached by no output: JAX's gradient is 0
+                    p.grad = torch.zeros_like(p)
     metrics = {k: v.detach() for k, v in loss_dict.items()}
     metrics["loss"] = total.detach()
     metrics["overflow"] = ret["overflows"].max()
@@ -53,6 +57,7 @@ def train_step(render, criterion, optimizer, scheduler, batch, generator=None, t
     """One optimizer step on one frame: `forward_backward`, then the AdamW
     and schedule steps. Returns its (metrics, render dict)."""
     metrics, ret = forward_backward(render, criterion, optimizer, batch, generator, t_rand)
-    optimizer.step()
-    scheduler.step()
+    with span("gpnerf.train.optimizer"):
+        optimizer.step()
+        scheduler.step()
     return metrics, ret

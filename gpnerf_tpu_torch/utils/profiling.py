@@ -4,9 +4,22 @@ The reference's instrumentation is per-stage wall timing in the demo
 renderer (`time_slots`, a CUDA synchronize before each reading) and the
 metric logger's peak device memory. Here:
 
-  * `StageTimer`: wall timing with the same `time_slots` dict; `stop`
-    synchronizes the devices of the CUDA tensors it is given, so their
-    work is charged to the stage that queued it;
+  * `span`: a named range of the program (context manager or decorator)
+    over `torch.profiler.record_function`, entered only while a profiler
+    records, so it lands in the profiler's trace beside the kernels it
+    launches; off, it costs one flag check. The port's spans, each named
+    `gpnerf.<layer>`: `gpnerf.upload` (render/base.py `batch_to_device`),
+    `gpnerf.render` (render/demo.py `Renderer.render_demo`) around
+    `gpnerf.encoder`, `gpnerf.frame_stage`, `gpnerf.ray_pipeline` (around
+    `gpnerf.point_stages`) and `gpnerf.assemble`, `gpnerf.download`
+    (`pred_img_hwc`), and train/step.py's `gpnerf.train.forward`,
+    `gpnerf.train.loss`, `gpnerf.train.backward`,
+    `gpnerf.train.optimizer`;
+  * `count` / `counters` / `reset_counters`: a process-wide registry of
+    named sums, recorded only while a profiler records: `renders`,
+    `upload_bytes`, `point_slots` (host numbers) and `colored_points` (a
+    0-d device tensor kept by reference and summed when `counters` is
+    read, so counting adds no launch and no sync);
   * `trace`: a `torch.profiler` context that writes a Chrome trace;
   * `kernel_table`: a finished profile's time by kernel, largest first
     (tools/trace_demo_torch.py, chip_smoke.py `profile_render`);
@@ -17,29 +30,85 @@ metric logger's peak device memory. Here:
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
-import time
+import threading
 
 import torch
 
 
-class StageTimer:
-    """Accumulates named stage durations in seconds (`time_slots`)."""
+def recording():
+    """Whether a torch profiler is recording (the flag it sets on start
+    and clears on stop)."""
+    return torch.autograd.profiler._is_profiler_enabled
 
-    def __init__(self):
-        self.time_slots = {}
-        self._t0 = None
 
-    def start(self):
-        self._t0 = time.time()
+class span:
+    """`with span(name):` or `@span(name)`: the range `name` in the
+    profiler's trace while one records; nothing otherwise. Spans on one
+    thread nest as the calls do."""
 
-    def stop(self, name, *sync_on):
-        """Charge the time since the last start/stop to `name`, after the
-        devices of the CUDA tensors in `sync_on` finish their work."""
-        for dev in {x.device for x in sync_on if isinstance(x, torch.Tensor) and x.is_cuda}:
-            torch.cuda.synchronize(dev)
-        self.time_slots[name] = self.time_slots.get(name, 0.0) + (time.time() - self._t0)
-        self._t0 = time.time()
+    __slots__ = ("name", "_rf")
+
+    def __init__(self, name):
+        self.name = name
+        self._rf = None
+
+    def __enter__(self):
+        if recording():
+            self._rf = torch.profiler.record_function(self.name)
+            self._rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        rf, self._rf = self._rf, None
+        if rf is not None:
+            rf.__exit__(*exc)
+        return False
+
+    def __call__(self, fn):
+        name = self.name
+
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            if not recording():
+                return fn(*args, **kwargs)
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+
+        return wrapped
+
+
+_counts = {}  # name -> [host sum, [0-d device tensors]]
+_counts_lock = threading.Lock()
+
+
+def count(name, value):
+    """Add `value` to the counter `name` while a profiler records: a host
+    number is added, a tensor (0-d, on any device) is kept and summed when
+    `counters` is read."""
+    if not recording():
+        return
+    with _counts_lock:
+        slot = _counts.setdefault(name, [0, []])
+        if isinstance(value, torch.Tensor):
+            slot[1].append(value.detach())
+        else:
+            slot[0] += value
+
+
+def counters():
+    """{name: total} of every counter recorded since the last
+    `reset_counters` (reading the kept tensors waits for their device)."""
+    with _counts_lock:
+        items = [(k, h, list(ts)) for k, (h, ts) in _counts.items()]
+    return {k: h + sum(t.item() for t in ts) for k, h, ts in items}
+
+
+def reset_counters():
+    """Forget every counter."""
+    with _counts_lock:
+        _counts.clear()
 
 
 @contextlib.contextmanager

@@ -145,20 +145,6 @@ def test_bench_frames_cache(synthetic_frames, capsys):
     assert os.path.realpath(bench_frames.CACHE_ROOT) != os.path.realpath(jax_root)
 
 
-def test_stage_timer_accumulates():
-    t = profiling.StageTimer()
-    t.start()
-    x = torch.ones(64, 64) @ torch.ones(64, 64)
-    t.stop("a", x)
-    t.stop("b")
-    t.stop("a", x, "not a tensor")
-    assert set(t.time_slots) == {"a", "b"}
-    assert all(v >= 0.0 for v in t.time_slots.values())
-    first = t.time_slots["a"]
-    t.stop("a")
-    assert t.time_slots["a"] >= first
-
-
 def test_trace_writes_a_trace(tmp_path):
     with profiling.trace(str(tmp_path / "tr")) as prof:
         torch.ones(32, 32).sum()
