@@ -395,22 +395,23 @@ def reachable_kernel_keys():
 
 
 def build_point_keys(keys, jobs=32):
-    """Build every key's library from csrc/point_stages.cu, `jobs` nvcc
-    processes at a time, and load them; returns the seconds taken."""
+    """Build every key's libraries from csrc/point_stages.cu, the rows entry
+    and the tables entry (`fetch`), `jobs` nvcc processes at a time, and
+    load them; returns the seconds taken."""
     from gpnerf_tpu_torch.ops import point_stages as ps
 
     t0 = time.perf_counter()
-    todo, running = list(keys), []
+    todo, running = [(k, f) for k in keys for f in (False, True)], []
     while todo or running:
         while todo and len(running) < jobs:
-            key = todo.pop(0)
-            running.append((key, ps.start_build(key)))
-        done = [(k, p) for k, p in running if p is None or p.poll() is not None]
+            key, fetch = todo.pop(0)
+            running.append((key, fetch, ps.start_build(key, fetch)))
+        done = [(k, f, p) for k, f, p in running if p is None or p.poll() is not None]
         if not done:
             time.sleep(0.05)
-        for k, p in done:
-            running.remove((k, p))
-            ps.load_library(k, p)
+        for k, f, p in done:
+            running.remove((k, f, p))
+            ps.load_library(k, p, fetch=f)
     return time.perf_counter() - t0
 
 
@@ -424,10 +425,18 @@ def log_builds(keys):
     for key in keys:
         name = ps.form_name(key)
         entry = {"ptxas": [line.strip() for line in ps.BUILD_LOG.get(key, {}).get("output", "")
-                           .splitlines() if "registers" in line or "spill" in line]}
+                           .splitlines() if "registers" in line or "spill" in line],
+                 "ptxas_tables_entry": [
+                     line.strip() for line in ps.BUILD_LOG.get((key, True), {}).get("output", "")
+                     .splitlines() if "registers" in line or "spill" in line]}
         entry["blocks_per_sm"], entry["smem_bytes"], entry["threads"] = ps.occupancy(key)
         for line in entry["ptxas"]:
             log(f"#   ptxas [{name}] {line}")
+        for line in entry["ptxas_tables_entry"]:
+            log(f"#   ptxas [{name}, tables entry] {line}")
+        check(ps.occupancy(key, fetch=True) == (entry["blocks_per_sm"], entry["smem_bytes"],
+                                                 entry["threads"]),
+              f"point_stages[{name}]: the tables entry's occupancy differs from the rows entry's")
         log(f"#   occupancy [{name}] {entry['blocks_per_sm']} block(s) per SM of "
             f"{entry['threads']} threads, {entry['smem_bytes']} bytes of dynamic shared memory "
             "per block")
@@ -1276,7 +1285,8 @@ def tools_phase(card):
     tools/quality_sweep_torch.py's `sweep` over the 3 bench frames (every
     key of its lines, each frame >= 20 dB), one profiled request of bench
     frame 0 (upload, render, download) whose trace holds each render span of
-    utils/profiling.py and whose counters are all positive,
+    utils/profiling.py and whose counters are all positive, the kernel
+    fetching the rows of every point slot,
     device_memory_stats (live and peak
     bytes nonzero), and tools/profile_demo_torch.py --async in a process of
     its own (exit 0)."""
@@ -1323,8 +1333,10 @@ def tools_phase(card):
     log(f"# profiled request on {card}, bench frame 0: spans {json.dumps(spans)}; counters "
         f"{json.dumps(counts)}; device_memory_stats: {json.dumps(mem)}")
     check(all(v >= 1 for v in spans.values()), f"render spans: {spans}")
-    check(set(counts) == {"renders", "upload_bytes", "point_slots", "colored_points"}
-          and counts["renders"] == 1 and all(v > 0 for v in counts.values()),
+    check(set(counts) == {"renders", "upload_bytes", "point_slots", "kernel_fetched_slots",
+                          "colored_points"}
+          and counts["renders"] == 1 and all(v > 0 for v in counts.values())
+          and counts["kernel_fetched_slots"] == counts["point_slots"],
           f"counters: {counts}")
     check(mem.get("bytes_in_use", 0) > 0 and mem.get("peak_bytes_in_use", 0) > 0
           and mem.get("bytes_limit", 0) > 0, f"device_memory_stats: {mem}")
@@ -2114,17 +2126,17 @@ def main():
         batches, host = frames or (pos_batches, pos_host)
         fn = render.render_demo_fn()
         captured = []
-        real = demo_mod.fused_point_stages_tabs
+        real = demo_mod.fused_point_stages_from_tables
 
-        def capture(tabs, feats, vmask, sig_ok, weights, **kw):
-            captured.append((tabs, feats, vmask, sig_ok.to(torch.uint8), weights, kw))
-            return real(tabs, feats, vmask, sig_ok, weights, **kw)
+        def capture(*a, **kw):
+            captured.append((a, kw))
+            return real(*a, **kw)
 
-        demo_mod.fused_point_stages_tabs = capture
+        demo_mod.fused_point_stages_from_tables = capture
         try:
             fn(batches[0])  # warm (allocator) and capture the kernel's inputs
         finally:
-            demo_mod.fused_point_stages_tabs = real
+            demo_mod.fused_point_stages_from_tables = real
         torch.cuda.synchronize()
 
         ps.LAUNCHES.clear()
@@ -2152,14 +2164,29 @@ def main():
         frame_out[title] = [(r["pred_chw"], r["overflows"].tolist(), r["counts"].tolist())
                             for r in rets]
 
-        # kernel vs plain on the inputs captured from frame 0, then timings
-        call = captured[0]
-        tabs, feats, vmask, sig_ok, weights, kw = call
+        # kernel vs plain on the inputs captured from frame 0, then timings:
+        # the tables entry the render launches, and the rows entry on the
+        # rows gathered from the same tables
+        t_args, t_kw = captured[0]
+        t_args = (*t_args[:4], t_args[4].to(torch.uint8), *t_args[5:])
+        (tabs, feats, vmask, sig_ok), kw = ps.gather_from_tables(*t_args[:5], **t_kw)
+        weights = t_args[5]
+        call = (tabs, feats, vmask, sig_ok, weights, kw)
         P = vmask.shape[-1]
-        k_out = ps.fused_point_stages_tabs(tabs, feats, vmask, sig_ok, weights, **kw)
+        plain = plain_in_chunks(call)
+        t_out = ps.fused_point_stages_from_tables(*t_args, **t_kw)
         torch.cuda.synchronize()
         stats = compare_point_stages(
-            k_out, plain_in_chunks(call), f"point_stages[{form_name}] vs plain, {title} frame 0 inputs, P={P}")
+            t_out, plain, f"point_stages[{form_name}] tables entry vs plain, {title} frame 0 inputs, P={P}")
+        k_out = ps.fused_point_stages_tabs(tabs, feats, vmask, sig_ok, weights, **kw)
+        torch.cuda.synchronize()
+        compare_point_stages(
+            k_out, plain, f"point_stages[{form_name}] rows entry vs plain, {title} frame 0 inputs, P={P}")
+        same = [float((t == k).all(dim=-1).float().mean()) if t.dim() > 1 else float((t == k).float().mean())
+                for t, k in zip(t_out, k_out)]
+        log(f"# point_stages[{form_name}], {title} frame 0: tables entry equal to the rows entry "
+            f"(alpha, rgb[, occm]) at {', '.join(f'{x:.6f}' for x in same)} of the points")
+        del plain, t_out, k_out
         n = n_frames
         it = iter(range(10**9))
         # each rep renders the next of the distinct frames
@@ -2172,11 +2199,15 @@ def main():
                 batches[next(it) % n], render.encoder(src_norm(batches[next(it) % n]["src_imgs"]))), 3 * n)
             line += (f", encoder {enc_ms:.3f} ms, frame stage {upto_ms - enc_ms:.3f} ms, ray pipeline "
                      f"+ image {frame_ms - upto_ms:.3f} ms (stage-prefix differences of CUDA-event means)")
-        kern_ms = cuda_ms(lambda: ps.fused_point_stages_tabs(tabs, feats, vmask, sig_ok, weights, **kw),
-                          20 if P < 10**6 else 5)
+        reps = 20 if P < 10**6 else 5
+        kern_ms = cuda_ms(lambda: ps.fused_point_stages_from_tables(*t_args, **t_kw), reps)
+        rows_ms = cuda_ms(lambda: ps.fused_point_stages_tabs(tabs, feats, vmask, sig_ok, weights, **kw),
+                          reps)
+        gather_ms = cuda_ms(lambda: ps.gather_from_tables(*t_args[:5], **t_kw), reps)
         plain_ms = cuda_ms(lambda: plain_in_chunks(call), 5 if P < 10**6 else 1)
         nbytes, bound_ms, bound_by = point_stage_cost(call)
-        log(line + f"; point_stages[{form_name}] kernel {kern_ms:.3f} ms at P={P}, plain {plain_ms:.3f} ms, "
+        log(line + f"; point_stages[{form_name}] tables entry {kern_ms:.3f} ms at P={P}, rows entry "
+            f"{rows_ms:.3f} ms after a gather of {gather_ms:.3f} ms, plain {plain_ms:.3f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), "
             f"mean PSNR {sum(psnrs) / len(psnrs):.3f} dB")
         if profile and stages:
@@ -2194,6 +2225,8 @@ def main():
             "launches": launches[form_name],
             "max_abs_err": max(stats["max_abs_d_alpha"], stats["max_abs_d_rgb"]),
             "ms": kern_ms,
+            "rows_entry_ms": rows_ms,
+            "gather_ms": gather_ms,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,

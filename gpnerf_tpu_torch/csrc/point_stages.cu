@@ -42,7 +42,27 @@
 //               0, 32 channels) is <= 0 (the trilinear occupancy), and that
 //               0/1 verdict is written to a third output. All terms of the
 //               sum are non-negative, so the verdict does not depend on the
-//               order of the sum.
+//               order of the sum;
+//   PS_FETCH 1  the tables entry (fused_point_stages_from_tables): each
+//               thread fetches its own rows. Instead of gathered rows, tap
+//               weights and a view mask it takes the point (world and dhw
+//               voxel coordinates), the cameras KE (V, 4, 4) and the tables
+//               themselves: each projection quad table (V, Ht+1, Wt+1, 4Ct)
+//               flat, each geometry table's flat rows with its row strides
+//               and valid extent (`Fetch`). Per view it projects the point,
+//               normalises the pixel, and per projection table computes the
+//               quad row and the 4 tap weights with the in-bounds masks
+//               folded in, and the view mask (ops/projection.py
+//               compute_projections, normalize_pixels, inbound_mask;
+//               ops/grid_sample.py _quad_base, _quad_tap_weights); per
+//               geometry table the octet row and its 8 corner weights or the
+//               nearest row and its weight, zeros outside the extent
+//               (octet_rows_and_weights, nearest_row_and_weight). Float32 in
+//               the torch code's order of operations, each rounding explicit
+//               (the projection's sum over j = 0..3 in order, fused
+//               multiply-adds as the card's float32 matrix product), integer
+//               indices in 64 bits, row offsets in size_t. The (P, F)
+//               feature input of form (b) is read by point as before.
 // Float rows are rounded to bf16 before the tap sum, as the TPU kernel casts
 // every row (pallas_point.py _to_bf16); bf16 rows are used as they are.
 //
@@ -80,6 +100,11 @@
 //     with int4 rows 709 bytes -> 2.6 GB, 0.78 ms; with the (P, 96) feature
 //     input 929 bytes; bf16 feature rows 1,285, float32 ones 2,053; bf16
 //     source rows 937, float32 ones 1,009.
+//   the tables entry reads no tap weight and no view mask, and 24 bytes of
+//     point coordinates: 781 bytes per point in forms (a) and (c) at the
+//     default geometry, counting each row once per point that fetches it
+//     (neighbouring points share quad and octet rows, so the table bytes
+//     read from HBM are fewer).
 // About 1.1e5 flop per point: 35 us (fast shape) and 0.40 ms (reference
 // shape) at the 989 TFLOP/s bf16 tensor-core rate. So every form's bound is
 // its bytes once the MLPs run on tensor cores, which they do here; the
@@ -170,6 +195,9 @@ namespace {
 #ifndef PS_V
 #define PS_V 3
 #endif
+#ifndef PS_FETCH
+#define PS_FETCH 0
+#endif
 
 namespace wmma = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
@@ -178,6 +206,7 @@ enum Row { NONE = 0, I8 = 1, U8 = 2, I4 = 3, BF16 = 4, F32 = 5, FEAT = 6, FEAT_B
 
 constexpr int V = PS_V;  // source views
 static_assert(V >= 1 && V <= 8, "1 to 8 source views");
+constexpr bool FETCH = PS_FETCH != 0;  // the tables entry: rows fetched in the kernel
 constexpr int CS = 3;    // source rgb channels
 constexpr int CF = 32;   // encoder feature channels
 constexpr int C = CS + CF;  // [rgb | feat] channels, merged or concatenated
@@ -353,7 +382,24 @@ __device__ __forceinline__ float snibble(uint32_t word, int n) {
   return static_cast<float>(static_cast<int>(((word >> (4 * n)) & 0xfu) ^ 8u) - 8);
 }
 
+// What the tables entry (PS_FETCH) fetches from, beside the tables: the
+// points, the cameras and every table's grid. Filled on the host (the
+// wrapper's ctypes structure of the same layout) and passed by value.
+struct Fetch {
+  const float* pts;  // (P, 3) world points
+  const float* dhw;  // (P, 3) the same in level-0 voxel units, d h w
+  const float* ke;   // (V, 4, 4) the source cameras, K [R | t]
+  int neg;           // THuman's convention: in front where the depth is < 0
+  int src_h, src_w;  // the source images' size, the pixel frame of ke
+  int quad_h[2], quad_w[2];  // each projection table's grid (Ht, Wt)
+  int out_sh[3];             // the frame's level-0 extent
+  int geo_dims[4][3];        // each geometry table's row strides (Dp, Hp, Wp) or (D, H, W)
+  int geo_size[4][3];        // each geometry table's valid extent
+};
+
 // Device pointers of one launch; tables a form does not read are null.
+// The tables entry passes the tables' flat rows as rows_a, rows_b and
+// g_rows, and no tap weights or view mask.
 struct Args {
   const uint8_t* rows_a;  // the merged rows, or the source rgb rows
   const float* w4_a;
@@ -370,7 +416,122 @@ struct Args {
   float* alpha_out;
   float* rgb_out;
   float* occm_out;
+  Fetch f;
 };
+
+static_assert(!FETCH || FEATS || ((NG < 1 || GEO[0].taps == 8 || GEO[0].taps == 1) &&
+                                  (NG < 2 || GEO[1].taps == 8 || GEO[1].taps == 1) &&
+                                  (NG < 3 || GEO[2].taps == 8 || GEO[2].taps == 1) &&
+                                  (NG < 4 || GEO[3].taps == 8 || GEO[3].taps == 1)),
+              "the tables entry fetches octet (8 taps) and nearest (1 tap) rows");
+
+// The point's pixel in view v (ops/projection.py compute_projections and
+// normalize_pixels): proj = KE[v] [x y z 1]^T summed over j = 0..3 in order
+// as fused multiply-adds from the first product, as the card's float32
+// matrix product (cuBLAS) evaluates the einsum, the pixel proj[:2] /
+// proj[2] clamped to +-1e6 (NaN kept, as torch's clamp keeps it),
+// normalised to [-1, 1] by the source size; vm the view mask (in bounds of
+// the source image and in front of the camera).
+struct Pixel {
+  float nx, ny, vm;
+};
+__device__ __forceinline__ float clamp_keep_nan(float x, float lo, float hi) {
+  return x != x ? x : fminf(fmaxf(x, lo), hi);
+}
+__device__ __forceinline__ Pixel project(const Fetch& f, int v, float x, float y, float z) {
+  const float* k = f.ke + 16 * v;
+  float pr[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    pr[i] = __fadd_rn(__fmaf_rn(__ldg(k + 4 * i + 2), z, __fmaf_rn(__ldg(k + 4 * i + 1), y, __fmul_rn(__ldg(k + 4 * i), x))),
+                      __ldg(k + 4 * i + 3));  // the fma with the homogeneous 1: one rounded add
+  const float px = clamp_keep_nan(__fdiv_rn(pr[0], pr[2]), -1e6f, 1e6f);
+  const float py = clamp_keep_nan(__fdiv_rn(pr[1], pr[2]), -1e6f, 1e6f);
+  const bool front = f.neg ? pr[2] < 0.f : pr[2] > 0.f;
+  const float wm1 = static_cast<float>(f.src_w) - 1.f, hm1 = static_cast<float>(f.src_h) - 1.f;
+  const bool inb = px <= wm1 && px >= 0.f && py <= hm1 && py >= 0.f;
+  return {__fsub_rn(__fdiv_rn(__fmul_rn(2.f, px), wm1), 1.f),
+          __fsub_rn(__fdiv_rn(__fmul_rn(2.f, py), hm1), 1.f), inb && front ? 1.f : 0.f};
+}
+
+// Quad row of view v and its 4 tap weights on projection table t's (h, w)
+// grid (ops/grid_sample.py _quad_base and _quad_tap_weights): the
+// unnormalised footprint, the base clipped into the table's [-1, size - 1]
+// coverage, each tap's bilinear weight times its in-bounds mask. Returns
+// the row's index among the table's V * (h + 1) * (w + 1) rows.
+__device__ __forceinline__ size_t quad_fetch(const Fetch& f, int t, int v, const Pixel& px, float (&tw)[T]) {
+  const int h = f.quad_h[t], w = f.quad_w[t];
+  const float x = __fmul_rn(__fmul_rn(__fadd_rn(px.nx, 1.f), 0.5f), static_cast<float>(w - 1));
+  const float y = __fmul_rn(__fmul_rn(__fadd_rn(px.ny, 1.f), 0.5f), static_cast<float>(h - 1));
+  const float x0 = floorf(x), y0 = floorf(y);
+  const float wx1 = __fsub_rn(x, x0), wy1 = __fsub_rn(y, y0);
+  const float wx0 = __fsub_rn(1.f, wx1), wy0 = __fsub_rn(1.f, wy1);
+  const long long xi = static_cast<long long>(x0), yi = static_cast<long long>(y0);
+  const auto in = [&](long long xa, long long ya) { return xa >= 0 && xa <= w - 1 && ya >= 0 && ya <= h - 1 ? 1.f : 0.f; };
+  tw[0] = __fmul_rn(__fmul_rn(wx0, wy0), in(xi, yi));
+  tw[1] = __fmul_rn(__fmul_rn(wx1, wy0), in(xi + 1, yi));
+  tw[2] = __fmul_rn(__fmul_rn(wx0, wy1), in(xi, yi + 1));
+  tw[3] = __fmul_rn(__fmul_rn(wx1, wy1), in(xi + 1, yi + 1));
+  const long long xc = xi < -1 ? -1 : xi > w - 1 ? w - 1 : xi;
+  const long long yc = yi < -1 ? -1 : yi > h - 1 ? h - 1 : yi;
+  return static_cast<size_t>(v) * (static_cast<size_t>(h + 1) * (w + 1)) +
+         static_cast<size_t>((yc + 1) * (w + 1) + xc + 1);
+}
+
+// Row of geometry table G at the point and its tap weights
+// (ops/grid_sample.py octet_rows_and_weights, nearest_row_and_weight), at
+// pos = (dhw / out_sh) * (size - 1) per axis. Octet tables (8 taps): the
+// cell's base floored, clipped into [-1, dims - 2] + 1, the 8 corner weights
+// in (dz, dy, dx) order, each product rounded as the torch code rounds it,
+// times the corner's in-extent mask. Nearest tables (1 tap): the position
+// rounded half to even, clipped into [0, dims - 1], weight 1 inside the
+// extent, else 0. Returns the row's index.
+template <int G>
+__device__ __forceinline__ size_t geom_fetch(const Fetch& f, int p, float (&w)[8]) {
+  constexpr int TAPS = GEO[G].taps;
+  const int* dims = f.geo_dims[G];
+  const int* size = f.geo_size[G];
+  float pos[3];
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax)
+    pos[ax] = __fmul_rn(__fdiv_rn(__ldg(f.dhw + 3 * static_cast<size_t>(p) + ax), static_cast<float>(f.out_sh[ax])),
+                        static_cast<float>(size[ax] - 1));
+  if constexpr (TAPS == 8) {
+    float w0[3], w1[3];
+    long long b[3], bc[3];
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      const float fl = floorf(pos[ax]);
+      b[ax] = static_cast<long long>(fl);
+      w1[ax] = __fsub_rn(pos[ax], fl);
+      w0[ax] = __fsub_rn(1.f, w1[ax]);
+      bc[ax] = (b[ax] < -1 ? -1 : b[ax]) + 1;
+      bc[ax] = bc[ax] < dims[ax] - 1 ? bc[ax] : dims[ax] - 1;
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int s0 = k >> 2, s1 = (k >> 1) & 1, s2 = k & 1;
+      const bool in = b[0] + s0 >= 0 && b[0] + s0 < size[0] && b[1] + s1 >= 0 && b[1] + s1 < size[1] &&
+                      b[2] + s2 >= 0 && b[2] + s2 < size[2];
+      w[k] = __fmul_rn(__fmul_rn(__fmul_rn(s0 ? w1[0] : w0[0], s1 ? w1[1] : w0[1]), s2 ? w1[2] : w0[2]),
+                       in ? 1.f : 0.f);
+    }
+    return (static_cast<size_t>(bc[0]) * dims[1] + static_cast<size_t>(bc[1])) * dims[2] + static_cast<size_t>(bc[2]);
+  } else {
+    static_assert(TAPS == 1, "octet or nearest rows");
+    long long c[3], cc[3];
+    bool in = true;
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      c[ax] = static_cast<long long>(rintf(pos[ax]));
+      in = in && c[ax] >= 0 && c[ax] < size[ax];
+      cc[ax] = c[ax] < 0 ? 0 : c[ax];
+      cc[ax] = cc[ax] < dims[ax] - 1 ? cc[ax] : dims[ax] - 1;
+    }
+    w[0] = in ? 1.f : 0.f;
+    return (static_cast<size_t>(cc[0]) * dims[1] + static_cast<size_t>(cc[1])) * dims[2] + static_cast<size_t>(cc[2]);
+  }
+}
 
 // acc = sum_k byte(k * CT + c) * tw[k], taps in order, explicit roundings
 template <int CT, bool SIGNED, int NW>
@@ -475,7 +636,8 @@ template <int G>
 __device__ __forceinline__ void load_geom_scales(const Args& a, float* gs) {
   if constexpr (G < NG) {
     if constexpr (GEO[G].row < FEAT) {
-      for (int i = threadIdx.x; i < GEO[G].ch; i += BLOCK) gs[geo_col(G) + i] = a.g_scale[G][i];
+      for (int i = threadIdx.x; i < GEO[G].ch; i += BLOCK)
+        gs[geo_col(G) + i] = a.g_scale[G] != nullptr ? a.g_scale[G][i] : 1.f;
     }
     load_geom_scales<G + 1>(a, gs);
   }
@@ -512,10 +674,17 @@ __device__ __forceinline__ void geom_chunk(const Args& a, int P, int p, const fl
   } else {
     constexpr int EB = g.row == BF16 ? 2 : g.row == F32 ? 4 : 1;  // bytes per channel
     constexpr int NQ = 32 * EB / 16;                               // 16-byte words per run
-    const uint8_t* const row = a.g_rows[G] + static_cast<size_t>(p) * (g.taps * g.ch * EB);
+    // the point's row and tap weights: fetched from the table (the tables
+    // entry), or its gathered row and the weights handed in
+    float tw[8];
+    size_t r = static_cast<size_t>(p);
+    if constexpr (FETCH) r = geom_fetch<G>(a.f, p, tw);
+    const uint8_t* const row = a.g_rows[G] + r * (g.taps * g.ch * EB);
 #pragma unroll
     for (int k = 0; k < g.taps; ++k) {
-      const float w = __ldg(a.g_w[G] + static_cast<size_t>(k) * P + p);
+      float w;
+      if constexpr (FETCH) w = tw[k];
+      else w = __ldg(a.g_w[G] + static_cast<size_t>(k) * P + p);
       const uint4* src = reinterpret_cast<const uint4*>(row + (k * g.ch + col) * EB);
       uint32_t wd[4 * NQ];
 #pragma unroll
@@ -623,9 +792,29 @@ __global__ void __launch_bounds__(BLOCK) point_stages_kernel(const Args a, int P
   // ---- front end, one point per thread; a lane past P loads nothing and
   // writes zero rows ----
   bool ok = false;
+  float nv = 0.f;  // the views that see the point (the view mask's sum): the tables
+                   // entry sums it in the front end, the rows entry after the density MLP
   {
     float rf[V * C];
-    if (live) {
+    if (live && FETCH) {
+      // the point projected into each view; each table's quad row and tap
+      // weights fetched, then lerped and dequantized
+      const float x = __ldg(a.f.pts + 3 * static_cast<size_t>(p));
+      const float y = __ldg(a.f.pts + 3 * static_cast<size_t>(p) + 1);
+      const float z = __ldg(a.f.pts + 3 * static_cast<size_t>(p) + 2);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const Pixel px = project(a.f, v, x, y, z);
+        nv = __fadd_rn(nv, px.vm);
+        float tw[T];
+        const size_t ra = quad_fetch(a.f, 0, v, px, tw);
+        lerp_table<RA, CA>(a.rows_a, ra, tw, ps, rf, v * C);
+        if constexpr (RB != NONE) {
+          const size_t rb = quad_fetch(a.f, 1, v, px, tw);
+          lerp_table<RB, CF>(a.rows_b, rb, tw, ps + CS, rf, v * C + CS);
+        }
+      }
+    } else if (live) {
       // projection quad lerp + dequant, per view and table
 #pragma unroll
       for (int v = 0; v < V; ++v) {
@@ -721,8 +910,7 @@ __global__ void __launch_bounds__(BLOCK) point_stages_kernel(const Args a, int P
   constexpr int B4 = boff(4), B6 = boff(6), B8 = boff(8), B11 = boff(11);
   const float sg = act<RELU>(sc[lane * 16] + B[B4]);  // row lane, column 0
   __syncwarp();
-  float nv = 0.f;
-  if (live) {
+  if (live && !FETCH) {
 #pragma unroll
     for (int v = 0; v < V; ++v) nv = __fadd_rn(nv, __ldg(a.vmask + static_cast<size_t>(v) * P + p));
   }
@@ -856,24 +1044,31 @@ int point_stages_blocks_per_sm() {
 }
 
 // The instantiation this library holds: the values of PS_ROW_A PS_ROW_B
-// PS_OCC PS_G0 PS_G1 PS_G2 PS_G3 PS_V, separated by spaces.
+// PS_OCC PS_G0 PS_G1 PS_G2 PS_G3 PS_V PS_FETCH, separated by spaces.
 #define PS_STR_(x) #x
 #define PS_STR(x) PS_STR_(x)
 const char* point_stages_key() {
   return PS_STR(PS_ROW_A) " " PS_STR(PS_ROW_B) " " PS_STR(PS_OCC) " " PS_STR(PS_G0) " " PS_STR(
-      PS_G1) " " PS_STR(PS_G2) " " PS_STR(PS_G3) " " PS_STR(PS_V);
+      PS_G1) " " PS_STR(PS_G2) " " PS_STR(PS_G3) " " PS_STR(PS_V) " " PS_STR(PS_FETCH);
 }
 
+// Bytes of the Fetch structure, which the wrapper's ctypes copy must match.
+int point_stages_fetch_bytes() { return static_cast<int>(sizeof(Fetch)); }
+
 // g_rows, g_w, g_scale: arrays of 4 pointers, table g's at index g (null
-// past the library's tables, and the weights and scale of a feature input).
+// past the library's tables, and the weights and scale of a feature input;
+// a null scale of a geometry table is a unit one). fetch: the host Fetch of
+// the tables entry (PS_FETCH 1), which then passes the tables' rows and no
+// w4_a, w4_b, g_w or vmask; null for the rows entry.
 int point_stages_launch(const void* rows_a, const void* w4_a, const void* scale_a,
                         const void* rows_b, const void* w4_b, const void* scale_b,
                         const void* const* g_rows, const void* const* g_w,
                         const void* const* g_scale, const void* vmask, const void* sig_ok,
                         const void* wbuf, void* alpha, void* rgb, void* occm, int P,
-                        void* stream) {
+                        void* stream, const void* fetch) {
   const cudaError_t e = configure();
   if (e != cudaSuccess) return static_cast<int>(e);
+  if ((fetch != nullptr) != FETCH) return static_cast<int>(cudaErrorInvalidValue);
   if (P > 0) {
     Args a = {
         static_cast<const uint8_t*>(rows_a), static_cast<const float*>(w4_a),
@@ -888,6 +1083,7 @@ int point_stages_launch(const void* rows_a, const void* w4_a, const void* scale_
       a.g_w[g] = static_cast<const float*>(g_w[g]);
       a.g_scale[g] = static_cast<const float*>(g_scale[g]);
     }
+    if (fetch != nullptr) a.f = *static_cast<const Fetch*>(fetch);
     const int grid = (P + BLOCK - 1) / BLOCK;
     PS_KERNEL<<<grid, BLOCK, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(a, P);
   }

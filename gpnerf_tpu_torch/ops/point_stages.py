@@ -34,6 +34,19 @@ table.
 
 `fused_point_stages` is the one-table wrapper.
 
+`fused_point_stages_from_tables` is the same kernel fed by the tables
+themselves: the points (world and dhw voxel coordinates), the cameras, each
+projection quad table as it stands and each geometry table the kernel can
+read a row of (`fetchable`: octet tables, flat or dense, and plain nearest
+tables), or the (P, F) feature queried outside. Each thread projects its
+point, computes every quad row, octet or nearest row and tap weight itself
+and reads the rows straight from the tables (`PS_FETCH`), so no gathered
+row, tap weight or view mask is written or read back. Its plain version is
+the composition it replaces: the torch gathers (`gather_from_tables`), then
+`point_stages_tabs_plain`; on CPU tensors the renderer's images are those
+of the gathers and the rows entry, bit for bit. A launch adds P to the
+profiler-time counter `kernel_fetched_slots` (utils/profiling.py).
+
 Numerics: every dot input is rounded to bf16 and accumulates in float32;
 activations, lerps and masks are float32. The CUDA kernel runs the twelve
 layers on tensor cores (16 x 16 x 16 bf16 WMMA tiles, float32 accumulators),
@@ -47,7 +60,9 @@ is read from its tensors, checked by `check_key` against what
 csrc/point_stages.cu compiles, and its library built from that source at the
 key's first use (ops/cuda_build.py); a failed build or launch raises.
 `FORMS` names the keys of the shipped switch sets, `form_name` every other
-key; `LAUNCHES` counts kernel launches per name.
+key; `LAUNCHES` counts kernel launches per name, of either entry. The
+tables entry of a key is the same source built with `PS_FETCH=1`: a
+library is (key, fetch).
 """
 
 from __future__ import annotations
@@ -62,8 +77,16 @@ import torch
 from gpnerf_tpu_torch.models.layers import rounded
 from gpnerf_tpu_torch.ops import cuda_build
 from gpnerf_tpu_torch.ops.cuda_build import BUILD_DIR  # noqa: F401 (kept under this name)
-from gpnerf_tpu_torch.ops.grid_sample import lerp_rows
+from gpnerf_tpu_torch.ops.grid_sample import (
+    FlatOctetTable,
+    NearestTable,
+    lerp_rows,
+    nearest_row_and_weight,
+    octet_rows_and_weights,
+)
+from gpnerf_tpu_torch.ops.projection import project_gather_rows_merged
 from gpnerf_tpu_torch.utils import roofline
+from gpnerf_tpu_torch.utils.profiling import count
 
 SOURCE = os.path.join(cuda_build.CSRC_DIR, "point_stages.cu")
 
@@ -384,70 +407,79 @@ _libs = {}
 BUILD_LOG = {}
 
 
-def _key_values(key):
+def _key_values(key, fetch=False):
     """The macro values of one instantiation, in csrc/point_stages.cu's
     `point_stages_key` order: PS_ROW_A, PS_ROW_B (0: one table), PS_OCC,
     PS_G0 .. PS_G3 (row type * 10000 + taps * 1000 + channels per geometry
-    table, 0 past its tables), PS_V."""
+    table, 0 past its tables), PS_V, PS_FETCH (1: the tables entry)."""
     key = check_key(key)
     rows = key.rows
     geom = [ROW_CODES[kind] * 10000 + taps * 1000 + ch for taps, ch, kind in geom_specs(key.geom)]
     return (ROW_CODES[rows[0]], ROW_CODES[rows[1]] if len(rows) > 1 else 0, int(key.occ),
-            *geom, *[0] * (4 - len(geom)), key.views)
+            *geom, *[0] * (4 - len(geom)), key.views, int(fetch))
 
 
-def _build_args(key):
-    vals = _key_values(key)
-    names = ("PS_ROW_A", "PS_ROW_B", "PS_OCC", "PS_G0", "PS_G1", "PS_G2", "PS_G3", "PS_V")
+def _build_args(key, fetch=False):
+    vals = _key_values(key, fetch)
+    names = ("PS_ROW_A", "PS_ROW_B", "PS_OCC", "PS_G0", "PS_G1", "PS_G2", "PS_G3", "PS_V",
+             "PS_FETCH")
     defines = tuple(f"{n}={v}" for n, v in zip(names, vals))
     code = "_".join(str(v) for v in vals)
     return "point_stages.cu", f"point_stages_{code}", defines
 
 
-def build_command(key):
+def build_command(key, fetch=False):
     """(nvcc argv, library path) of one instantiation (a Key, or a tuple of
-    its fields) for the current source (ops/cuda_build.py)."""
-    return cuda_build.build_command(*_build_args(key))
+    its fields; `fetch` its tables entry) for the current source
+    (ops/cuda_build.py)."""
+    return cuda_build.build_command(*_build_args(key, fetch))
 
 
-def start_build(key):
-    """Start nvcc for `key` unless its library exists; returns the Popen
-    (or None) to hand to load_library. Lets a caller build keys together."""
-    return cuda_build.start_build(*_build_args(key))
+def start_build(key, fetch=False):
+    """Start nvcc for `key` (`fetch`: its tables entry) unless its library
+    exists; returns the Popen (or None) to hand to load_library. Lets a
+    caller build keys together."""
+    return cuda_build.start_build(*_build_args(key, fetch))
 
 
 def bind_library(lib):
     """Declare the C entry points of a loaded point_stages.cu library."""
     vp, arr = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
-    lib.point_stages_launch.argtypes = [vp] * 6 + [arr] * 3 + [vp] * 6 + [ctypes.c_int, vp]
+    lib.point_stages_launch.argtypes = [vp] * 6 + [arr] * 3 + [vp] * 6 + [ctypes.c_int, vp, vp]
     lib.point_stages_launch.restype = ctypes.c_int
     for fn in (lib.point_stages_wbuf_bytes, lib.point_stages_smem_bytes,
-               lib.point_stages_blocks_per_sm, lib.point_stages_block):
+               lib.point_stages_blocks_per_sm, lib.point_stages_block,
+               lib.point_stages_fetch_bytes):
         fn.argtypes, fn.restype = [], ctypes.c_int
     lib.point_stages_key.argtypes, lib.point_stages_key.restype = [], ctypes.c_char_p
     return lib
 
 
-def load_library(key, proc=None):
+def load_library(key, proc=None, fetch=False):
     """Build (unless the hashed library exists) and load one instantiation,
+    the rows entry or (`fetch`) the tables entry of `key`,
     NotImplementedError for a key the source does not compile (`check_key`).
-    `proc`: an already started `start_build(key)` to wait on."""
+    `proc`: an already started `start_build(key, fetch)` to wait on."""
     key = check_key(key)
-    if key in _libs:
-        return _libs[key]
-    lib = bind_library(cuda_build.load(*_build_args(key), proc=proc, build_log=BUILD_LOG,
-                                       log_key=key))
-    if tuple(int(v) for v in lib.point_stages_key().split()) != _key_values(key):
-        raise RuntimeError(f"{build_command(key)[1]} holds another instantiation than {key}")
-    _libs[key] = lib
+    fetch = bool(fetch)
+    if (key, fetch) in _libs:
+        return _libs[key, fetch]
+    lib = bind_library(cuda_build.load(*_build_args(key, fetch), proc=proc, build_log=BUILD_LOG,
+                                       log_key=(key, fetch) if fetch else key))
+    if tuple(int(v) for v in lib.point_stages_key().split()) != _key_values(key, fetch):
+        raise RuntimeError(f"{build_command(key, fetch)[1]} holds another instantiation than "
+                           f"{key} (fetch {fetch})")
+    if lib.point_stages_fetch_bytes() != ctypes.sizeof(_Fetch):
+        raise RuntimeError("point_stages.cu's Fetch and the wrapper's _Fetch differ in size")
+    _libs[key, fetch] = lib
     return lib
 
 
-def occupancy(key):
+def occupancy(key, fetch=False):
     """(blocks resident per SM on the current device, dynamic shared-memory
     bytes per block, threads per block) of one instantiation; blocks < 0 is
     the negated CUDA error of a refused shared-memory request."""
-    lib = load_library(key)
+    lib = load_library(key, fetch=fetch)
     return lib.point_stages_blocks_per_sm(), lib.point_stages_smem_bytes(), lib.point_stages_block()
 
 
@@ -528,16 +560,24 @@ def _launch(tabs, feats, vmask, sig_ok, weights, geom_tabs, occ_geom):
     _check(vmask, f32, (nv, P), "vmask")
     _check(sig_ok, u8, (P,), "sig_ok")
     key = check_key((rows, specs, occ_geom, nv))
-    lib = load_library(key)
+    return _run(key, tabs, geom, vmask, sig_ok, weights, P, tabs[0][0].device, occ_geom)
+
+
+def _run(key, tabs, geom, vmask, sig_ok, weights, P, dev, occ_geom, fetch=None, inputs=()):
+    """Launch the library of `key` on P points: tabs = the two projection
+    tables' (rows, w4, scale), geom = the geometry tables' (rows, w, scale),
+    vmask, sig_ok and the packed weights; `fetch`, the tables entry's
+    `_Fetch`, whose tensors `inputs` are. Returns the outputs."""
+    lib = load_library(key, fetch=fetch is not None)
+    f32 = torch.float32
     flat = weights.flat
-    _check(flat, u8, (lib.point_stages_wbuf_bytes(),), "packed weights")
-    dev = tabs[0][0].device
+    _check(flat, torch.uint8, (lib.point_stages_wbuf_bytes(),), "packed weights")
     alpha = torch.empty(P, dtype=f32, device=dev)
     rgb = torch.empty(P, 3, dtype=f32, device=dev)
     occm = torch.empty(P, dtype=f32, device=dev) if occ_geom else None
-    geom += [(None, None, None)] * (4 - len(geom))
+    geom = list(geom) + [(None, None, None)] * (4 - len(geom))
     tensors = (*tabs[0], *tabs[1], *(t for g in geom for t in g), vmask, sig_ok, flat,
-               alpha, rgb, occm)
+               alpha, rgb, occm, *inputs)
     if any(t is not None and t.device != dev for t in tensors):
         raise ValueError("point-stage kernel: inputs on different devices")
 
@@ -548,12 +588,23 @@ def _launch(tabs, feats, vmask, sig_ok, weights, geom_tabs, occ_geom):
     err = lib.point_stages_launch(
         *(ptr(t) for t in (*tabs[0], *tabs[1])), *table_ptrs,
         *(ptr(t) for t in (vmask, sig_ok, flat, alpha, rgb, occm)), P,
-        torch.cuda.current_stream(dev).cuda_stream,
+        torch.cuda.current_stream(dev).cuda_stream, None if fetch is None else ctypes.byref(fetch),
     )
     if err != 0:
         raise RuntimeError(f"point-stage kernel launch failed: CUDA error {err}")
     LAUNCHES[form_name(key)] += 1
     return (alpha, rgb, occm) if occ_geom else (alpha, rgb)
+
+
+def _op_counts(V, P, proj_ch, geom_tc, weights: PointWeights):
+    """`op_counts` of V views and P points, projection tables of `proj_ch`
+    channels (4 taps each) and geometry tables of `geom_tc` (taps,
+    channels)."""
+    macs = sum(w.shape[0] * w.shape[1] for w, _ in weights.layers)
+    macs += (V - 1) * sum(w.shape[0] * w.shape[1] for w, _ in weights.layers[5:9])
+    lerp = sum(V * ch * 2 * 4 for ch in proj_ch) + 4 * V * sum(proj_ch)
+    lerp += sum(taps * ch * 2 + ch for taps, ch in geom_tc)
+    return 2 * macs * P, lerp * P
 
 
 def op_counts(tabs, vmask, weights: PointWeights, geom_tabs=()):
@@ -562,12 +613,8 @@ def op_counts(tabs, vmask, weights: PointWeights, geom_tabs=()):
     the lerps (two per tap and channel of each table, plus 4 per view and
     channel for dequant, mean and variance)."""
     V, P = vmask.shape
-    Cp = sum(t[2].shape[0] for t in tabs)
-    macs = sum(w.shape[0] * w.shape[1] for w, _ in weights.layers)
-    macs += (V - 1) * sum(w.shape[0] * w.shape[1] for w, _ in weights.layers[5:9])
-    lerp = sum(V * t[2].shape[0] * 2 * t[1].shape[1] for t in tabs) + 4 * V * Cp
-    lerp += sum(g[0].shape[1] * 2 + g[2].shape[0] for g in geom_tabs)
-    return 2 * macs * P, lerp * P
+    return _op_counts(V, P, [t[2].shape[0] for t in tabs],
+                      [(g[1].shape[0], g[2].shape[0]) for g in geom_tabs], weights)
 
 
 def cost(tabs, feats, vmask, sig_ok, weights: PointWeights, *, geom_tabs=(), occ_geom=False):
@@ -604,3 +651,236 @@ def fused_point_stages(rows, w4, pscale, geom_tabs, vmask, sig_ok,
     """The one-table form: merged [rgb|feat] rows and geometry tables."""
     return fused_point_stages_tabs(((rows, w4, pscale),), None, vmask, sig_ok,
                                    weights, geom_tabs=geom_tabs)
+
+
+# ---------------------------------------------------------------------------
+# The tables entry: the kernel fetches its own rows
+# ---------------------------------------------------------------------------
+
+
+class _Fetch(ctypes.Structure):
+    """csrc/point_stages.cu's `Fetch`, field for field."""
+
+    _fields_ = [("pts", ctypes.c_void_p), ("dhw", ctypes.c_void_p), ("ke", ctypes.c_void_p),
+                ("neg", ctypes.c_int), ("src_h", ctypes.c_int), ("src_w", ctypes.c_int),
+                ("quad_h", ctypes.c_int * 2), ("quad_w", ctypes.c_int * 2),
+                ("out_sh", ctypes.c_int * 3), ("geo_dims", (ctypes.c_int * 3) * 4),
+                ("geo_size", (ctypes.c_int * 3) * 4)]
+
+
+def fetchable(table):
+    """Whether the kernel reads rows of geometry table `table` itself: a
+    FlatOctetTable or a dense (Dp, Hp, Wp, 8C) octet table of int8, uint8,
+    bf16 or float32 rows, or a NearestTable sampled nearest on every axis.
+    Int4 and word-packed octet tables and nearest tables with linear axes
+    are queried outside (the (P, F) feature input)."""
+    if isinstance(table, NearestTable):
+        return not table.lerp_axes and table.rows.dtype in _DTYPE_ROWS
+    if isinstance(table, FlatOctetTable):
+        return table.rows.dtype in _DTYPE_ROWS
+    return isinstance(table, torch.Tensor) and table.dim() == 4 and table.dtype in _DTYPE_ROWS
+
+
+def _geom_layout(table):
+    """(flat rows, row strides (3,), taps) of a fetchable geometry table."""
+    if isinstance(table, NearestTable):
+        return table.rows, tuple(table.shape), 1
+    if isinstance(table, FlatOctetTable):
+        return table.rows, tuple(table.shape), 8
+    return table.reshape(-1, table.shape[-1]), tuple(table.shape[:3]), 8
+
+
+def table_channels(table):
+    """Channels of a fetchable geometry table (per tap of its rows)."""
+    g, _, taps = _geom_layout(table)
+    return g.shape[-1] // taps
+
+
+def _geom_size(i, table, out_sh):
+    """Valid extent (3 ints) of geometry table i of a frame of level-0 extent
+    `out_sh`: a nearest table's grid (`div`, midpoint-doubled by
+    `interleave`), else level i + 1's octet grid."""
+    if isinstance(table, NearestTable):
+        size = [o // table.div for o in out_sh]
+        if table.interleave > 1:
+            size = [table.interleave * (s - 1) + 1 for s in size]
+        return size
+    return [o // 2 ** (i + 1) for o in out_sh]
+
+
+def geometry_rows(i, table, scale, frac, out_sh):
+    """The rows entry's geometry table i: its rows at the points, the tap
+    weights (Tg, P) and the scale (unit for float tables), for points at
+    `frac` = dhw / out_sh (out_sh a (3,) int tensor), as the renderer
+    gathered them before the kernel fetched them itself."""
+    if isinstance(table, NearestTable):
+        size = out_sh // table.div
+        if table.interleave > 1:
+            size = table.interleave * (size - 1) + 1
+        rows, w = nearest_row_and_weight(table, frac * (size - 1).float(), size)
+    else:
+        size = out_sh // (2 ** (i + 1))
+        rows, w = octet_rows_and_weights(table, frac * (size - 1).float(), size)
+    sc = torch.ones(rows.shape[-1] // w.shape[-1], device=rows.device) if scale is None else scale
+    return rows, w.T.contiguous(), sc
+
+
+def gather_from_tables(quads, pts_c, KE, src_hw, sig_ok, *, geom=(), dhw_c=None, out_sh=None,
+                       feats=None, neg_ray=False, occ_geom=False):
+    """The rows entry's inputs of one tables-entry call, gathered in torch
+    ops: ((tabs, feats, vmask, sig_ok), {"geom_tabs", "occ_geom"}). The
+    projection rows in view-major order with their tap weights and the view
+    mask (ops/projection.py project_gather_rows_merged; the feature table of
+    a split pair view by view), each geometry table's rows and weights
+    (`geometry_rows`)."""
+    Hs, Ws = src_hw
+    rows, w4, vmask = project_gather_rows_merged(pts_c, KE, quads[0][0], Hs, Ws, neg_ray=neg_ray)
+    tabs = [(rows, w4, quads[0][1])]
+    if len(quads) == 2:
+        # the view mask is projection-only and the same for both tables
+        rows_f, w4_f, _ = project_gather_rows_merged(pts_c, KE, quads[1][0], Hs, Ws,
+                                                     neg_ray=neg_ray, batched=True)
+        tabs.append((rows_f, w4_f, quads[1][1]))
+    geom_tabs = ()
+    if geom:
+        out_sh_t = torch.tensor(out_sh, device=dhw_c.device)
+        frac = dhw_c / out_sh_t.float()
+        geom_tabs = tuple(geometry_rows(i, t, sc, frac, out_sh_t) for i, (t, sc) in enumerate(geom))
+    return (tuple(tabs), feats, vmask, sig_ok), {"geom_tabs": geom_tabs, "occ_geom": occ_geom}
+
+
+def point_stages_from_tables_plain(quads, pts_c, KE, src_hw, sig_ok, weights: PointWeights,
+                                   **kw):
+    """The tables entry's function in torch ops: `gather_from_tables`, then
+    `point_stages_tabs_plain`."""
+    args, kw_t = gather_from_tables(quads, pts_c, KE, src_hw, sig_ok, **kw)
+    return point_stages_tabs_plain(*args[:3], args[3], weights, **kw_t)
+
+
+def _quad_type(table, nv, width, name, packed_width=None):
+    """Row type of a (V, Ht+1, Wt+1, width) projection quad table, checked
+    (int4 split-packed uint8 tables are `packed_width` wide)."""
+    if table.dim() != 4 or table.shape[0] != nv:
+        raise NotImplementedError(f"point-stage kernel: {name} must be a ({nv}, Ht+1, Wt+1, 4C) "
+                                  f"quad table, got {tuple(table.shape)}")
+    return _row_type(table.reshape(-1, table.shape[-1]), nv, table.shape[1] * table.shape[2],
+                     width, name, packed_width)
+
+
+def _launch_from_tables(quads, pts_c, KE, src_hw, sig_ok, weights, geom, dhw_c, out_sh, feats,
+                        neg_ray, occ_geom):
+    f32, u8 = torch.float32, torch.uint8
+    nv, P = KE.shape[0], pts_c.shape[0]
+    if len(quads) == 1:
+        rows = (_quad_type(quads[0][0], nv, 4 * C, "merged [rgb|feat] table"),)
+        _check(quads[0][1], f32, (C,), "merged scale")
+        quads = (quads[0], (None, None))
+    elif len(quads) == 2:
+        rows = (_quad_type(quads[0][0], nv, 4 * CS, "source rgb table"),
+                _quad_type(quads[1][0], nv, 4 * CF, "feature table", packed_width=2 * CF))
+        _check(quads[0][1], f32, (CS,), "source rgb scale")
+        _check(quads[1][1], f32, (CF,), "feature scale")
+    else:
+        raise NotImplementedError("point-stage kernel takes 1 or 2 projection tables")
+    if feats is not None and (geom or occ_geom):
+        raise ValueError("point-stage kernel: a feature input excludes "
+                         "geometry tables and occ_geom")
+    _check(KE, f32, (nv, 4, 4), "cameras KE")
+    _check(pts_c, f32, (P, 3), "points")
+    if feats is not None:
+        specs, gptrs = _read_geometry((), feats, P)
+        dims = sizes = []
+    else:
+        _check(dhw_c, f32, (P, 3), "dhw points")
+        specs, gptrs, dims, sizes = [], [], [], []
+        for i, (table, sc) in enumerate(geom):
+            if not fetchable(table):
+                raise NotImplementedError(f"point-stage kernel: geometry table {i} is no table "
+                                          "it fetches rows of (ops/point_stages.py fetchable)")
+            g, dim, taps = _geom_layout(table)
+            kind = _DTYPE_ROWS[g.dtype]
+            if g.shape[-1] % taps:
+                raise NotImplementedError(f"point-stage kernel: geometry table {i} rows "
+                                          f"{tuple(g.shape)} are no {taps}-tap rows")
+            ch = g.shape[-1] // taps
+            _check(g, g.dtype, tuple(g.shape), f"geometry table {i} rows")
+            if sc is not None:
+                _check(sc, f32, (ch,), f"geometry table {i} scale")
+            specs.append((taps, ch, kind))
+            gptrs.append((g, None, sc))
+            dims.append(dim)
+            sizes.append(_geom_size(i, table, out_sh))
+        specs = tuple(specs)
+    _check(sig_ok, u8, (P,), "sig_ok")
+    key = check_key((rows, specs, occ_geom, nv))
+    fetch = _Fetch(pts=pts_c.data_ptr(), dhw=None if dhw_c is None else dhw_c.data_ptr(),
+                   ke=KE.data_ptr(), neg=int(bool(neg_ray)), src_h=int(src_hw[0]),
+                   src_w=int(src_hw[1]))
+    for t, (table, _) in enumerate(quads):
+        if table is not None:
+            fetch.quad_h[t], fetch.quad_w[t] = table.shape[1] - 1, table.shape[2] - 1
+    if out_sh is not None:
+        fetch.out_sh[:] = [int(v) for v in out_sh]
+    for g, (dim, size) in enumerate(zip(dims, sizes)):
+        fetch.geo_dims[g][:] = [int(v) for v in dim]
+        fetch.geo_size[g][:] = [int(v) for v in size]
+    tabs = tuple((table, None, sc) for table, sc in quads)
+    outs = _run(key, tabs, gptrs, None, sig_ok, weights, P, pts_c.device, occ_geom, fetch=fetch,
+                inputs=(KE, pts_c, dhw_c))
+    count("kernel_fetched_slots", P)
+    return outs
+
+
+def cost_from_tables(quads, pts_c, KE, src_hw, sig_ok, weights: PointWeights, *, geom=(),
+                     dhw_c=None, out_sh=None, feats=None, neg_ray=False, occ_geom=False):
+    """(bytes, FLOPs) of one tables-entry call (utils/roofline.py): each
+    point's quad row of every view and table and its geometry rows (or
+    feature row) read once, the points (world and dhw), the cameras, the
+    scales, sig_ok (uint8) and the packed weights read once, the outputs
+    written once; the FLOPs of the rows entry (`op_counts`)."""
+    nv, P = KE.shape[0], pts_c.shape[0]
+    proj_row = sum(q[0].shape[-1] * q[0].element_size() for q in quads)
+    ins = P * nv * proj_row + roofline.nbytes(pts_c, KE, weights.flat, feats,
+                                              *(q[1] for q in quads)) + P
+    geom_tc = []
+    if feats is None:
+        ins += roofline.nbytes(dhw_c)
+        for table, sc in geom:
+            g, _, taps = _geom_layout(table)
+            ins += P * g.shape[-1] * g.element_size() + roofline.nbytes(sc)
+            geom_tc.append((taps, g.shape[-1] // taps))
+    outs = 4 * P * (4 + int(occ_geom))
+    return ins + outs, sum(_op_counts(nv, P, [q[1].shape[0] for q in quads], geom_tc, weights))
+
+
+def fused_point_stages_from_tables(quads, pts_c, KE, src_hw, sig_ok, weights: PointWeights, *,
+                                   geom=(), dhw_c=None, out_sh=None, feats=None, neg_ray=False,
+                                   occ_geom=False):
+    """Point stages fed by the tables: the CUDA kernel fetching its own rows
+    for CUDA tensors, `point_stages_from_tables_plain` for CPU tensors.
+
+    quads = ((table (V, Ht+1, Wt+1, 4Ct), scale (Ct,)), ...): the merged
+    [rgb|feat] quad table, or the (source, feature) pair, as
+    ops/grid_sample.build_quad_table_2d builds them; pts_c (P, 3) world
+    points; KE (V, 4, 4) the source cameras; src_hw the source images' (H,
+    W), the pixel frame of KE; neg_ray THuman's convention. geom = ((table,
+    scale or None for a unit one), ...) geometry tables of the frame
+    (each `fetchable`; table i an octet table of level i + 1, or a
+    NearestTable) with dhw_c (P, 3) the points in level-0 voxel units and
+    out_sh the frame's level-0 extent (3 ints); or feats (P, F), the feature
+    queried outside. sig_ok (P,) bool or uint8. Returns as
+    `fused_point_stages_tabs`. A count (utils/roofline.py) takes the call at
+    its declared `cost_from_tables`."""
+    dev = pts_c.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"point stages: unsupported device {dev}")
+    kw = dict(geom=tuple(geom), dhw_c=dhw_c, out_sh=out_sh, feats=feats, neg_ray=neg_ray,
+              occ_geom=occ_geom)
+    with roofline.note_kernel("point_stages", *cost_from_tables(quads, pts_c, KE, src_hw, sig_ok,
+                                                                weights, **kw)):
+        if dev.type == "cpu":
+            return point_stages_from_tables_plain(quads, pts_c, KE, src_hw, sig_ok, weights, **kw)
+        return _launch_from_tables(quads, pts_c.contiguous(), KE.contiguous(), src_hw,
+                                   sig_ok.to(torch.uint8), weights, kw["geom"],
+                                   None if dhw_c is None else dhw_c.contiguous(), out_sh, feats,
+                                   neg_ray, occ_geom)

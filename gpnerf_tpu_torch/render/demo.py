@@ -128,7 +128,6 @@ from gpnerf_tpu_torch.models.sparse_net import (
     sparse_net_dense_eval,
 )
 from gpnerf_tpu_torch.ops.grid_sample import (
-    FlatOctetTable,
     Int4Table,
     NearestTable,
     build_octet_table_3d,
@@ -136,8 +135,6 @@ from gpnerf_tpu_torch.ops.grid_sample import (
     build_octet_table_scatter,
     build_quad_table_2d,
     interleave_midpoints_3d,
-    nearest_row_and_weight,
-    octet_rows_and_weights,
     quantize_image_i4,
     quantize_image_i8,
     quantize_volume_i4,
@@ -148,14 +145,15 @@ from gpnerf_tpu_torch.ops.grid_sample import (
 )
 from gpnerf_tpu_torch.ops.point_stages import (
     check_key,
-    fused_point_stages_tabs,
+    fetchable,
+    fused_point_stages_from_tables,
     make_key,
     pack_head_weights,
+    table_channels,
 )
 from gpnerf_tpu_torch.ops.projection import (
     project_and_gather_quad,
     project_and_gather_quad_merged,
-    project_gather_rows_merged,
 )
 from gpnerf_tpu_torch.ops.rays import pixel_rays, ray_aabb_near_far
 from gpnerf_tpu_torch.ops.sparse_conv import _gather_rows, scatter_dense, scatter_dense_rows
@@ -1237,53 +1235,34 @@ class Renderer(nn.Module):
         return alpha, rgb, sig_ok
 
     def _point_stages_fused(self, batch, pre, tables, pts_c, dhw_c, sig_ok, mask_from_query):
-        """Geometry-row and projection-row gathers, then the point-stage
-        kernel. Returns as `_point_stages`."""
-        out_sh = torch.tensor(pre["out_sh"], device=dhw_c.device)
+        """The point-stage kernel fed by the frame's tables: it projects the
+        points and fetches the quad rows and the geometry rows itself
+        (ops/point_stages.py fused_point_stages_from_tables); geometry tables
+        it does not fetch from are queried here into the (P, F) feature.
+        Returns as `_point_stages`."""
         octet_vols, scales = tables["octet_vols"], tables["octet_scales"]
         nch = self.nerfhead.spconv_out_dim[0]
-        frac = dhw_c / out_sh.float()
-
-        def geom_tab(i, tab):
-            # raw rows + tap weights (Tg, P) + scale (unit for float tables),
-            # which the kernel lerps; None for a table it does not (JAX
-            # render/demo.py:689-714)
-            if isinstance(tab, NearestTable):
-                if tab.lerp_axes:
-                    return None
-                size = out_sh // tab.div
-                if tab.interleave > 1:
-                    size = tab.interleave * (size - 1) + 1
-                rows, w = nearest_row_and_weight(tab, frac * (size - 1).float(), size)
-            elif isinstance(tab, Int4Table) or (
-                    tab.rows if isinstance(tab, FlatOctetTable) else tab).dtype == torch.int32:
-                return None  # int4 and word-packed tables
-            else:
-                size = out_sh // (2 ** (i + 1))
-                rows, w = octet_rows_and_weights(tab, frac * (size - 1).float(), size)
-            sc = (torch.ones(rows.shape[-1] // w.shape[-1], device=rows.device)
-                  if scales is None else scales[i])
-            return rows, w.T.contiguous(), sc
-
-        geom_tabs = None
-        if self.kernel_octet:
-            geom_tabs = [geom_tab(i, t) for i, t in enumerate(octet_vols)]
-            if any(g is None for g in geom_tabs):
-                geom_tabs = None
+        # the geometry tables the kernel lerps (JAX render/demo.py:689-714):
+        # octet and plain nearest tables; scale None is a unit one
+        geom = None
+        if self.kernel_octet and all(fetchable(t) for t in octet_vols):
+            geom = tuple((t, None if scales is None else scales[i])
+                         for i, t in enumerate(octet_vols))
         # mask_from_query: the kernel derives the reference's `sp_feats > 0`
         # cull (demo_render.py:294) from the lerped level-1 block, where
         # table 0 is the nch-channel level-1 table; else the queried
         # features give it
         occ_geom = False
-        if geom_tabs is not None and mask_from_query:
-            if geom_tabs[0][0].shape[-1] // geom_tabs[0][1].shape[0] == nch:
+        if geom is not None and mask_from_query:
+            if table_channels(geom[0][0]) == nch:
                 occ_geom = True
             else:
-                geom_tabs = None
+                geom = None
         feats = None
-        if geom_tabs is None:
+        if geom is None:
             # the (P, F) feature queried in the compute dtype (JAX's sparse
             # net queries in its own), handed to the kernel as it is
+            out_sh = torch.tensor(pre["out_sh"], device=dhw_c.device)
             net = self.nerfhead.sigmahead.xyzc_net
             dt = self.compute_dtype
             if len(octet_vols) == 2:
@@ -1292,25 +1271,18 @@ class Renderer(nn.Module):
                 feats = net.query_octet(octet_vols, dhw_c, out_sh, scales=scales, out_dtype=dt)
             if mask_from_query:
                 sig_ok = sig_ok & (feats[:, :nch].sum(dim=-1) > 0)
-        Hs, Ws = batch["src_imgs"].shape[1:3]
-        rows, w4, vmask = project_gather_rows_merged(
-            pts_c, pre["KE"], tables["src_quad"], Hs, Ws, neg_ray=self.neg_ray_val
-        )
         if "feat_quad" in tables:
-            # split tables, both lerped in the kernel; the view mask is
-            # projection-only and the same for both
-            rows_f, w4_f, _ = project_gather_rows_merged(
-                pts_c, pre["KE"], tables["feat_quad"], Hs, Ws, neg_ray=self.neg_ray_val,
-                batched=True
-            )
-            tabs = ((rows, w4, tables["src_scale"]), (rows_f, w4_f, tables["feat_scale"]))
+            # split tables, both lerped in the kernel
+            quads = ((tables["src_quad"], tables["src_scale"]),
+                     (tables["feat_quad"], tables["feat_scale"]))
         else:
-            tabs = ((rows, w4, tables["proj_scale"]),)
+            quads = ((tables["src_quad"], tables["proj_scale"]),)
         # the folded coarse rows are out_geometry_fc's coarse block already
         weights = pack_head_weights(self.nerfhead, fold_nch=nch if tables["folded"] else None)
-        outs = fused_point_stages_tabs(
-            tabs, feats, vmask, sig_ok, weights, geom_tabs=geom_tabs or (),
-            occ_geom=occ_geom,
+        outs = fused_point_stages_from_tables(
+            quads, pts_c, pre["KE"], tuple(batch["src_imgs"].shape[1:3]), sig_ok, weights,
+            geom=geom or (), dhw_c=dhw_c, out_sh=pre["out_sh"], feats=feats,
+            neg_ray=self.neg_ray_val, occ_geom=occ_geom,
         )
         if occ_geom:
             sig_ok = sig_ok & (outs[2] > 0.5)

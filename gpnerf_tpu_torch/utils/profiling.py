@@ -17,9 +17,11 @@ metric logger's peak device memory. Here:
     `gpnerf.train.optimizer`;
   * `count` / `counters` / `reset_counters`: a process-wide registry of
     named sums, recorded only while a profiler records: `renders`,
-    `upload_bytes`, `point_slots` (host numbers) and `colored_points` (a
-    0-d device tensor kept by reference and summed when `counters` is
-    read, so counting adds no launch and no sync);
+    `upload_bytes`, `point_slots`, `kernel_fetched_slots` (the P of each
+    launch of the point-stage kernel's tables entry, ops/point_stages.py;
+    host numbers) and `colored_points` (a 0-d device tensor kept by
+    reference and summed when `counters` is read, so counting adds no
+    launch and no sync);
   * `trace`: a `torch.profiler` context that writes a Chrome trace;
   * `kernel_table`: a finished profile's time by kernel, largest first
     (tools/trace_demo_torch.py, chip_smoke.py `profile_render`);

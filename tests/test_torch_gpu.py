@@ -319,6 +319,117 @@ def test_kernel_refuses_forms_without_instantiation():
     assert sum(ps.LAUNCHES.values()) == before
 
 
+def _assert_kernel_near_plain(out, out_p, P):
+    """The tolerances of test_kernel_matches_plain, and equal occupancy
+    verdicts."""
+    assert len(out) == len(out_p)
+    a, rgb, a_p, rgb_p = (t.cpu().numpy() for t in (*out[:2], *out_p[:2]))
+    assert np.isfinite(a).all() and np.isfinite(rgb).all()
+    _assert_near(np.abs(a - a_p), P)
+    agree = (a > 1e-14) == (a_p > 1e-14)
+    assert (~agree).sum() <= max(1, 0.001 * P)
+    _assert_near(np.abs(rgb - rgb_p)[agree], P)
+    if len(out) == 3:
+        np.testing.assert_array_equal(out[2].cpu().numpy(), out_p[2].cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P", [1, *RAGGED, 640, 70001])
+@pytest.mark.parametrize("case", ["a", "c", "a V2", "c V2", "a neg", "c neg", "a occ", "c occ",
+                                  "b"])
+def test_tables_kernel_matches_plain(case, P):
+    """The tables entry (the kernel fetching its own rows) on the seeded
+    tables and points of tests/test_torch_point_fetch.py (points off the
+    images, behind a camera, on pixel and voxel edges, outside out_sh)
+    against its plain version, and against the rows entry's kernel fed by
+    the gathers: the same library key, counted once per launch."""
+    from test_torch_point_fetch import seeded_inputs
+
+    dev = _cuda()
+    form, *opt = case.split()
+    args, kw = seeded_inputs(form, 2 if "V2" in opt else 3, "neg" in opt, P=P, seed=P,
+                             device=dev, occ_geom="occ" in opt)
+    name = ps.form_name(ps.make_key(*(("i8",) if form != "c" else ("u8", "i8"),
+                                      "feats96" if form == "b" else "default", "occ" in opt,
+                                      2 if "V2" in opt else 3)))
+    before = ps.LAUNCHES[name]
+    out = ps.fused_point_stages_from_tables(*args, **kw)
+    torch.cuda.synchronize()
+    assert ps.LAUNCHES[name] == before + 1
+    _assert_kernel_near_plain(out, ps.point_stages_from_tables_plain(*args, **kw), P)
+    g_args, g_kw = ps.gather_from_tables(*args[:5], **kw)
+    _assert_kernel_near_plain(out, ps.fused_point_stages_tabs(*g_args[:4], args[5], **g_kw), P)
+
+
+@pytest.mark.gpu
+def test_tables_kernel_refuses_what_it_does_not_take():
+    """Tables the kernel does not fetch rows of, a quad table of another
+    view count and an unknown device are refused before any launch."""
+    from test_torch_point_fetch import seeded_inputs
+
+    from gpnerf_tpu_torch.ops.grid_sample import NearestTable
+
+    dev = _cuda()
+    args, kw = seeded_inputs("a", 3, False, device=dev)
+    before = sum(ps.LAUNCHES.values())
+    (t0, s0), (t1, s1) = kw["geom"]
+    with pytest.raises(NotImplementedError, match="fetches rows of"):
+        ps.fused_point_stages_from_tables(
+            *args, **{**kw, "geom": ((t0, s0), (t1._replace(lerp_axes=1), s1))})
+    quads = ((args[0][0][0][:2].contiguous(), args[0][0][1]),)
+    with pytest.raises(NotImplementedError, match="quad table"):
+        ps.fused_point_stages_from_tables(quads, *args[1:], **kw)
+    assert isinstance(t1, NearestTable) and sum(ps.LAUNCHES.values()) == before
+
+
+# the captured frames of the view cells' two render modes at 128^2
+FRAME_CASES = {"fast": {}, "paper tables": dict(merge_lowres_src=False),
+               "reference": dict(tight_cull=False, samples_per_ray=64, tap_window=0,
+                                 merge_lowres_src=False, ray_cap=9216)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(FRAME_CASES))
+def test_tables_kernel_matches_plain_on_frame_inputs(case, monkeypatch):
+    """The tables entry on the inputs a 128^2 render of the fast mode, of
+    the paper configs' tables and of the reference semantics (the paper
+    cell's blanket cull over 64 samples, form (c)) hands it, against its
+    plain version and against the rows entry fed by the gathers, with the
+    tolerances of test_kernel_matches_plain; the render fetches every slot
+    in the kernel (`kernel_fetched_slots` = `point_slots` over a traced
+    render)."""
+    dev = _cuda()
+    from gpnerf_tpu_torch.registry import get
+    from gpnerf_tpu_torch.render import demo
+    from gpnerf_tpu_torch.render.base import batch_to_device
+    from gpnerf_tpu_torch.train.checkpoint import load_eval_model
+    from gpnerf_tpu_torch.utils import profiling
+
+    cfg = _compaction_cfg("fast", **FRAME_CASES[case])
+    r = load_eval_model(CKPT, get("render", "demo_render")(cfg, device=dev))
+    calls = []
+    real = demo.fused_point_stages_from_tables
+    monkeypatch.setattr(demo, "fused_point_stages_from_tables",
+                        lambda *a, **k: calls.append((a, k)) or real(*a, **k))
+    batch = batch_to_device(_frame(cfg), dev)
+    fn = r.render_demo_fn()
+    fn(batch)
+    assert len(calls) == 1
+    args, kw = calls[0]
+    P = args[4].shape[0]
+    out = ps.fused_point_stages_from_tables(*args, **kw)
+    _assert_kernel_near_plain(out, ps.point_stages_from_tables_plain(*args, **kw), P)
+    g_args, g_kw = ps.gather_from_tables(*args[:5], **kw)
+    _assert_kernel_near_plain(out, ps.fused_point_stages_tabs(*g_args[:4], args[5], **g_kw), P)
+    profiling.reset_counters()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        fn(batch)
+        torch.cuda.synchronize()
+    c = profiling.counters()
+    assert c["kernel_fetched_slots"] == c["point_slots"] == P
+
+
 # geometry-table switch settings of the fast mode -> the layout the fused
 # path hands the kernel (float32 renders, as the CPU's)
 GEOMETRY_CASES = {
@@ -478,9 +589,9 @@ def _frame(cfg):
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["fast", "reference K32"])
 def test_kernel_matches_plain_on_compacted_points(mode, monkeypatch):
-    """The point-stage kernel on the inputs a compacted 128^2 render hands
-    it (P = sig_cap points: the valid slots, then a tail with sig_ok off),
-    against its plain version, with the tolerances of
+    """The point-stage kernel's tables entry on the inputs a compacted 128^2
+    render hands it (P = sig_cap points: the valid slots, then a tail with
+    sig_ok off), against its plain version, with the tolerances of
     test_kernel_matches_plain."""
     dev = _cuda()
     from gpnerf_tpu_torch.registry import get
@@ -491,23 +602,23 @@ def test_kernel_matches_plain_on_compacted_points(mode, monkeypatch):
     cfg = _compaction_cfg(mode, dense_slots=False)
     r = load_eval_model(CKPT, get("render", "demo_render")(cfg, device=dev))
     calls = []
-    real = demo.fused_point_stages_tabs
-    monkeypatch.setattr(demo, "fused_point_stages_tabs",
+    real = demo.fused_point_stages_from_tables
+    monkeypatch.setattr(demo, "fused_point_stages_from_tables",
                         lambda *a, **k: calls.append((a, k)) or real(*a, **k))
     ret = r.render_demo_fn()(batch_to_device(_frame(cfg), dev))
     assert len(calls) == 1 and int(ret["overflows"][2]) == 0
     args, kw = calls[0]
-    sig_ok = args[3]
+    sig_ok = args[4]
     P = sig_ok.shape[0]
     assert P == cfg.tpu.sigma_cap
     n = int(sig_ok.sum())
     assert 0 < n < P and not bool(sig_ok[n:].any())  # the tail is masked
     name = ps.FORMS[r.kernel_form()]
     before = ps.LAUNCHES[name]
-    out = ps.fused_point_stages_tabs(*args, **kw)
+    out = ps.fused_point_stages_from_tables(*args, **kw)
     torch.cuda.synchronize()
     assert ps.LAUNCHES[name] == before + 1
-    out_p = ps.point_stages_tabs_plain(*args, **kw)
+    out_p = ps.point_stages_from_tables_plain(*args, **kw)
     a, rgb, a_p, rgb_p = (t.cpu().numpy() for t in (*out[:2], *out_p[:2]))
     assert np.isfinite(a).all() and np.isfinite(rgb).all()
     assert not a[n:].any() and not rgb[n:].any()
@@ -561,8 +672,8 @@ WINDOW_CASES = {
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(WINDOW_CASES))
 def test_kernel_matches_plain_on_windowed_points(case, monkeypatch):
-    """The point-stage kernel on the inputs a windowed 128^2 render hands
-    it, against its plain version, with the tolerances of
+    """The point-stage kernel's tables entry on the inputs a windowed 128^2
+    render hands it, against its plain version, with the tolerances of
     test_kernel_matches_plain; the render launches it once, under the
     key of its binned or windowless sibling."""
     dev = _cuda()
@@ -576,8 +687,8 @@ def test_kernel_matches_plain_on_windowed_points(case, monkeypatch):
     r = load_eval_model(CKPT, get("render", "demo_render")(cfg, device=dev))
     assert r._uses_window() and ps.form_name(r.kernel_form()) == form
     calls = []
-    real = demo.fused_point_stages_tabs
-    monkeypatch.setattr(demo, "fused_point_stages_tabs",
+    real = demo.fused_point_stages_from_tables
+    monkeypatch.setattr(demo, "fused_point_stages_from_tables",
                         lambda *a, **k: calls.append((a, k)) or real(*a, **k))
     ps.LAUNCHES.clear()
     ret = r.render_demo_fn()(batch_to_device(_frame(cfg), dev))
@@ -585,9 +696,9 @@ def test_kernel_matches_plain_on_windowed_points(case, monkeypatch):
     assert dict(ps.LAUNCHES) == {form: 1} and len(calls) == 1
     np.testing.assert_array_equal(ret["overflows"].cpu().numpy()[[0, 2, 3]], 0)
     args, kw = calls[0]
-    P = args[3].shape[0]
-    out = ps.fused_point_stages_tabs(*args, **kw)
-    out_p = ps.point_stages_tabs_plain(*args, **kw)
+    P = args[4].shape[0]
+    out = ps.fused_point_stages_from_tables(*args, **kw)
+    out_p = ps.point_stages_from_tables_plain(*args, **kw)
     a, rgb, a_p, rgb_p = (t.cpu().numpy() for t in (*out[:2], *out_p[:2]))
     assert np.isfinite(a).all() and np.isfinite(rgb).all()
     _assert_near(np.abs(a - a_p), P)

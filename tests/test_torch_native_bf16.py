@@ -229,13 +229,13 @@ def test_native_dtypes(small, monkeypatch):
     fused = _port(64, ray_cap=4096, kernel_octet=False)
     key = fused.kernel_form()
     assert key == ps.Key(("i8",), "feats96-bf16", False) and ps.FORMS[key] == "a+b@bf16"
-    real = port_demo.fused_point_stages_tabs
+    real = port_demo.fused_point_stages_from_tables
 
-    def capture(tabs, feats, *a, **k):
-        seen["feats"].append(feats.dtype)
-        return real(tabs, feats, *a, **k)
+    def capture(*a, **k):
+        seen["feats"].append(k["feats"].dtype)
+        return real(*a, **k)
 
-    monkeypatch.setattr(port_demo, "fused_point_stages_tabs", capture)
+    monkeypatch.setattr(port_demo, "fused_point_stages_from_tables", capture)
     with torch.no_grad():
         fused._demo_impl(b, enc)
     assert seen["feats"] == [torch.bfloat16]

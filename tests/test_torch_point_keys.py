@@ -140,7 +140,8 @@ def test_switch_space_keys_validate_and_build_apart():
     booleans, coarse_nearest 0-2, l1_nearest 0, 1, 2 and 11, bfloat16 or
     float32) builds with pallas_point on; its keys for uint8 and float
     source images validate, and the 336 distinct keys (32 of them FORMS')
-    have distinct names and libraries. chip_smoke.py's cover set with FORMS
+    have distinct names and libraries, the rows entry's and the tables
+    entry's apart. chip_smoke.py's cover set with FORMS
     puts every row type in table positions A and B, every geometry spec in
     every table position where the space has it, occ_geom on every table-0
     spec, and forms (a) and (c) at 2, 4 and 8 views. The view count joins
@@ -151,6 +152,11 @@ def test_switch_space_keys_validate_and_build_apart():
     assert all(ps.check_key(k) == k for k in keys)
     assert len({ps.form_name(k) for k in keys}) == len(keys)
     assert len({ps.build_command(k)[1] for k in keys}) == len(keys)
+    # each key builds both ways from the one source: the rows entry and the
+    # tables entry (PS_FETCH), whose geometry tables are octet (8 taps) or
+    # nearest (1 tap) rows, or the (P, F) feature
+    assert len({ps.build_command(k, f)[1] for k in keys for f in (False, True)}) == 2 * len(keys)
+    assert all(t in (1, 8) for k in keys for t, _, _ in ps.geom_specs(k.geom))
     cover = list(ps.FORMS) + [ps.check_key(k) for k in smoke.cover_keys()]
 
     def traits(ks):

@@ -258,6 +258,7 @@ VIEW_EXPECTED = {
     "ray_pipeline_ms.render": 0.03,
     "point_stages_ms.render": 0.06,
     "colored_point_share": 25.0,
+    "fetched_slot_share": 75.0,
     "render_idle_ms.render": 0.8 - 0.21,
 }
 TRAIN_EXPECTED = {"forward_ms.train": 0.3, "backward_ms.train": 0.4,
@@ -267,7 +268,7 @@ TRAIN_EXPECTED = {"forward_ms.train": 0.3, "backward_ms.train": 0.4,
 @pytest.mark.parametrize("name", sorted(VIEW_EXPECTED))
 def test_view_reader_on_a_hand_built_trace(name, monkeypatch):
     _count(monkeypatch, renders=2, upload_bytes=6_000_000, point_slots=800,
-           colored_points=torch.tensor(200))
+           colored_points=torch.tensor(200), kernel_fetched_slots=600)
     ctx = Context(trace=Trace(_view_events(), "bench.request"))
     assert reader(name)(ctx) == pytest.approx(VIEW_EXPECTED[name])
     # a program without the spans, or without the counters: nothing read,
@@ -281,7 +282,7 @@ def test_view_reader_on_a_hand_built_trace(name, monkeypatch):
 @pytest.mark.parametrize("name", sorted(VIEW_EXPECTED))
 def test_view_reader_refuses_a_render_count_unlike_the_requests(name, monkeypatch):
     _count(monkeypatch, renders=3, upload_bytes=6_000_000, point_slots=800,
-           colored_points=200)
+           colored_points=200, kernel_fetched_slots=800)
     assert reader(name)(Context(trace=Trace(_view_events(), "bench.request"))) is None
 
 

@@ -9,7 +9,12 @@ spends its time on the card, for forms (a) and (c) at the main-path sizes
      no loads, zero tiles, all twelve layers);
   2. clock64() marks between the kernel's phases (staging, front end,
      density MLP, each view's color layers, rgb layers), read back for the
-     warps of one block in the middle of the grid.
+     warps of one block in the middle of the grid;
+  3. on the inputs of bench frame 0 at 512^2 (the fast mode for form (a),
+     the reference semantics for form (c), the trained checkpoint): the
+     tables entry the renderer launches (the kernel fetching its own rows)
+     and its probes built with PS_FETCH=1, beside the rows entry and the
+     torch gathers it needs first.
 
     python3 tools/probe_point_stages.py
 
@@ -85,9 +90,11 @@ def main():
         with open(os.path.join(cuda_build.BUILD_DIR, fname), "w") as f:
             f.write(text)
         for name, (form, _) in FORMS.items():
-            defines = ps._build_args(form)[2]
-            args = (os.path.join("..", "_build", fname), f"probe_{vname.replace(' ', '_')}_{name}", defines)
-            builds[vname, name] = (args, cuda_build.start_build(*args))
+            for fetch in (False, True):
+                defines = ps._build_args(form, fetch)[2]
+                args = (os.path.join("..", "_build", fname),
+                        f"probe_{vname.replace(' ', '_')}_{name}{'_fetch' * fetch}", defines)
+                builds[vname, name, fetch] = (args, cuda_build.start_build(*args))
     vp = ctypes.c_void_p
     libs = {}
     for key, (args, proc) in builds.items():
@@ -106,13 +113,13 @@ def main():
 
             times = {}
             for vname in [v for v in variants if v != "clock64 marks"] * 2:  # two rounds, in turn
-                ps._libs[form] = libs[vname, name]
+                ps._libs[form, False] = libs[vname, name, False]
                 times.setdefault(vname, []).append(cs.cuda_ms(call, 10 if P < 10**6 else 4))
             print(f"# probe on {card}: form ({name}) P={P}, ms (two rounds): "
                   + "; ".join(f"{k} {v[0]:.4f} {v[1]:.4f}" for k, v in times.items()), flush=True)
-            lib = libs["clock64 marks", name]
+            lib = libs["clock64 marks", name, False]
             lib.probe_clock.argtypes, lib.probe_clock.restype = [vp], ctypes.c_int
-            ps._libs[form] = lib
+            ps._libs[form, False] = lib
             call()
             torch.cuda.synchronize()
             buf = (ctypes.c_longlong * (32 * 8))()
@@ -125,10 +132,53 @@ def main():
                       + ", ".join(f"{lab} {t[i + 1] - t[i]}" for i, lab in enumerate(labels)), flush=True)
             del tabs, feats, vmask, sig_ok, kw
             torch.cuda.empty_cache()
+            ps._libs[form, False] = libs["kernel", name, False]
+            frame_probe(name, form, card, libs, variants)
+            torch.cuda.empty_cache()
     finally:
         ps._libs.clear()
         ps._libs.update(saved)
     return 0
+
+
+def frame_probe(name, form, card, libs, variants):
+    """Part 3 for one form: the tables entry and its probes, the rows entry
+    and the gathers, timed in turn over two rounds on frame 0's inputs."""
+    import torch
+
+    import chip_smoke as cs
+    from bench_torch import REF_MODE
+    from gpnerf_tpu_torch.ops import point_stages as ps
+    from gpnerf_tpu_torch.render import demo
+    from gpnerf_tpu_torch.render.base import batch_to_device
+    from gpnerf_tpu_torch.utils.bench_frames import get_bench_frames
+
+    cfg, render = cs.make_render(512, "bfloat16", "cuda", **(REF_MODE if name == "c" else {}))
+    batch = batch_to_device(get_bench_frames(cfg, 1)[0], torch.device("cuda"))
+    captured, real = [], demo.fused_point_stages_from_tables
+    demo.fused_point_stages_from_tables = lambda *a, **k: captured.append((a, k)) or real(*a, **k)
+    try:
+        with torch.no_grad():
+            render.render_demo_fn()(batch)
+    finally:
+        demo.fused_point_stages_from_tables = real
+    args, kw = captured[0]
+    args = (*args[:4], args[4].to(torch.uint8), *args[5:])
+    (tabs, feats, vmask, sig_ok), kw_rows = ps.gather_from_tables(*args[:5], **kw)
+    P, reps = vmask.shape[1], 10 if vmask.shape[1] < 10**6 else 4
+    times = {}
+    for _ in range(2):
+        for vname in [v for v in variants if v != "clock64 marks"]:
+            ps._libs[form, True] = libs[vname, name, True]
+            times.setdefault(f"tables entry, {vname}", []).append(
+                cs.cuda_ms(lambda: ps.fused_point_stages_from_tables(*args, **kw), reps))
+        ps._libs[form, True] = libs["kernel", name, True]
+        times.setdefault("rows entry", []).append(cs.cuda_ms(
+            lambda: ps.fused_point_stages_tabs(tabs, feats, vmask, sig_ok, args[5], **kw_rows), reps))
+        times.setdefault("gathers", []).append(
+            cs.cuda_ms(lambda: ps.gather_from_tables(*args[:5], **kw), reps))
+    print(f"# probe on {card}: form ({name}) on bench frame 0's inputs, P={P}, ms (two rounds): "
+          + "; ".join(f"{k} {v[0]:.4f} {v[1]:.4f}" for k, v in times.items()), flush=True)
 
 
 if __name__ == "__main__":
