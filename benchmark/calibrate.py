@@ -34,12 +34,12 @@ def view_readings(spec, seeds, control_seeds, device):
     from gpnerf_tpu_torch.render.demo import pred_img_hwc
 
     from benchmark import check, pool, system
-    from benchmark.reference import tasks
 
     conf, traffic = spec.conf, spec.traffic
     cfg = conf["cfg"]
+    tasks = system.reference(conf)
     system.float32_without_tf32()
-    render = system.demo_renderer(conf, device)
+    render = system.views_program(conf, device)
     fn = render.render_demo_fn()
     out = {"program": {}, "control": {}}
     for seed in seeds:
@@ -67,30 +67,38 @@ def view_readings(spec, seeds, control_seeds, device):
 
 @contextlib.contextmanager
 def half_batch():
-    """The program's criterion over the first half of each batch's rays
-    only: the mean taken over the rest."""
-    from gpnerf_tpu_torch.train import criterion
+    """The criterion that the train step built, whatever its class, over
+    the first half of each batch's rays only: the rest marked invalid in
+    `ray_valid`, which the data layer gives every batch, so the mean is
+    taken over the first half."""
+    from benchmark import system
 
-    orig = criterion.Criterion.__call__
+    init = system.TrainStep.__init__
 
-    def half(self, ret, batch, is_train=True):
-        n = batch["ray_valid"].shape[0] // 2
-        cut = dict(batch, ray_valid=batch["ray_valid"].clone())
-        cut["ray_valid"][n:] = 0
-        return orig(self, ret, cut, is_train)
+    def halved(self, *args, **kw):
+        init(self, *args, **kw)
+        whole = self.criterion
 
-    criterion.Criterion.__call__ = half
+        def half(ret, batch, *a, **k):
+            n = batch["ray_valid"].shape[0] // 2
+            cut = dict(batch, ray_valid=batch["ray_valid"].clone())
+            cut["ray_valid"][n:] = 0
+            return whole(ret, cut, *a, **k)
+
+        self.criterion = half
+
+    system.TrainStep.__init__ = halved
     try:
         yield
     finally:
-        criterion.Criterion.__call__ = orig
+        system.TrainStep.__init__ = init
 
 
 def train_readings(spec, seeds, control_seeds, device):
     from benchmark import check, loops, system
-    from benchmark.reference import tasks
 
     system.float32_without_tf32()
+    tasks = system.reference(spec.conf)
     conf, traffic = spec.conf, dict(spec.traffic, batches=spec.traffic["check_steps"])
     out = {"program": {}, "control": {}, "half_batch": {}}
     for seed in seeds:
@@ -109,6 +117,9 @@ def train_readings(spec, seeds, control_seeds, device):
             with half_batch():
                 fault = loops.TrainSteps(conf, traffic, seed, device)
                 fault.setup()
+            if fault.readings["losses"] == prog["losses"]:
+                raise SystemExit(f"{conf['name']}: the half-batch fault moved no loss; "
+                                 "the criterion does not weigh rays by `ray_valid`")
             out["half_batch"][seed] = check.train_numbers(fault.readings, ref)
             fault.release()
             emit("half_batch", seed, out["half_batch"][seed])

@@ -29,6 +29,11 @@ import numpy as np
 STILL_LEAF = 1e-3
 
 
+def leaf_norms(named):
+    """{leaf name: the float64 norm of its tensor}."""
+    return {n: float(t.detach().double().norm()) for n, t in named}
+
+
 def view_numbers(prog, ref):
     """{number: worst value} over the items `ref` holds; `prog` holds
     each item's image."""

@@ -6,11 +6,13 @@ reference's check, and the result line.
 The cell, its configuration and its metrics come from BENCHMARK.json at the
 root of the checkout; the configuration's file, the traffic file
 (benchmark/traffic/<traffic>.json) and each per-layer metric's reader
-(benchmark/metrics/<metric>.py) are found by name. With `--trace 0` the
-line's metrics are the cell's end-to-end metrics; with `--trace 1` the loop
-runs one traced stretch (the traffic file's `trace_seconds`) under the
-profiler and the line's metrics are the cell's per-layer metrics. Both
-decide `correct` the same way (benchmark/check.py).
+(benchmark/metrics/<metric>.py) are found by name, and the configuration
+names the program each loop runs and the reference that checks it
+(benchmark/system.py). With `--trace 0` the line's metrics are the cell's
+end-to-end metrics; with `--trace 1` the loop runs one traced stretch (the
+traffic file's `trace_seconds`) under the profiler and the line's metrics
+are the cell's per-layer metrics. Both decide `correct` the same way
+(benchmark/check.py).
 """
 
 from __future__ import annotations
@@ -102,10 +104,12 @@ class Context:
         self.__dict__.update(kw)
 
 
-def main(argv=None, *, t0=None, need_cuda=True, overrides=None):
+def main(argv=None, *, t0=None, need_cuda=True, overrides=None, root=ROOT):
+    """One run; `root` is the directory that holds BENCHMARK.json (paths in
+    it are from there)."""
     t0 = time.perf_counter() if t0 is None else t0
     args = parse(argv)
-    spec = Spec(args.workload)
+    spec = Spec(args.workload, root)
     conf, traffic = spec.conf, dict(spec.traffic)
     if overrides:
         conf = overrides(conf, traffic)
@@ -113,8 +117,9 @@ def main(argv=None, *, t0=None, need_cuda=True, overrides=None):
     import torch
 
     from benchmark import check, loops, pool, system
-    from benchmark.reference import tasks
     from benchmark.trace import traced
+
+    reference = system.reference(conf)
 
     chips = spec.cell["chips"]
     if need_cuda:
@@ -157,8 +162,8 @@ def main(argv=None, *, t0=None, need_cuda=True, overrides=None):
         loop.release()
         if device.type == "cuda":
             torch.cuda.empty_cache()
-        ref = tasks.render_items(conf, loop.scene, loop.poses, loop.cams,
-                                 args.seed, items, device)
+        ref = reference.render_items(conf, loop.scene, loop.poses, loop.cams,
+                                     args.seed, items, device)
         numbers = check.view_numbers(prog, ref)
         ref_ctx = {"ref": ref, "items": w["items"]}
     else:
@@ -168,12 +173,12 @@ def main(argv=None, *, t0=None, need_cuda=True, overrides=None):
         loop.release()
         if device.type == "cuda":
             torch.cuda.empty_cache()
-        ref = tasks.train_readings(conf, loop.scene, loop.poses, loop.cams,
-                                   args.seed, t_rands, device)
+        ref = reference.train_readings(conf, loop.scene, loop.poses, loop.cams,
+                                       args.seed, t_rands, device)
         numbers = check.train_numbers(prog, ref)
         if args.trace:
-            ref_ctx = {"sites": tasks.train_sites(conf, loop.scene, loop.poses, loop.cams,
-                                                  args.seed, len(loop.poses))}
+            ref_ctx = {"sites": reference.train_sites(conf, loop.scene, loop.poses,
+                                                      loop.cams, args.seed, len(loop.poses))}
     correct, rows = check.judge(numbers, limits)
 
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"

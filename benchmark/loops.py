@@ -3,12 +3,15 @@ with it. A traffic file names its loop and holds its parameters:
 
   * `views`: a closed loop of one client; each request is one novel view,
     timed from its host batch to its image on the host: the batch's upload
-    (`render/base.py` batch_to_device), `render_demo_fn()`, and the image's
-    download. The requests cycle, in a seeded order, through a pool of
-    `pool` items built in set-up (benchmark/pool.py);
+    (`render/base.py` batch_to_device), the program's `render_demo_fn()`,
+    and the image's download (`render/demo.py` pred_img_hwc). The
+    requests cycle, in a seeded order, through a pool of `pool` items
+    built in set-up (benchmark/pool.py);
   * `train_steps`: a closed loop of optimizer steps (`train/step.py`
     train_step), cycling through `batches` train batches built and
     uploaded in set-up, each with its seeded jitter draws.
+
+The programs are those the configuration names (benchmark/system.py).
 
 Each loop's set-up builds its inputs and the program, warms every shape
 the window uses, and, for training, drives the first `check_steps` steps
@@ -24,10 +27,9 @@ import time
 import numpy as np
 import torch
 
-from benchmark import pool, system
-from benchmark.trace import hook_span
+from benchmark import check, pool, system
 
-REQUEST, STEP, ENCODER = "bench.request", "bench.step", "bench.encoder"
+REQUEST, STEP = "bench.request", "bench.step"
 
 
 def _sync(device):
@@ -54,7 +56,7 @@ class Views:
                                self.cfg)
         self.host = pool.build_batches(ds, self.seed, range(n), pool.VIEW_TAG)
         self.order = pool.request_order(self.seed, n)
-        self.render = system.demo_renderer(self.conf, self.device)
+        self.render = system.views_program(self.conf, self.device)
         self.fn = self.render.render_demo_fn()
         self.last = {}
         self.served = 0
@@ -73,19 +75,17 @@ class Views:
         the items served in order, and the window's length (s)."""
         n = len(self.host)
         lat, items = [], []
-        hook = hook_span(self.render.encoder, ENCODER) if spans else contextlib.nullcontext()
-        with hook:
-            t_start = time.perf_counter()
-            deadline = t_start + seconds
-            while time.perf_counter() < deadline:
-                i = self.order[self.served % n]
-                t0 = time.perf_counter()
-                with _span(REQUEST, spans):
-                    self._request(i)
-                lat.append(time.perf_counter() - t0)
-                items.append(int(i))
-                self.served += 1
-            t_end = time.perf_counter()
+        t_start = time.perf_counter()
+        deadline = t_start + seconds
+        while time.perf_counter() < deadline:
+            i = self.order[self.served % n]
+            t0 = time.perf_counter()
+            with _span(REQUEST, spans):
+                self._request(i)
+            lat.append(time.perf_counter() - t0)
+            items.append(int(i))
+            self.served += 1
+        t_end = time.perf_counter()
         return {"latencies": lat, "items": items, "seconds": t_end - t_start, "start": t_start}
 
     @staticmethod
@@ -142,9 +142,9 @@ class TrainSteps:
     def _checked_steps(self, steps):
         """The first `steps` steps, through the window's own call, with
         what the reference checks: each loss, each leaf's first gradient
-        (Adam's first moment over 1 - beta1 after step 1) and change."""
-        from benchmark.reference.tasks import ADAM_BETAS, leaf_norms
-
+        (Adam's first moment over 1 - beta1 after step 1, beta1 the
+        program's optimizer's) and change."""
+        beta1 = self.step.optimizer.param_groups[0]["betas"][0]
         params = dict(self.step.render.named_parameters())
         start = {n: p.detach().clone() for n, p in params.items()}
         losses, grad1 = [], None
@@ -152,9 +152,9 @@ class TrainSteps:
             losses.append(self._one()["loss"].item())
             if k == 0:
                 st = self.step.optimizer.state
-                grad1 = {n: float((st[p]["exp_avg"] / (1 - ADAM_BETAS[0])).double().norm())
+                grad1 = {n: float((st[p]["exp_avg"] / (1 - beta1)).double().norm())
                          if p in st else 0.0 for n, p in params.items()}
-        change = leaf_norms((n, p - start[n]) for n, p in params.items())
+        change = check.leaf_norms((n, p - start[n]) for n, p in params.items())
         _sync(self.device)
         return {"losses": losses, "grad1": grad1, "change": change}
 

@@ -1,9 +1,10 @@
 """Device milliseconds per request of the kernels launched inside the
-forward of the renderer's encoder (`Renderer.encoder`, models/encoder.py)."""
+program's encoder span, `gpnerf.encoder` (render/demo.py
+`Renderer._encode`: the source images' normalisation and the ResUNet
+encoder, models/encoder.py)."""
 
-from benchmark.loops import ENCODER
+from benchmark import spans
 
 
 def read(ctx):
-    s = ctx.trace.span_device_s(ENCODER)
-    return s / ctx.trace.units * 1e3 if s and ctx.trace.units else None
+    return spans.per_request(ctx.trace, spans.device_ms(ctx.trace, "gpnerf.encoder"))

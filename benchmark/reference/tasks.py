@@ -1,12 +1,18 @@
 """What the reference computes for a run once its window has closed: the
 renders of the checked requests, and the first steps of training, each
-from the benchmark's raw inputs and the configuration's weights."""
+from the benchmark's raw inputs and the configuration's weights.
+
+GP-NeRF's reference module, which a configuration without a `reference`
+key names (benchmark/system.py). A reference module of another
+architecture has `render_items`, `train_readings` and `train_sites` as
+here."""
 
 from __future__ import annotations
 
 import torch
 
 from benchmark import pool
+from benchmark.check import leaf_norms
 from benchmark.reference import build
 from benchmark.reference.eager.data.base import HumanNVSDataset
 from benchmark.reference.eager.render.base import batch_to_device
@@ -44,10 +50,6 @@ def render_items(conf, scene, poses, cams, seed, items, device, control=False):
             out[i] = render_outputs(model.render_demo(batch_to_device(hb, device)), hb)
     del model
     return out
-
-
-def leaf_norms(named):
-    return {n: float(t.detach().double().norm()) for n, t in named}
 
 
 def train_readings(conf, scene, poses, cams, seed, t_rands, device, control=False):

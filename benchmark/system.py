@@ -1,10 +1,29 @@
 """The system under test: the PyTorch and CUDA port, `gpnerf_tpu_torch`,
 reached only through its public entry points. Nothing here imports JAX or
-the JAX package."""
+the JAX package.
+
+A configuration file may name what its cells run and what checks them:
+
+  * `"program": {"views": <name>, "train_steps": <name>}`: for each loop,
+    a builder of kind `render` in the port's registry (`registry.get`);
+    a loop the key leaves out runs GP-NeRF's (`PROGRAMS`);
+  * `"reference": <dotted module>`: the plain reference that decides
+    `correct` (`REFERENCE` without the key), with `render_items`,
+    `train_readings` and `train_sites` as `benchmark/reference/tasks.py`
+    has them.
+
+The criterion of a train step is the registry's `criterion` builder that
+the port's configuration names (`train.criterion_file`).
+"""
 
 from __future__ import annotations
 
+import importlib
+
 from benchmark.reference.build import check_weights
+
+PROGRAMS = {"views": "DemoRender", "train_steps": "BaseRender"}
+REFERENCE = "benchmark.reference.tasks"
 
 
 def float32_without_tf32():
@@ -31,6 +50,28 @@ def port_cfg(conf, device):
     return cfg
 
 
+def builder(conf, loop):
+    """The registry's `render` builder that runs the loop `loop` for the
+    configuration; a name the registry lacks stops the run."""
+    from gpnerf_tpu_torch.registry import get
+
+    name = conf.get("program", {}).get(loop, PROGRAMS[loop])
+    try:
+        return get("render", name)
+    except KeyError:
+        raise SystemExit(f"configuration {conf['name']!r}: program.{loop} is {name!r}, "
+                         "which the port's registry holds no `render` builder for") from None
+
+
+def reference_name(conf):
+    return conf.get("reference", REFERENCE)
+
+
+def reference(conf):
+    """The configuration's reference module."""
+    return importlib.import_module(reference_name(conf))
+
+
 def data_layer():
     from gpnerf_tpu_torch.data.base import HumanNVSDataset
 
@@ -43,32 +84,31 @@ def to_device(batch, device):
     return batch_to_device(batch, device)
 
 
-def demo_renderer(conf, device):
-    """The progressive renderer (`render/demo.py` build_render) with the
-    configuration's weights."""
-    from gpnerf_tpu_torch.render.demo import build_render
+def views_program(conf, device):
+    """The program of the `views` loop (GP-NeRF's: the progressive renderer,
+    `render/demo.py`) with the configuration's weights, in eval mode."""
     from gpnerf_tpu_torch.train.checkpoint import load_eval_model
 
-    render = build_render(port_cfg(conf, device), device=device)
+    render = builder(conf, "views")(port_cfg(conf, device), device=device)
     load_eval_model(check_weights(conf["weights"]), render)
     return render.eval()
 
 
 class TrainStep:
     """The port's training step (`train/step.py` train_step) over the
-    training renderer (`render/base.py` build_render) from the
-    configuration's weights, its criterion and its AdamW."""
+    program of the `train_steps` loop (GP-NeRF's: the training renderer,
+    `render/base.py`) from the configuration's weights, its criterion and
+    its AdamW."""
 
     def __init__(self, conf, device):
-        from gpnerf_tpu_torch.render.base import build_render
+        from gpnerf_tpu_torch.registry import get
         from gpnerf_tpu_torch.train.checkpoint import load_eval_model
-        from gpnerf_tpu_torch.train.criterion import build_criterion
         from gpnerf_tpu_torch.train.step import make_optimizer
 
         cfg = port_cfg(conf, device)
-        self.render = build_render(cfg, device=device)
+        self.render = builder(conf, "train_steps")(cfg, device=device)
         load_eval_model(check_weights(conf["weights"]), self.render)
-        self.criterion = build_criterion(cfg)
+        self.criterion = get("criterion", cfg.train.criterion_file)(cfg)
         self.optimizer, self.scheduler, _ = make_optimizer(self.render, cfg)
 
     def __call__(self, batch, t_rand):

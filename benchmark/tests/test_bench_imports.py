@@ -2,10 +2,14 @@
 reference no top-level module name in `sys.modules` is `jax`, `jaxlib`,
 `flax` or the JAX package `gpnerf_tpu` (whole names: the port's name
 begins with the JAX package's); no file under benchmark/ imports them, and
-no file of the reference imports the port. In a directory that holds only
+no file of the reference imports the port. Each configuration's reference
+module is held to the same: no file of its directory imports them or the
+port, and importing it loads none of them. In a directory that holds only
 BENCHMARK.json and benchmark/, a run fails with no result line."""
 
 import ast
+import importlib.util
+import json
 import os
 import shutil
 import subprocess
@@ -13,10 +17,22 @@ import sys
 
 import pytest
 
+from benchmark import system
+
 from conftest import ROOT
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "gpnerf_tpu"}
 BENCH = os.path.join(ROOT, "benchmark")
+
+CONFS = {c["name"]: json.load(open(os.path.join(ROOT, c["file"])))
+         for c in json.load(open(os.path.join(ROOT, "BENCHMARK.json")))["configs"]}
+
+IMPORT = """
+import json, sys
+sys.path.insert(0, {root!r})
+import {module}
+print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})))
+"""
 
 RUN = """
 import json, sys
@@ -51,7 +67,7 @@ def test_a_run_loads_no_jax(cell):
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=ROOT, timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
-    res = __import__("json").loads(out.stdout.strip().splitlines()[-1])
+    res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res == {"rc": 0, "correct": True, "bad": []}
 
 
@@ -73,3 +89,17 @@ def test_fails_without_the_program(tmp_path):
                          cwd=tmp_path, timeout=600)
     assert out.returncode != 0 and out.stdout == ""
     assert "gpnerf_tpu_torch" in out.stderr
+
+
+@pytest.mark.parametrize("conf", sorted(CONFS))
+def test_each_configurations_reference_imports_no_jax_and_no_port(conf):
+    module = system.reference_name(CONFS[conf])
+    top = os.path.dirname(importlib.util.find_spec(module).origin)
+    for path in python_files(top):
+        for mod in imported(path):
+            assert mod.split(".")[0] not in FORBIDDEN | {"gpnerf_tpu_torch"}, (path, mod)
+    code = IMPORT.format(root=ROOT, module=module, forbidden=FORBIDDEN | {"gpnerf_tpu_torch"})
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

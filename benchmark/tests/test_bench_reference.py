@@ -13,7 +13,6 @@ import torch
 
 from benchmark import pool, system
 from benchmark.harness import Spec
-from benchmark.reference import tasks
 from benchmark.reference.eager.data.base import HumanNVSDataset as RefDataset
 
 from conftest import SEED, small
@@ -54,8 +53,8 @@ def test_render_agrees_with_the_port_in_float32(cell):
     scene = pool.new_scene(cfg)
     poses, cams = pool.view_items(SEED, 2, pool.img_hw(cfg))
     ds = pool.make_dataset(system.data_layer(), scene, poses, cams, "test", cfg)
-    render = system.demo_renderer(conf, CPU)
-    ref = tasks.render_items(conf, scene, poses, cams, SEED, [0, 1], CPU)
+    render = system.views_program(conf, CPU)
+    ref = system.reference(conf).render_items(conf, scene, poses, cams, SEED, [0, 1], CPU)
     for i in (0, 1):
         ret = render.render_demo(system.to_device(
             pool.build_batches(ds, SEED, [i], pool.VIEW_TAG)[0], CPU))
@@ -74,8 +73,8 @@ def test_train_steps_agree_with_the_port():
     traffic["batches"] = traffic["check_steps"]
     run = loops.TrainSteps(conf, traffic, SEED, CPU)
     run.setup()
-    ref = tasks.train_readings(conf, run.scene, run.poses, run.cams, SEED,
-                               run.jitter, CPU)
+    ref = system.reference(conf).train_readings(conf, run.scene, run.poses, run.cams, SEED,
+                                                run.jitter, CPU)
     gaps = check.train_numbers(run.readings, ref)
     # float32 on both sides; the batches' near and far differ by the native
     # slab test's rounding

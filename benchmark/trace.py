@@ -1,13 +1,12 @@
 """The traced window: a `torch.profiler` run over the harness's spans, read
 back from its Chrome trace and reduced to what the per-layer readers take.
 
-Spans are `record_function` ranges that the harness opens: `bench.window`
-around the traced window, one `bench.request` or `bench.step` per unit of
-work, and the hook spans that `hook_span` opens around a module of the
-program. `Trace` holds, over the window:
+Spans are `record_function` ranges: the harness opens `bench.window`
+around the traced window and one `bench.request` or `bench.step` per unit
+of work; the program opens its own inside them (benchmark/spans.py reads
+those). `Trace` holds, over the window:
   * the device activity (kernels, copies, fills) and its union, `busy_s`;
   * the host's runtime calls: kernel launches and blocking calls;
-  * the device time of the kernels launched inside each hook span;
   * `device_ops`, the kernels that took most time (the aggregation of
     gpnerf_tpu_torch/utils/profiling.py `kernel_table` at commit ffa1347,
     on the trace's events), and `idle_gaps`, the device's idle time by the
@@ -18,7 +17,6 @@ from __future__ import annotations
 
 import bisect
 import collections
-import contextlib
 import json
 import os
 import tempfile
@@ -37,28 +35,6 @@ SYNCS = {"cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize
 WINDOW = "bench.window"
 TOP = 10
 NAME_CHARS = 160
-
-
-@contextlib.contextmanager
-def hook_span(module, name):
-    """Open the span `name` around every forward of `module` while the
-    context is held."""
-    spans = []
-
-    def pre(_m, _args):
-        rf = torch.profiler.record_function(name)
-        rf.__enter__()
-        spans.append(rf)
-
-    def post(_m, _args, _out):
-        spans.pop().__exit__(None, None, None)
-
-    handles = [module.register_forward_pre_hook(pre), module.register_forward_hook(post)]
-    try:
-        yield
-    finally:
-        for h in handles:
-            h.remove()
 
 
 def _union(intervals):
@@ -108,23 +84,6 @@ class Trace:
     def kernel_time_s(self, fragment):
         """Device seconds of the kernels whose name holds `fragment`."""
         return sum(v for k, v in self.kernel_s.items() if fragment in k)
-
-    def span_device_s(self, span):
-        """Device seconds of the kernels launched inside the spans `span`."""
-        spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in self._host
-                       if e["cat"] == "user_annotation" and e["name"] == span)
-        if not spans:
-            return None
-        starts = [s for s, _ in spans]
-        corr = {}
-        for e in self._host:
-            if e["name"] in LAUNCHES:
-                i = bisect.bisect_right(starts, e["ts"]) - 1
-                if i >= 0 and e["ts"] <= spans[i][1]:
-                    corr[e.get("args", {}).get("correlation")] = True
-        corr.pop(None, None)
-        return sum(e["dur"] for e in self._dev if e["cat"] == "kernel"
-                   and e.get("args", {}).get("correlation") in corr) / 1e6
 
     def _idle_gaps(self, busy, w0, w1):
         edges = [w0] + [x for s, e in busy for x in (s, e)] + [w1]
