@@ -2,11 +2,14 @@
 (gpnerf_tpu/models/sparse_net.py; reference SparseConvNet.py:90-143).
 
 Layer stack (the reference's `net` ModuleList, whose indices the parameter
-names keep): net.0 = double_conv at the input level, then per level i
-net.{2i+1} = stride conv (k3 s2) and net.{2i+2} = double_conv. Each conv is
-SubM/SparseConv3d (bias-free) + BatchNorm1d(eps 1e-3, running statistics)
-+ ReLU, run through the host rulebooks (ops/sparse_conv.py). Per-level
-features are taken after each level's double_conv.
+names keep): net.0 = the submanifold convs at the input level, then per
+level i net.{2i+1} = stride conv (k3 s2) and net.{2i+2} = the level's
+submanifold convs. Each conv is SubM/SparseConv3d (bias-free) +
+BatchNorm1d(eps 1e-3, running statistics) + ReLU, run through the host
+rulebooks (ops/sparse_conv.py); conv k of a block is `net.{b}.{3k}` and its
+BatchNorm `net.{b}.{3k+1}`. GP-NeRF runs two convs at every level (its
+double_conv); Neural Body (models/neural_body.py) three at levels 2-4
+(`convs`). Per-level features are taken after each level's convs.
 
 `sparse_net_dense_eval` is the eval-only dense-convolution form of the same
 stack (the renderer's `dense_conv`): each level's convs run as dense 3D
@@ -65,15 +68,23 @@ class SparseConvWeight(nn.Module):
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
 
-class _DoubleConv(nn.Sequential):
-    def __init__(self, cin, cout):
-        super().__init__(
-            SparseConvWeight(cin, cout), MaskedBatchNorm(cout), nn.ReLU(),
-            SparseConvWeight(cout, cout), MaskedBatchNorm(cout), nn.ReLU(),
-        )
+class _SubmConvs(nn.Sequential):
+    """`n` submanifold convs of one level, cin -> cout then cout -> cout
+    (the reference's double_conv at n = 2, Neural Body's triple_conv at 3)."""
+
+    def __init__(self, cin, cout, n=2):
+        mods = []
+        for k in range(n):
+            mods += [SparseConvWeight(cin if k == 0 else cout, cout), MaskedBatchNorm(cout),
+                     nn.ReLU()]
+        super().__init__(*mods)
+
+    def pairs(self):
+        """[(conv, BatchNorm)] in order."""
+        return [(self[k], self[k + 1]) for k in range(0, len(self), 3)]
 
     def run(self, x, level, compute_dtype, train=False):
-        for conv, bn in ((self[0], self[1]), (self[3], self[4])):
+        for conv, bn in self.pairs():
             x = subm_conv_tbl(x, level, conv.taps(), compute_dtype=compute_dtype)
             x = F.relu(bn(x, level.valid, train=train))
         return x
@@ -91,17 +102,20 @@ class _StrideConv(nn.Sequential):
 class SparseConvNet(nn.Module):
     """`compute_dtype`: each conv's input and weight are cast to it before
     the row gather, the sums are float32 (ops/sparse_conv.py), the
-    BatchNorms float32, so the level features are float32."""
+    BatchNorms float32, so the level features are float32. `convs`: the
+    submanifold convs at levels 0..n_layers (two at each by default)."""
 
     def __init__(self, in_dim=32, n_layers=4, out_dim=(32, 32, 32, 32),
-                 compute_dtype=None):
+                 compute_dtype=None, convs=None):
         super().__init__()
         self.n_layers = n_layers
         self.compute_dtype = compute_dtype
-        mods = [_DoubleConv(in_dim, in_dim)]
+        convs = (2,) * (n_layers + 1) if convs is None else tuple(convs)
+        mods = [_SubmConvs(in_dim, in_dim, convs[0])]
         cin = in_dim
         for i in range(n_layers):
-            mods += [_StrideConv(cin, out_dim[i]), _DoubleConv(out_dim[i], out_dim[i])]
+            mods += [_StrideConv(cin, out_dim[i]),
+                     _SubmConvs(out_dim[i], out_dim[i], convs[i + 1])]
             cin = out_dim[i]
         self.net = nn.ModuleList(mods)
 
@@ -208,7 +222,7 @@ def _dense_mask(level):
 def sparse_net_dense_eval(net: SparseConvNet, code, levels, *, compute_dtype=None):
     """Eval-only dense-convolution form of `SparseConvNet.features`
     (gpnerf_tpu/models/sparse_net.py `sparse_net_dense_eval`): the input
-    level's double conv and the first strided conv run in rows form on the
+    level's submanifold convs and the first strided conv run in rows form on the
     host rulebooks, then each level's convs run dense over the zero-filled
     level volume, re-masked to the active set (a submanifold conv is a dense
     conv whose output is kept at the active sites; inactive inputs add 0),
@@ -217,8 +231,7 @@ def sparse_net_dense_eval(net: SparseConvNet, code, levels, *, compute_dtype=Non
     volumes [(D_i, H_i, W_i, out_dim[i-1]) for levels 1..n_layers], zero at
     inactive sites."""
     x = code
-    subm0 = net.net[0]
-    for conv, bn in ((subm0[0], subm0[1]), (subm0[3], subm0[4])):
+    for conv, bn in net.net[0].pairs():
         x = subm_conv_tbl(x, levels[0], conv.taps(), compute_dtype=compute_dtype)
         x = F.relu(_bn_affine(x, bn))
     down0 = net.net[1]
@@ -232,8 +245,7 @@ def sparse_net_dense_eval(net: SparseConvNet, code, levels, *, compute_dtype=Non
             down = net.net[2 * i + 1]
             vol = _conv3d(vol, down[0].taps(), 2, compute_dtype)
             vol = F.relu(_bn_affine(vol, down[1])) * mask
-        dc = net.net[2 * i + 2]
-        for conv, bn in ((dc[0], dc[1]), (dc[3], dc[4])):
+        for conv, bn in net.net[2 * i + 2].pairs():
             vol = _conv3d(vol, conv.taps(), 1, compute_dtype)
             vol = F.relu(_bn_affine(vol, bn)) * mask
         vols.append(vol)

@@ -2,7 +2,11 @@
 reference BaseRender.py:75-107): distance-free opacity alpha = 1 -
 exp(-sigma), shifted-cumprod transmittance with the 1e-10 stabilizer, and
 the more-than-8-valid-samples ray mask. `neg` flips the sample order for
-THuman's flipped ray parameterization."""
+THuman's flipped ray parameterization.
+
+`raw2outputs_distance` is Neural Body's compositing (zju3dv/neuralbody
+lib/networks/renderer/if_clight_renderer.py, its raw2outputs): opacity
+from the density and the sample spacing, no ray mask."""
 
 from __future__ import annotations
 
@@ -60,3 +64,18 @@ def composite_scattered(rgb, alpha, n_rays, n_samples):
     alpha = alpha.reshape(n_rays, n_samples)
     weights = alpha * shifted_transmittance(alpha)
     return (weights[..., None] * rgb).sum(dim=1), weights
+
+
+def raw2outputs_distance(raw, z_vals, rays_d):
+    """Neural Body's compositing, without noise or white background: the
+    rgb map (N_rays, 3) of raw (N_rays, N_samples, 4), rgb then sigma; rgb
+    = sigmoid(raw rgb), alpha = 1 - exp(-relu(sigma) * delta), delta the
+    spacing to the next sample (1e10 after the last) times |d|; the
+    transmittance as `shifted_transmittance`. Every ray is kept."""
+    dists = z_vals[..., 1:] - z_vals[..., :-1]
+    dists = torch.cat([dists, torch.full_like(dists[..., :1], 1e10)], dim=-1)
+    dists = dists * torch.linalg.norm(rays_d, dim=-1)[..., None]
+    rgb = torch.sigmoid(raw[..., :3])
+    alpha = 1.0 - torch.exp(-torch.relu(raw[..., 3]) * dists)
+    weights = alpha * shifted_transmittance(alpha)
+    return (weights[..., None] * rgb).sum(dim=-2)

@@ -29,6 +29,7 @@ def get(kind: str, name: str) -> Callable:
     import gpnerf_tpu_torch.models.heads  # noqa: F401
     import gpnerf_tpu_torch.render.base  # noqa: F401
     import gpnerf_tpu_torch.render.demo  # noqa: F401
+    import gpnerf_tpu_torch.render.neural_body  # noqa: F401
     import gpnerf_tpu_torch.train.criterion  # noqa: F401
     import gpnerf_tpu_torch.train.trainer  # noqa: F401
 
