@@ -97,6 +97,12 @@ Phases, each fatal on failure:
      thresholded alpha clouds interleaving within 2 voxels, and each
      renderer's alpha cube at 128^2 and 0.02 m on the card against the
      CPU's;
+  3n. Neural Body's point-network kernel (csrc/nbody_points.cu) on frame 0
+     of the cell `nbody-zju-views` (its seeded scene, poses and checkpoint):
+     one request through `render_demo` launches it once; its raw against
+     the plain version's on the same inputs (error over each channel's
+     range: mean < 1e-5, largest < 1e-2); CUDA-event times of the kernel,
+     the plain version and the torch path it replaced, beside its bound;
   3k. switch sets and view counts whose kernel is built from the key: 3
      frames each of the paper tables with sigma_query_cull and
      coarse_nearest 0 (c+e@coarse-octet) and of merge_src_feat with
@@ -866,6 +872,73 @@ def timed_render_mesh(render, batch):
             base_mod.mesh_volume = real_volume
     torch.cuda.synchronize()
     return out, ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]), mc_ms[0]
+
+
+NBODY_CELL, NBODY_SEED = "nbody-zju-views", 2147527001
+
+
+def nbody_phase(card):
+    """Phase 3n: Neural Body's point-network kernel on frame 0 of its
+    cell; returns its `kernels` entry."""
+    import torch
+
+    from benchmark import pool, system
+    from benchmark.harness import Spec
+    from gpnerf_tpu_torch.ops import nbody_points as nbp
+    from gpnerf_tpu_torch.ops.rays import sample_z_vals
+
+    dev = torch.device("cuda")
+    spec = Spec(NBODY_CELL)
+    cfg = spec.conf["cfg"]
+    scene = pool.new_scene(cfg)
+    poses, cams = pool.view_items(NBODY_SEED, spec.traffic["pool"], pool.img_hw(cfg))
+    ds = pool.make_dataset(system.data_layer(), scene, poses, cams, "test", cfg)
+    batch = system.to_device(pool.build_batches(ds, NBODY_SEED, [0], pool.VIEW_TAG)[0], dev)
+    render = system.views_program(spec.conf, dev)
+    nbp.LAUNCHES.clear()
+    img = render.render_demo_fn()(batch)["pred_chw"]
+    torch.cuda.synchronize()
+    launches = nbp.LAUNCHES["nbody_points"]
+    check(launches == 1 and bool(torch.isfinite(img).all()),
+          f"{NBODY_CELL}: a request launched the point-network kernel {launches} times")
+    n, S = int(batch["n_rays"]), render.n_samples
+    with torch.no_grad():
+        vols = render._volume(batch)
+        z_vals = sample_z_vals(batch["near"][:n], batch["far"][:n], S, perturb=False)
+        args = (render.net, vols, batch, batch["ray_o"][:n], batch["ray_d"][:n], z_vals,
+                render.net.latent_row(batch["latent_index"]), render.voxel_size)
+        # the replaced path: the same torch ops on contiguous channels-first volumes
+        parent_args = (render.net, [v.contiguous() for v in vols], *args[2:])
+        got = nbp.nbody_points(*args)
+        want = nbp.nbody_points_plain(*args, render.chunk_rays)
+        scale = want.abs().flatten(0, 1).amax(dim=0).clamp_min(1e-6)
+        rel = ((got - want).abs() / scale).flatten(0, 1)
+        mean_err, max_err = rel.mean(dim=0).tolist(), rel.amax(dim=0).tolist()
+        check(bool(torch.isfinite(got).all()) and max(mean_err) < 1e-5 and max(max_err) < 1e-2,
+              f"nbody_points against plain on {NBODY_CELL} frame 0: error over each channel's "
+              f"range mean {mean_err}, largest {max_err}")
+        check(torch.equal(nbp.nbody_points_plain(*parent_args, render.chunk_rays), want),
+              "nbody_points_plain differs from the replaced path")
+        k_ms = cuda_ms(lambda: nbp.nbody_points(*args), 20)
+        p_ms = cuda_ms(lambda: nbp.nbody_points_plain(*args, render.chunk_rays), 5)
+        lib_ms = cuda_ms(lambda: nbp.nbody_points_plain(*parent_args, render.chunk_rays), 5)
+    nbytes, flops = nbp.cost(vols, n, S)
+    flops_ms, bytes_ms = flops / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = max(flops_ms, bytes_ms), "flops" if flops_ms >= bytes_ms else "bytes"
+    log(f"# nbody_points vs plain on {NBODY_CELL} frame 0 (seed {NBODY_SEED}, {n} rays x {S} "
+        f"samples): error over each channel's range (rgb, sigma) mean {mean_err}, largest "
+        f"{max_err}")
+    log(f"# timing on {card}: nbody_points kernel {k_ms:.3f} ms at P={n * S} "
+        f"({flops / k_ms * 1e-9:.1f} TFLOP/s), plain {p_ms:.3f} ms, replaced torch path "
+        f"{lib_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+        f"{nbp.load_library().nbody_points_smem_bytes()} B dynamic shared memory a block")
+    return {
+        "name": "nbody_points", "route": "cuda", "source": "gpnerf_tpu_torch/csrc/nbody_points.cu",
+        "replaces": None,  # the JAX package has no Neural Body
+        "launches": launches, "max_abs_err": float((got - want).abs().max()),
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": lib_ms,  # the torch path the kernel replaced (cuBLAS, grid_sample)
+    }
 
 
 def mesh_phase(card):
@@ -1969,6 +2042,7 @@ def main():
     profile = "--profile" in sys.argv[1:]
     all_keys = "--all-keys" in sys.argv[1:]
 
+    from gpnerf_tpu_torch.ops import nbody_points as nbp
     from gpnerf_tpu_torch.ops import point_stages as ps
     from gpnerf_tpu_torch.ops import quad_lerp as ql
     from gpnerf_tpu_torch.ops import row_gather as rg
@@ -1999,13 +2073,16 @@ def main():
     if all_keys:
         point_keys += [k for k in reachable_kernel_keys() if k not in point_keys]
     lerp_build, gather_build = ql.start_build(), rg.start_build()
+    nbody_build = nbp.start_build()
     build_point_keys(point_keys, jobs=(os.cpu_count() or 8) * 6)
     ql.load_library(lerp_build)
     rg.load_library(gather_build)
-    log(f"# built {len(point_keys)} instantiation(s) of csrc/point_stages.cu, csrc/quad_lerp.cu and "
-        f"csrc/row_gather.cu in {time.perf_counter() - t0:.1f} s")
+    nbp.load_library(nbody_build)
+    log(f"# built {len(point_keys)} instantiation(s) of csrc/point_stages.cu, csrc/quad_lerp.cu, "
+        f"csrc/row_gather.cu and csrc/nbody_points.cu in {time.perf_counter() - t0:.1f} s")
     for name, entry in (("quad_lerp", ql.BUILD_LOG.get("quad_lerp")),
-                        ("row_gather", rg.BUILD_LOG.get("row_gather"))):
+                        ("row_gather", rg.BUILD_LOG.get("row_gather")),
+                        ("nbody_points", nbp.BUILD_LOG.get("nbody_points"))):
         for line in (entry or {}).get("output", "").splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"#   ptxas [{name}] {line.strip()}")
@@ -2751,6 +2828,11 @@ def main():
     torch.cuda.empty_cache()
     mesh_phase(card)
 
+    # ---- phase 3n: Neural Body's point-network kernel ----
+    torch.cuda.empty_cache()
+    kernels.append(nbody_phase(card))
+    torch.cuda.empty_cache()
+
     # ---- phase 5: the training path ----
     torch.cuda.empty_cache()
     f32 = train_phase(card, profile)
@@ -2822,8 +2904,9 @@ def main():
 
     log(f"# total {time.perf_counter() - t_all:.1f} s")
     want = {f"point_stages[{n}]" for n in [*ps.FORMS.values(), *key_modes]} | {
-        "quad_lerp_rows_vcp", "quad_lerp_rows_vcp[bf16 rows]", "quad_lerp_rows_cm", "row_gather"}
-    check(len(kernels) == len(want) == len(ps.FORMS) + len(key_modes) + 4
+        "quad_lerp_rows_vcp", "quad_lerp_rows_vcp[bf16 rows]", "quad_lerp_rows_cm", "row_gather",
+        "nbody_points"}
+    check(len(kernels) == len(want) == len(ps.FORMS) + len(key_modes) + 5
           and {k["name"] for k in kernels} == want and all(k["launches"] >= 1 for k in kernels),
           f"kernels line: {[(k['name'], k['launches']) for k in kernels]}")
     print(json.dumps({"kernels": kernels}))

@@ -97,19 +97,20 @@ class NeuralBody(nn.Module):
         return self.latent.weight[latent_index.long().clamp(0, n - 1).reshape(1)]
 
     def volumes(self, vertex_rows, levels, out_sh):
-        """The four level volumes of a frame, channels first (C_i, D_i,
-        H_i, W_i) float32 views at the frame's level sizes out_sh //
-        2^(i + 1) (out_sh three ints), zero at inactive sites: the vertex
-        codes at the level-0 rows (`vertex_rows`, -1 for padding) through
-        the sparse stack."""
+        """The four level volumes of a frame, (C_i, D_i, H_i, W_i) float32
+        views at the frame's level sizes out_sh // 2^(i + 1) (out_sh three
+        ints), zero at inactive sites: the vertex codes at the level-0 rows
+        (`vertex_rows`, -1 for padding) through the sparse stack. Each is a
+        view of the channels-last dense volume at the static level size
+        (ops/sparse_conv.py `scatter_dense`), each voxel's channels
+        contiguous, as ops/nbody_points.py's kernel reads them."""
         code = self.c.weight[vertex_rows.clamp_min(0)]
         code = torch.where((vertex_rows >= 0)[:, None], code, 0.0)
         feats = self.xyzc_net.features(code, levels)
         vols = []
         for i, f in enumerate(feats):
             D, H, W = (int(v) >> (i + 1) for v in out_sh)
-            vol = scatter_dense(f, levels[i + 1]).permute(3, 0, 1, 2).contiguous()
-            vols.append(vol[:, :D, :H, :W])
+            vols.append(scatter_dense(f, levels[i + 1]).permute(3, 0, 1, 2)[:, :D, :H, :W])
         return vols
 
     def query(self, vols, dhw_vox, out_sh):

@@ -9,17 +9,19 @@ evenly spaced samples each, no perturbation:
 
   * `nbody.volume`: the vertex codes through the sparse stack into the four
     dense volumes, once a frame;
-  * `nbody.points`: the samples in chunks of `chunk_rays` rays: each point
-    mapped world -> SMPL space ((x - Th) Rh) -> level-0 voxels, the
-    volumes' query, the encodings of the world point and of the view
-    direction, and the whole MLP (models/neural_body.py); no cull, no
-    skipped sample, no early ray termination;
+  * `nbody.points`: every sample through ops/nbody_points.py
+    `nbody_points` (one kernel launch on the card; on the CPU the torch
+    path in chunks of `chunk_rays` rays): each point mapped world -> SMPL
+    space ((x - Th) Rh) -> level-0 voxels, the volumes' query, the
+    encodings of the world point and of the view direction, and the whole
+    MLP (models/neural_body.py); no cull, no skipped sample, no early ray
+    termination;
   * `nbody.composite`: Neural Body's compositing
     (ops/compositing.py `raw2outputs_distance`) and the ray colors
     scattered into the image, black elsewhere, as `pred_chw`.
 
 Counters (utils/profiling.py): `nbody_points`, the samples run through the
-MLP, and `nbody_rays`.
+MLP, and `nbody_rays` (and the kernel's own `nbody_kernel_points`).
 
 The host pyramid (data/sparse_host.py) builds each level's active sites on
 the static `max_out_sh` grid; the source's sparse tensors span the frame's
@@ -35,10 +37,11 @@ from torch import nn
 
 from gpnerf_tpu_torch.models.neural_body import NeuralBody
 from gpnerf_tpu_torch.ops.compositing import raw2outputs_distance
-from gpnerf_tpu_torch.ops.rays import sample_points, sample_z_vals
+from gpnerf_tpu_torch.ops.nbody_points import nbody_points
+from gpnerf_tpu_torch.ops.rays import sample_z_vals
 from gpnerf_tpu_torch.ops.sparse_conv import SparseLevel
 from gpnerf_tpu_torch.registry import register
-from gpnerf_tpu_torch.render.base import grid_shapes, points_to_dhw_vox
+from gpnerf_tpu_torch.render.base import grid_shapes
 from gpnerf_tpu_torch.utils.profiling import count, span
 
 
@@ -50,12 +53,26 @@ def _drop_rows(table, keep):
 
 def frame_levels(batch, max_out_sh, n_levels=5):
     """The batch's sparse pyramid as SparseLevels, cut to the frame's
-    `out_sh` (level i spans out_sh // 2^i)."""
+    `out_sh` (level i spans out_sh // 2^i). A frame whose `out_sh` is the
+    static grid has nothing to cut: every site lies inside it and the
+    rulebooks point at valid rows only (data/sparse_host.py), so its levels
+    are the batch's as they are, with no launch."""
     shapes = grid_shapes(max_out_sh, n_levels)
+    if tuple(int(v) for v in batch["out_sh"]) == tuple(max_out_sh):
+        return [SparseLevel(batch[f"lvl{i}_coords"], batch[f"lvl{i}_valid"],
+                            batch[f"lvl{i}_nbr"], batch.get(f"lvl{i}_down"), shapes[i])
+                for i in range(n_levels)]
+    return cut_levels(batch, shapes)
+
+
+def cut_levels(batch, shapes):
+    """`frame_levels` of a frame smaller than the static grid (`shapes`,
+    each level's): the sites at or past the frame's level sizes dropped,
+    with every rulebook entry that points at one."""
     out_sh = torch.as_tensor(batch["out_sh"], dtype=torch.long,
                              device=batch["lvl0_coords"].device)
     levels, prev_keep = [], None
-    for i in range(n_levels):
+    for i in range(len(shapes)):
         coords, valid = batch[f"lvl{i}_coords"], batch[f"lvl{i}_valid"]
         keep = valid & (coords < out_sh // 2 ** i).all(dim=-1)
         down = batch.get(f"lvl{i}_down")
@@ -102,23 +119,10 @@ class NeuralBodyRender(nn.Module):
         """raw (n, S, 4) float32 of every sample of the first n rays, and
         their depths (n, S)."""
         S = self.n_samples
-        rays_o, rays_d = batch["ray_o"][:n], batch["ray_d"][:n]
         z_vals = sample_z_vals(batch["near"][:n], batch["far"][:n], S, perturb=False)
         latent = self.net.latent_row(batch["latent_index"])
-        raw = rays_o.new_empty(n, S, 4)
-        for r0 in range(0, n, self.chunk_rays):
-            r1 = min(n, r0 + self.chunk_rays)
-            o, d = rays_o[r0:r1], rays_d[r0:r1]
-            # sample-major: neighbouring points are neighbouring rays' samples
-            # at one depth, close in the volumes
-            pts = sample_points(o, d, z_vals[r0:r1]).transpose(0, 1).reshape(-1, 3)
-            feat = self.net.query(vols, points_to_dhw_vox(pts, batch, self.voxel_size),
-                                  batch["out_sh"])
-            view_enc, xyz_enc = self.net.encodings(pts, d / torch.linalg.norm(d, dim=-1,
-                                                                                keepdim=True))
-            view_enc = view_enc[None].expand(S, -1, -1).reshape(pts.shape[0], -1)
-            out = self.net.head(feat, latent, view_enc, xyz_enc)
-            raw[r0:r1] = out.reshape(S, r1 - r0, 4).transpose(0, 1)
+        raw = nbody_points(self.net, vols, batch, batch["ray_o"][:n], batch["ray_d"][:n],
+                           z_vals, latent, self.voxel_size, chunk_rays=self.chunk_rays)
         count("nbody_rays", n)
         count("nbody_points", n * S)
         return raw, z_vals
