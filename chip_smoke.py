@@ -12,22 +12,25 @@ Run from the root of a checkout, with no arguments:
 
 Phases, each fatal on failure:
   1. device and power limit; build every CUDA kernel from
-     gpnerf_tpu_torch/csrc/: the point-stage kernel for FORMS' 32 keys
-     (ops/point_stages.py: projection row types by geometry layouts, 3
-     views) and the cover set (`cover_keys`: every row type, geometry table
-     spec and occ_geom pairing the renderer's switch space reaches, forms
-     (a) and (c) at 2, 4 and 8 views), with --all-keys also the other keys
-     of that space (`reachable_kernel_keys`, 336 in all); the quad-lerp
-     kernels and the row gather (one nvcc each, up to 6 per core at once);
-     each library's ptxas registers and spills, blocks per SM, threads and
-     shared memory per block;
+     gpnerf_tpu_torch/csrc/: the point-stage kernel, one library per key,
+     for FORMS' 32 keys (ops/point_stages.py: projection row types by
+     geometry layouts, 3 views) and the cover set (tests/point_tables.py
+     `cover_keys`: every row type, geometry table spec and occ_geom pairing
+     the renderer's switch space reaches, forms (a) and (c) at 2, 4 and 8
+     views), with --all-keys also the other keys of that space
+     (`reachable_kernel_keys`, 336 in all); the quad-lerp kernels, the row
+     gather and Neural Body's point network (one nvcc each, up to 6 per
+     core at once); each library's ptxas registers and spills, blocks per
+     SM, threads and shared memory per block;
   2. each kernel against its plain PyTorch version on the card: seeded
-     random inputs (the quad lerps at a ragged P for int8 and float32 rows
-     and the row gather at the microbenchmark's shape, bitwise; the keys
-     beyond FORMS at the fast mode's P = 319,488, timed beside their
-     bounds, with --all-keys written to results/chip_smoke/all_keys.json), then
-     the inputs captured from one rendered frame at the main-path shape
-     (the point-stage plain version runs in chunks of points);
+     inputs (the quad lerps at a ragged P for int8 and float32 rows and the
+     row gather at the microbenchmark's shape, bitwise; the point-stage
+     entry on the seeded tables of tests/point_tables.py with the
+     checkpoint's heads, the keys beyond FORMS at the fast mode's P =
+     319,488, timed beside their bounds, with --all-keys written to
+     results/chip_smoke/all_keys.json), then the inputs captured from one
+     rendered frame at the main-path shape (the point-stage plain version
+     runs in chunks of points);
   3. end to end at 512^2 (configs/synthetic.yaml, trained checkpoint)
      through `render_demo_fn`, with launch counts, zero-overflow and PSNR
      checks: 3 frames of the bench protocol in the fast mode, 2 in the
@@ -343,81 +346,35 @@ def compare_point_stages(kern, plain, what, max_outliers=0):
     return stats
 
 
-def cover_keys():
-    """Point-stage keys beyond FORMS that phase 1 builds and phase 2a holds
-    against plain, so that with FORMS every projection row type stands in
-    table position A and B, every geometry table spec the renderer's switch
-    space reaches (`reachable_kernel_keys`) stands in every table position
-    where it occurs there, occ_geom meets every table-0 spec, and forms (a)
-    and (c) run at 2, 4 and 8 views (tests/test_torch_point_keys.py checks
-    the cover). Phase 3k renders five of them."""
-    from gpnerf_tpu_torch.ops.point_stages import Key
+def point_tables():
+    """tests/point_tables.py: the seeded tables of the point-stage entry
+    and the key sets (`cover_keys`, `reachable_kernel_keys`) that this
+    script shares with the tests."""
+    tests = os.path.join(ROOT, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import point_tables as pt
 
-    bf4, f4 = ((8, 32, "bf16"),) * 4, ((8, 32, "f32"),) * 4
-    return [
-        *(Key(("i8",), "default", False, v) for v in (2, 4, 8)),
-        *(Key(("u8", "i8"), "default", False, v) for v in (2, 4, 8)),
-        Key(("i8",), "feats128", False, 8),  # F = 128 at 8 views: 7 warps fit
-        Key(("u8", "i8"), "coarse-octet", True),
-        Key(("bf16",), "default", True),
-        Key(("i8",), ((1, 32, "u8"), (8, 64, "i8")), False),
-        Key(("bf16",), "coarse-octet", False),
-        Key(("u8", "f32"), "l1-nearest", False),
-        Key(("f32",), "float32", True),
-        Key(("bf16", "i4"), "default", False),
-        Key(("i8",), "float", True),
-        Key(("i8",), bf4, False),
-        Key(("f32", "f32"), f4, False),
-        Key(("i8",), ((8, 32, "bf16"), (8, 96, "f32")), False),
-        Key(("u8", "u8"), "default", False),  # u8 feature rows: no switch forms them
-    ]
-
-
-SWITCHES = ("tight_cull", "frame_mode", "sigma_query_cull", "int4_feat", "kernel_octet",
-            "merge_src_feat", "merge_lowres_src", "quantize_proj", "quantize_volume",
-            "merge_coarse_octet", "fold_coarse_fc", "int4_coarse", "pack_octet_u32", "dense_conv")
-
-
-def reachable_kernel_keys():
-    """Every point-stage key (3 views) the Renderer constructor's switches
-    select: the boolean SWITCHES, coarse_nearest 0-2, l1_nearest 0, 1, 2
-    and 11, bfloat16 or float32, uint8 or float source images (336 keys,
-    ~50 s of host time)."""
-    import itertools
-
-    import torch
-
-    from gpnerf_tpu_torch.render.demo import Renderer
-
-    keys = set()
-    for bits in itertools.product((False, True), repeat=len(SWITCHES)):
-        sw = dict(zip(SWITCHES, bits))
-        for cn, l1, dt in itertools.product((0, 1, 2), (0, 1, 2, 11), (torch.bfloat16, None)):
-            r = Renderer(None, None, voxel_size=(0.005,) * 3, n_samples=64,
-                         samples_per_ray=13 if sw["tight_cull"] else 64, compute_dtype=dt,
-                         coarse_nearest=cn, l1_nearest=l1, **sw)
-            keys.update((r.kernel_form(True), r.kernel_form(False)))
-    return sorted(keys, key=str)
+    return pt
 
 
 def build_point_keys(keys, jobs=32):
-    """Build every key's libraries from csrc/point_stages.cu, the rows entry
-    and the tables entry (`fetch`), `jobs` nvcc processes at a time, and
-    load them; returns the seconds taken."""
+    """Build every key's library from csrc/point_stages.cu, `jobs` nvcc
+    processes at a time, and load them; returns the seconds taken."""
     from gpnerf_tpu_torch.ops import point_stages as ps
 
     t0 = time.perf_counter()
-    todo, running = [(k, f) for k in keys for f in (False, True)], []
+    todo, running = list(keys), []
     while todo or running:
         while todo and len(running) < jobs:
-            key, fetch = todo.pop(0)
-            running.append((key, fetch, ps.start_build(key, fetch)))
-        done = [(k, f, p) for k, f, p in running if p is None or p.poll() is not None]
+            key = todo.pop(0)
+            running.append((key, ps.start_build(key)))
+        done = [(k, p) for k, p in running if p is None or p.poll() is not None]
         if not done:
             time.sleep(0.05)
-        for k, f, p in done:
-            running.remove((k, f, p))
-            ps.load_library(k, p, fetch=f)
+        for k, p in done:
+            running.remove((k, p))
+            ps.load_library(k, p)
     return time.perf_counter() - t0
 
 
@@ -431,18 +388,10 @@ def log_builds(keys):
     for key in keys:
         name = ps.form_name(key)
         entry = {"ptxas": [line.strip() for line in ps.BUILD_LOG.get(key, {}).get("output", "")
-                           .splitlines() if "registers" in line or "spill" in line],
-                 "ptxas_tables_entry": [
-                     line.strip() for line in ps.BUILD_LOG.get((key, True), {}).get("output", "")
-                     .splitlines() if "registers" in line or "spill" in line]}
+                           .splitlines() if "registers" in line or "spill" in line]}
         entry["blocks_per_sm"], entry["smem_bytes"], entry["threads"] = ps.occupancy(key)
         for line in entry["ptxas"]:
             log(f"#   ptxas [{name}] {line}")
-        for line in entry["ptxas_tables_entry"]:
-            log(f"#   ptxas [{name}, tables entry] {line}")
-        check(ps.occupancy(key, fetch=True) == (entry["blocks_per_sm"], entry["smem_bytes"],
-                                                 entry["threads"]),
-              f"point_stages[{name}]: the tables entry's occupancy differs from the rows entry's")
         log(f"#   occupancy [{name}] {entry['blocks_per_sm']} block(s) per SM of "
             f"{entry['threads']} threads, {entry['smem_bytes']} bytes of dynamic shared memory "
             "per block")
@@ -490,105 +439,37 @@ def head_weights_of(render):
             128: ps.pack_head_weights(render.nerfhead)}
 
 
-def random_point_inputs(form, P, device, seed=0):
-    """Seeded random inputs of one instantiation (a
-    gpnerf_tpu_torch.ops.point_stages.Key, or a tuple of its fields) at P
-    points, made on the device. Returns (tabs, feats, vmask, sig_ok,
-    kwargs)."""
+def plain_in_chunks(args, kw, chunk=262144):
+    """`point_stages_from_tables_plain` on the arguments of one call of the
+    point-stage entry, run over chunks of points (its gathers materialise
+    (V, P, 4, C) floats: several GB at the reference-mode shape) and
+    concatenated."""
     import torch
 
-    from gpnerf_tpu_torch.ops.point_stages import C, CF, CS, geom_specs, make_key
+    from gpnerf_tpu_torch.ops.point_stages import point_stages_from_tables_plain
 
-    rows, layout, occ, V = make_key(*form)
-    g = torch.Generator(device=device).manual_seed(seed)
-
-    def rand(*s):
-        return torch.rand(*s, generator=g, device=device)
-
-    def ints(lo, hi, *s, dtype):
-        return torch.randint(lo, hi, s, generator=g, device=device, dtype=dtype)
-
-    def w4():
-        return rand(V, 4, P) * (rand(V, 4, P) > 0.1)
-
-    def table(kind, Ct):
-        """(rows, w4, scale) of one projection table of Ct channels."""
-        if kind == "i8":
-            return ints(-127, 128, V * P, 4 * Ct, dtype=torch.int8), w4(), 0.02 + rand(Ct) * 0.05
-        if kind == "i4":
-            return ints(0, 256, V * P, 2 * Ct, dtype=torch.uint8), w4(), 0.02 + rand(Ct) * 0.05
-        if kind == "u8":
-            return (ints(0, 256, V * P, 4 * Ct, dtype=torch.uint8), w4(),
-                    torch.full((Ct,), 1.0 / 255.0, device=device))
-        vals = torch.randn(V * P, 4 * Ct, generator=g, device=device) * 0.5
-        dt = torch.bfloat16 if kind == "bf16" else torch.float32
-        return vals.to(dt), w4(), torch.ones(Ct, device=device)
-
-    tabs = (table(rows[0], C),) if len(rows) == 1 else (table(rows[0], CS), table(rows[1], CF))
-    kw, feats = {}, None
-    specs = geom_specs(layout)
-    if specs[0][2] in ("feat", "feat-bf16"):
-        feats = torch.randn(P, specs[0][1], generator=g, device=device) * 0.5
-        if specs[0][2] == "feat-bf16":
-            feats = feats.to(torch.bfloat16)
-    else:
-        geom = []
-        for i, (taps, ch, kind) in enumerate(specs):
-            if kind in ("u8", "i8"):
-                lo, hi, dt = (0, 256, torch.uint8) if kind == "u8" else (-127, 128, torch.int8)
-                rows_g, sc = ints(lo, hi, P, taps * ch, dtype=dt), 0.01 + rand(ch) * 0.03
-            else:  # float rows, unit scale
-                rows_g = rand(P, taps * ch) * 0.5
-                rows_g, sc = rows_g.to(torch.bfloat16 if kind == "bf16" else torch.float32), \
-                    torch.ones(ch, device=device)
-            if occ and i == 0:  # empty level-1 cells, so the occupancy cull bites
-                rows_g = rows_g * (rand(P, 1) > 0.4).to(rows_g.dtype)
-            w = rand(taps, P)
-            w = w / w.sum(0) if taps > 1 else (w > 0.05).float()
-            geom.append((rows_g, w, sc))
-        kw["geom_tabs"] = tuple(geom)
-        if occ:
-            kw["occ_geom"] = True
-    vmask = (rand(V, P) > 0.15).float()
-    sig_ok = (rand(P) > 0.2).to(torch.uint8)
-    return tabs, feats, vmask, sig_ok, kw
-
-
-def plain_in_chunks(call, chunk=262144):
-    """`point_stages_tabs_plain` on the inputs of one wrapper call, run over
-    chunks of points (it materialises (V, P, 4, C) floats: several GB at the
-    reference-mode shape) and concatenated."""
-    import torch
-
-    from gpnerf_tpu_torch.ops.point_stages import point_stages_tabs_plain
-
-    tabs, feats, vmask, sig_ok, weights, kw = call
-    nv, P = vmask.shape
+    quads, pts, KE, src_hw, sig_ok, weights = args
     outs = []
-    for s in range(0, P, chunk):
-        e = min(P, s + chunk)
-        t = tuple((r.reshape(nv, P, -1)[:, s:e].reshape(nv * (e - s), -1), w[:, :, s:e], sc)
-                  for r, w, sc in tabs)
-        k = dict(kw)
-        if "geom_tabs" in kw:
-            k["geom_tabs"] = tuple((r[s:e], w[:, s:e], sc) for r, w, sc in kw["geom_tabs"])
-        outs.append(point_stages_tabs_plain(
-            t, None if feats is None else feats[s:e], vmask[:, s:e], sig_ok[s:e], weights, **k))
+    for s in range(0, pts.shape[0], chunk):
+        e = min(pts.shape[0], s + chunk)
+        k = {n: v[s:e] if n in ("dhw_c", "feats") and v is not None else v for n, v in kw.items()}
+        outs.append(point_stages_from_tables_plain(quads, pts[s:e], KE, src_hw, sig_ok[s:e],
+                                                   weights, **k))
     return tuple(torch.cat(o) for o in zip(*outs))
 
 
-def point_stage_cost(call):
-    """(bytes, bound ms, bound_by) of one point-stage call: its declared
-    cost (ops/point_stages.py `cost`: each input read once and each output
-    written once) over HBM; the MLP FLOPs at the bf16 tensor-core rate plus
-    the f32 lerps (`op_counts`), whichever bound is larger."""
+def point_stage_cost(args, kw):
+    """(bytes, bound ms, bound_by) of one call of the point-stage entry: its
+    declared cost (ops/point_stages.py `cost_from_tables`: each fetched row
+    read once per point, each output written once) over HBM; the MLP FLOPs
+    at the bf16 tensor-core rate plus the rest, the lerps, at the float32
+    rate, whichever bound is larger."""
     from gpnerf_tpu_torch.ops import point_stages as ps
 
-    tabs, feats, vmask, sig_ok, weights, kw = call
-    nbytes, _ = ps.cost(tabs, feats, vmask, sig_ok, weights, **kw)
-    mma, f32 = ps.op_counts(tabs, vmask, weights, kw.get("geom_tabs", ()))
+    nbytes, flops = ps.cost_from_tables(*args, **kw)
+    mma, _ = ps._op_counts(args[2].shape[0], args[1].shape[0], (), (), args[5])  # the MLPs alone
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = mma / BF16_FLOP_PER_S + f32 / F32_FLOP_PER_S
+    t_ops = mma / BF16_FLOP_PER_S + (flops - mma) / F32_FLOP_PER_S
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
     return nbytes, max(t_bytes, t_ops) * 1e3, bound_by
 
@@ -2068,10 +1949,11 @@ def main():
         return 0
     t0 = time.perf_counter()
     # every key the switch space reaches (--all-keys) or FORMS' and the cover
-    cover = cover_keys()
+    pt = point_tables()
+    cover = pt.cover_keys()
     point_keys = list(ps.FORMS) + cover
     if all_keys:
-        point_keys += [k for k in reachable_kernel_keys() if k not in point_keys]
+        point_keys += [k for k in pt.reachable_kernel_keys() if k not in point_keys]
     lerp_build, gather_build = ql.start_build(), rg.start_build()
     nbody_build = nbp.start_build()
     build_point_keys(point_keys, jobs=(os.cpu_count() or 8) * 6)
@@ -2088,7 +1970,7 @@ def main():
                 log(f"#   ptxas [{name}] {line.strip()}")
     build_info = log_builds(point_keys)
 
-    # ---- phase 2a: every instantiation vs plain on seeded random inputs ----
+    # ---- phase 2a: every instantiation vs plain on seeded tables ----
     cfg, render = make_render(512, "bfloat16", "cuda")
     fast_P = cfg.tpu.samples_per_ray * cfg.tpu.ray_cap
     head_weights = {3: head_weights_of(render)}
@@ -2103,34 +1985,33 @@ def main():
         # below); the other keys at the fast-mode shape, timed there
         P = fast_P if name == "a" or key not in ps.FORMS else 500003
         weights = head_weights[key.views][sum(t[1] for t in ps.geom_specs(key.geom))]
-        tabs, feats, vmask, sig_ok, kw = random_point_inputs(key, P, dev)
-        call = (tabs, feats, vmask, sig_ok, weights, kw)
+        args, kw = pt.seeded_tables(key, P, device=dev)
+        args = (*args[:5], weights)
         before = ps.LAUNCHES[name]
-        k_out = ps.fused_point_stages_tabs(tabs, feats, vmask, sig_ok, weights, **kw)
+        k_out = ps.fused_point_stages_from_tables(*args, **kw)
         torch.cuda.synchronize()
-        check(ps.LAUNCHES[name] == before + 1, f"form {name}: wrapper did not launch its kernel")
+        check(ps.LAUNCHES[name] == before + 1, f"form {name}: the entry did not launch its kernel")
         # the switch space's other keys (--all-keys) may each have 2 points
-        # beyond the per-point bounds: on these random rows (geometry
+        # beyond the per-point bounds: on these seeded tables (geometry
         # features up to ~10) a bf16 rounding flip of one large activation
         # can move a point's alpha past them, whichever key runs
         extra = key not in ps.FORMS and key not in cover
-        stats = compare_point_stages(k_out, plain_in_chunks(call),
-                                     f"point_stages[{name}] vs plain, random inputs, P={P}",
+        stats = compare_point_stages(k_out, plain_in_chunks(args, kw),
+                                     f"point_stages[{name}] vs plain, seeded tables, P={P}",
                                      max_outliers=2 if extra else 0)
         if key not in ps.FORMS:
-            kern_ms = cuda_ms(lambda: ps.fused_point_stages_tabs(
-                tabs, feats, vmask, sig_ok, weights, **kw), 10)
-            plain_ms = cuda_ms(lambda: plain_in_chunks(call), 2)
-            nb, bound_ms, bound_by = point_stage_cost(call)
+            kern_ms = cuda_ms(lambda: ps.fused_point_stages_from_tables(*args, **kw), 10)
+            plain_ms = cuda_ms(lambda: plain_in_chunks(args, kw), 2)
+            nb, bound_ms, bound_by = point_stage_cost(args, kw)
             row = {"name": name, "views": key.views, "ms": kern_ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by, "mbytes": nb / 1e6,
                    "max_abs_err": max(stats["max_abs_d_alpha"], stats["max_abs_d_rgb"]),
                    "outliers": stats.get("outliers", 0), **build_info[name]}
             key_rows.append(row)
             log(f"# timing on {card}: point_stages[{name}] kernel {kern_ms:.3f} ms at P={P} "
-                f"(seeded inputs), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+                f"(seeded tables), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
                 f"{nb / 1e6:.1f} MB)")
-        del tabs, feats, vmask, sig_ok, kw, k_out, call
+        del args, kw, k_out
     ps.LAUNCHES.clear()
     if key_rows:
         ms = [r["ms"] for r in key_rows]
@@ -2241,29 +2122,17 @@ def main():
         frame_out[title] = [(r["pred_chw"], r["overflows"].tolist(), r["counts"].tolist())
                             for r in rets]
 
-        # kernel vs plain on the inputs captured from frame 0, then timings:
-        # the tables entry the render launches, and the rows entry on the
-        # rows gathered from the same tables
+        # the kernel vs its plain version on the inputs captured from frame
+        # 0, then timings
         t_args, t_kw = captured[0]
         t_args = (*t_args[:4], t_args[4].to(torch.uint8), *t_args[5:])
-        (tabs, feats, vmask, sig_ok), kw = ps.gather_from_tables(*t_args[:5], **t_kw)
-        weights = t_args[5]
-        call = (tabs, feats, vmask, sig_ok, weights, kw)
-        P = vmask.shape[-1]
-        plain = plain_in_chunks(call)
+        P = t_args[1].shape[0]
+        plain = plain_in_chunks(t_args, t_kw)
         t_out = ps.fused_point_stages_from_tables(*t_args, **t_kw)
         torch.cuda.synchronize()
         stats = compare_point_stages(
-            t_out, plain, f"point_stages[{form_name}] tables entry vs plain, {title} frame 0 inputs, P={P}")
-        k_out = ps.fused_point_stages_tabs(tabs, feats, vmask, sig_ok, weights, **kw)
-        torch.cuda.synchronize()
-        compare_point_stages(
-            k_out, plain, f"point_stages[{form_name}] rows entry vs plain, {title} frame 0 inputs, P={P}")
-        same = [float((t == k).all(dim=-1).float().mean()) if t.dim() > 1 else float((t == k).float().mean())
-                for t, k in zip(t_out, k_out)]
-        log(f"# point_stages[{form_name}], {title} frame 0: tables entry equal to the rows entry "
-            f"(alpha, rgb[, occm]) at {', '.join(f'{x:.6f}' for x in same)} of the points")
-        del plain, t_out, k_out
+            t_out, plain, f"point_stages[{form_name}] vs plain, {title} frame 0 inputs, P={P}")
+        del plain, t_out
         n = n_frames
         it = iter(range(10**9))
         # each rep renders the next of the distinct frames
@@ -2278,13 +2147,9 @@ def main():
                      f"+ image {frame_ms - upto_ms:.3f} ms (stage-prefix differences of CUDA-event means)")
         reps = 20 if P < 10**6 else 5
         kern_ms = cuda_ms(lambda: ps.fused_point_stages_from_tables(*t_args, **t_kw), reps)
-        rows_ms = cuda_ms(lambda: ps.fused_point_stages_tabs(tabs, feats, vmask, sig_ok, weights, **kw),
-                          reps)
-        gather_ms = cuda_ms(lambda: ps.gather_from_tables(*t_args[:5], **t_kw), reps)
-        plain_ms = cuda_ms(lambda: plain_in_chunks(call), 5 if P < 10**6 else 1)
-        nbytes, bound_ms, bound_by = point_stage_cost(call)
-        log(line + f"; point_stages[{form_name}] tables entry {kern_ms:.3f} ms at P={P}, rows entry "
-            f"{rows_ms:.3f} ms after a gather of {gather_ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        plain_ms = cuda_ms(lambda: plain_in_chunks(t_args, t_kw), 5 if P < 10**6 else 1)
+        nbytes, bound_ms, bound_by = point_stage_cost(t_args, t_kw)
+        log(line + f"; point_stages[{form_name}] {kern_ms:.3f} ms at P={P}, plain {plain_ms:.3f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB), "
             f"mean PSNR {sum(psnrs) / len(psnrs):.3f} dB")
         if profile and stages:
@@ -2302,8 +2167,6 @@ def main():
             "launches": launches[form_name],
             "max_abs_err": max(stats["max_abs_d_alpha"], stats["max_abs_d_rgb"]),
             "ms": kern_ms,
-            "rows_entry_ms": rows_ms,
-            "gather_ms": gather_ms,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,

@@ -1,9 +1,25 @@
 // Point-stage megakernel of the progressive renderer, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel gpnerf_tpu/ops/pallas_point.py::_point_kernel
-// (called through fused_point_stages_tabs). One source, one instantiation
-// per compilation, chosen by five macros (ops/point_stages.py derives them
-// from the key of a call and builds each key at its first use):
+// (called through fused_point_stages_from_tables). Each thread fetches its
+// own rows: it takes the point (world and dhw voxel coordinates), the
+// cameras KE (V, 4, 4) and the tables themselves: each projection quad
+// table (V, Ht+1, Wt+1, 4Ct) flat, each geometry table's flat rows with its
+// row strides and valid extent (`Fetch`). Per view it projects the point,
+// normalises the pixel, and per projection table computes the quad row and
+// the 4 tap weights with the in-bounds masks folded in, and the view mask
+// (ops/projection.py compute_projections, normalize_pixels, inbound_mask;
+// ops/grid_sample.py _quad_base, _quad_tap_weights); per geometry table the
+// octet row and its 8 corner weights or the nearest row and its weight,
+// zeros outside the extent (octet_rows_and_weights,
+// nearest_row_and_weight). Float32 in the torch code's order of
+// operations, each rounding explicit (the projection's sum over j = 0..3 in
+// order, fused multiply-adds as the card's float32 matrix product), integer
+// indices in 64 bits, row offsets in size_t. The (P, F) feature input of
+// form (b) is read by point.
+// One source, one instantiation per compilation, chosen by four macros
+// (ops/point_stages.py derives them from the key of a call and builds each
+// key at its first use):
 //   PS_ROW_A, PS_ROW_B  the element type of each projection table's quad
 //               rows (enum Row: 1 int8, 2 uint8, 3 int4 split-packed, 4
 //               bf16, 5 float32); PS_ROW_B 0 means one table.
@@ -42,39 +58,22 @@
 //               0, 32 channels) is <= 0 (the trilinear occupancy), and that
 //               0/1 verdict is written to a third output. All terms of the
 //               sum are non-negative, so the verdict does not depend on the
-//               order of the sum;
-//   PS_FETCH 1  the tables entry (fused_point_stages_from_tables): each
-//               thread fetches its own rows. Instead of gathered rows, tap
-//               weights and a view mask it takes the point (world and dhw
-//               voxel coordinates), the cameras KE (V, 4, 4) and the tables
-//               themselves: each projection quad table (V, Ht+1, Wt+1, 4Ct)
-//               flat, each geometry table's flat rows with its row strides
-//               and valid extent (`Fetch`). Per view it projects the point,
-//               normalises the pixel, and per projection table computes the
-//               quad row and the 4 tap weights with the in-bounds masks
-//               folded in, and the view mask (ops/projection.py
-//               compute_projections, normalize_pixels, inbound_mask;
-//               ops/grid_sample.py _quad_base, _quad_tap_weights); per
-//               geometry table the octet row and its 8 corner weights or the
-//               nearest row and its weight, zeros outside the extent
-//               (octet_rows_and_weights, nearest_row_and_weight). Float32 in
-//               the torch code's order of operations, each rounding explicit
-//               (the projection's sum over j = 0..3 in order, fused
-//               multiply-adds as the card's float32 matrix product), integer
-//               indices in 64 bits, row offsets in size_t. The (P, F)
-//               feature input of form (b) is read by point as before.
+//               order of the sum.
 // Float rows are rounded to bf16 before the tap sum, as the TPU kernel casts
 // every row (pallas_point.py _to_bf16); bf16 rows are used as they are.
 //
-// Per point p it computes what the TPU kernel computes:
-//   rgbfeat[v][c] = (sum_k rows[v*P+p][k*Ct+c] * w4[v][k][p]) * scale[c]
-//     per projection table, channel blocks concatenated
+// Per point p it computes what the TPU kernel computes on the rows it
+// fetched:
+//   rgbfeat[v][c] = (sum_k row_v[k*Ct+c] * w4_v[k]) * scale[c] per
+//     projection table (row_v the point's quad row in view v, w4_v its tap
+//     weights), channel blocks concatenated
 //   mean/var over the V views
-//   f[g] = (sum_k rows_g[p][k * Cg + c] * wg[k][p]) * gscale_g[c] per
-//     geometry table g, blocks joined: F = 96 (folded coarse tables) or 128
+//   f[g] = (sum_k row_g[k * Cg + c] * wg[k]) * gscale_g[c] per geometry
+//     table g, blocks joined: F = 96 (folded coarse tables) or 128
 //   sigma_feat = ELU(W_sf f + b)  (folded: W_sf = [W[:32] | I_64]; else W)
 //   density MLP 134 -> 64 -> 32 -> 16 -> 1 (ELU, ELU, ELU, ReLU) on
-//     [sigma_feat, mean, var]; sigma = 0 where sum(vmask) < 1 or !sig_ok;
+//     [sigma_feat, mean, var]; sigma = 0 where no view sees the point
+//     (the view masks sum to < 1) or !sig_ok;
 //     alpha = 1 - exp(-sigma)
 //   color: per view base_fc 105 -> 64 -> 32 (ELU) on [mean, var, rgbfeat[v]],
 //     vis_fc residual on h/V (32 -> 32 -> 32, ELU), rgb_fc V * 32 -> 32 ->
@@ -84,27 +83,21 @@
 // Taps, mean and variance are summed with explicit roundings (no FMA
 // contraction) in the order the plain version uses.
 //
-// Bounds, bytes of input and output per point (each read or written once):
-//   form (a) at the fast-mode shape, P = 13 * 24576 = 319,488: 420 quad-row
-//     bytes, 48 tap weights, 256 + 64 geometry-row bytes, 36 geometry
-//     weights, 12 view-mask bytes, 1 cull byte, 16 output bytes = 853 ->
-//     0.27 GB per frame, 81 us at 3.35 TB/s; with bf16 rows 1,273 bytes,
-//     with float32 rows 2,113. The other geometry layouts change the
-//     geometry part: an int8 coarse octet row 512 + 32 weight bytes (1,330
-//     per point), an unfolded u8 coarse octet 768 + 32 (1,586), four u8
-//     level octets 4 x (256 + 32) (1,650), a u8 level-1 nearest row 32 + 4
-//     (600), float rows bf16 512 + f32 2,048 + 64 (3,121);
-//   form (c) at the reference-mode shape, P = 64 * 57344 = 3,670,016:
-//     3 * (12 + 128) row bytes, 96 tap weights, 356 geometry, 13 masks, 16
-//     out (20 with the occupancy verdict) = 901 -> 3.3 GB per frame, 0.99 ms;
-//     with int4 rows 709 bytes -> 2.6 GB, 0.78 ms; with the (P, 96) feature
-//     input 929 bytes; bf16 feature rows 1,285, float32 ones 2,053; bf16
-//     source rows 937, float32 ones 1,009.
-//   the tables entry reads no tap weight and no view mask, and 24 bytes of
-//     point coordinates: 781 bytes per point in forms (a) and (c) at the
-//     default geometry, counting each row once per point that fetches it
-//     (neighbouring points share quad and octet rows, so the table bytes
-//     read from HBM are fewer).
+// Bounds, bytes of input and output per point (ops/point_stages.py
+// cost_from_tables: each row read once per point that fetches it, so an
+// upper bound, as neighbouring points share quad and octet rows):
+//   forms (a) and (c) at the default geometry: 420 quad-row bytes (3 views
+//     of a 140-byte merged row, or of a 12-byte source and a 128-byte
+//     feature row), 256 + 64 geometry-row bytes, 24 bytes of point
+//     coordinates, 1 cull byte, 16 output bytes (20 with the occupancy
+//     verdict) = 781 -> 0.25 GB per frame at the fast-mode shape (P = 13 *
+//     24576 = 319,488), 74 us at 3.35 TB/s, and 2.9 GB at the
+//     reference-mode shape (P = 64 * 57344 = 3,670,016), 0.86 ms. Other
+//     rows change their part: bf16 merged rows 840 bytes, float32 ones
+//     1,680; int4 feature rows 64; an int8 coarse octet row 512, an
+//     unfolded u8 coarse octet 768, four u8 level octets 4 x 256, a u8
+//     level-1 nearest row 32; the (P, 96) feature input 384 bytes in place
+//     of the geometry rows and the dhw coordinates.
 // About 1.1e5 flop per point: 35 us (fast shape) and 0.40 ms (reference
 // shape) at the 989 TFLOP/s bf16 tensor-core rate. So every form's bound is
 // its bytes once the MLPs run on tensor cores, which they do here; the
@@ -195,9 +188,6 @@ namespace {
 #ifndef PS_V
 #define PS_V 3
 #endif
-#ifndef PS_FETCH
-#define PS_FETCH 0
-#endif
 
 namespace wmma = nvcuda::wmma;
 using bf16 = __nv_bfloat16;
@@ -206,7 +196,6 @@ enum Row { NONE = 0, I8 = 1, U8 = 2, I4 = 3, BF16 = 4, F32 = 5, FEAT = 6, FEAT_B
 
 constexpr int V = PS_V;  // source views
 static_assert(V >= 1 && V <= 8, "1 to 8 source views");
-constexpr bool FETCH = PS_FETCH != 0;  // the tables entry: rows fetched in the kernel
 constexpr int CS = 3;    // source rgb channels
 constexpr int CF = 32;   // encoder feature channels
 constexpr int C = CS + CF;  // [rgb | feat] channels, merged or concatenated
@@ -382,8 +371,8 @@ __device__ __forceinline__ float snibble(uint32_t word, int n) {
   return static_cast<float>(static_cast<int>(((word >> (4 * n)) & 0xfu) ^ 8u) - 8);
 }
 
-// What the tables entry (PS_FETCH) fetches from, beside the tables: the
-// points, the cameras and every table's grid. Filled on the host (the
+// What the kernel fetches from, beside the tables: the points, the cameras
+// and every table's grid. Filled on the host (the
 // wrapper's ctypes structure of the same layout) and passed by value.
 struct Fetch {
   const float* pts;  // (P, 3) world points
@@ -398,19 +387,13 @@ struct Fetch {
 };
 
 // Device pointers of one launch; tables a form does not read are null.
-// The tables entry passes the tables' flat rows as rows_a, rows_b and
-// g_rows, and no tap weights or view mask.
 struct Args {
-  const uint8_t* rows_a;  // the merged rows, or the source rgb rows
-  const float* w4_a;
+  const uint8_t* rows_a;  // the merged quad table's flat rows, or the source rgb table's
   const float* scale_a;
-  const uint8_t* rows_b;  // two tables: the feature rows
-  const float* w4_b;
+  const uint8_t* rows_b;  // two tables: the feature table's flat rows
   const float* scale_b;
-  const uint8_t* g_rows[4];  // geometry table g's rows (the (P, F) float input for form (b))
-  const float* g_w[4];        // its tap weights (taps, P)
+  const uint8_t* g_rows[4];  // geometry table g's flat rows (the (P, F) float input for form (b))
   const float* g_scale[4];    // its dequant scale (channels)
-  const float* vmask;
   const uint8_t* sig_ok;
   const uint4* wbuf;
   float* alpha_out;
@@ -419,11 +402,11 @@ struct Args {
   Fetch f;
 };
 
-static_assert(!FETCH || FEATS || ((NG < 1 || GEO[0].taps == 8 || GEO[0].taps == 1) &&
+static_assert(FEATS || ((NG < 1 || GEO[0].taps == 8 || GEO[0].taps == 1) &&
                                   (NG < 2 || GEO[1].taps == 8 || GEO[1].taps == 1) &&
                                   (NG < 3 || GEO[2].taps == 8 || GEO[2].taps == 1) &&
                                   (NG < 4 || GEO[3].taps == 8 || GEO[3].taps == 1)),
-              "the tables entry fetches octet (8 taps) and nearest (1 tap) rows");
+              "the kernel fetches octet (8 taps) and nearest (1 tap) rows");
 
 // The point's pixel in view v (ops/projection.py compute_projections and
 // normalize_pixels): proj = KE[v] [x y z 1]^T summed over j = 0..3 in order
@@ -644,13 +627,13 @@ __device__ __forceinline__ void load_geom_scales(const Args& a, float* gs) {
 }
 
 // Channels 32J .. 32J + 31 of geometry table G at point p:
-// f[c] = (sum_k row[k * Cg + 32J + c] * w[k][p]) * scale[32J + c], taps in
+// f[c] = (sum_k row[k * Cg + 32J + c] * w[k]) * scale[32J + c], taps in
 // order with explicit roundings (the plain version's order), one corner's
 // 32 channels loaded at a time in 16-byte words (every row and every
 // corner's 32-channel run is 16-byte aligned); float rows rounded to bf16
 // first. The feature input (form (b)) is read as it is, float32 or bf16.
 template <int G, int J>
-__device__ __forceinline__ void geom_chunk(const Args& a, int P, int p, const float* gs, float (&f)[32]) {
+__device__ __forceinline__ void geom_chunk(const Args& a, int p, const float* gs, float (&f)[32]) {
   constexpr Geom g = GEO[G];
   constexpr int col = 32 * J;
   if constexpr (g.row == FEAT) {
@@ -674,17 +657,13 @@ __device__ __forceinline__ void geom_chunk(const Args& a, int P, int p, const fl
   } else {
     constexpr int EB = g.row == BF16 ? 2 : g.row == F32 ? 4 : 1;  // bytes per channel
     constexpr int NQ = 32 * EB / 16;                               // 16-byte words per run
-    // the point's row and tap weights: fetched from the table (the tables
-    // entry), or its gathered row and the weights handed in
+    // the point's row of the table and its tap weights
     float tw[8];
-    size_t r = static_cast<size_t>(p);
-    if constexpr (FETCH) r = geom_fetch<G>(a.f, p, tw);
+    const size_t r = geom_fetch<G>(a.f, p, tw);
     const uint8_t* const row = a.g_rows[G] + r * (g.taps * g.ch * EB);
 #pragma unroll
     for (int k = 0; k < g.taps; ++k) {
-      float w;
-      if constexpr (FETCH) w = tw[k];
-      else w = __ldg(a.g_w[G] + static_cast<size_t>(k) * P + p);
+      const float w = tw[k];
       const uint4* src = reinterpret_cast<const uint4*>(row + (k * g.ch + col) * EB);
       uint32_t wd[4 * NQ];
 #pragma unroll
@@ -734,7 +713,7 @@ __device__ __forceinline__ void layer0_slice(const bf16* w, const bf16* x, Acc (
 // slice, the full tile first goes through layer0_slice. occ: the channel
 // sum of chunk 0 (table 0's level-1 block), in channel order.
 template <int N>
-__device__ __forceinline__ void geom_front(const Args& a, int P, int p, bool live, const float* gs,
+__device__ __forceinline__ void geom_front(const Args& a, int p, bool live, const float* gs,
                                            bf16* xf, const bf16* W, Acc (&acc)[NT0][2], float& occ) {
   if constexpr (N < FT / 32) {
     constexpr int col = 32 * N, G = geo_table(col), J = (col - geo_col(G)) / 32;
@@ -745,7 +724,7 @@ __device__ __forceinline__ void geom_front(const Args& a, int P, int p, bool liv
     }
     float f[32];
     if (live) {
-      geom_chunk<G, J>(a, P, p, gs, f);
+      geom_chunk<G, J>(a, p, gs, f);
     } else {
 #pragma unroll
       for (int c = 0; c < 32; ++c) f[c] = 0.f;
@@ -756,7 +735,7 @@ __device__ __forceinline__ void geom_front(const Args& a, int P, int p, bool liv
       for (int c = 1; c < 32; ++c) occ = __fadd_rn(occ, f[c]);
     }
     put_row<32>(xf + (threadIdx.x & 31) * KF + col % KF, [&](int i) { return f[i]; });
-    geom_front<N + 1>(a, P, p, live, gs, xf, W, acc, occ);
+    geom_front<N + 1>(a, p, live, gs, xf, W, acc, occ);
   }
 }
 
@@ -792,11 +771,10 @@ __global__ void __launch_bounds__(BLOCK) point_stages_kernel(const Args a, int P
   // ---- front end, one point per thread; a lane past P loads nothing and
   // writes zero rows ----
   bool ok = false;
-  float nv = 0.f;  // the views that see the point (the view mask's sum): the tables
-                   // entry sums it in the front end, the rows entry after the density MLP
+  float nv = 0.f;  // the views that see the point (the view mask's sum)
   {
     float rf[V * C];
-    if (live && FETCH) {
+    if (live) {
       // the point projected into each view; each table's quad row and tap
       // weights fetched, then lerped and dequantized
       const float x = __ldg(a.f.pts + 3 * static_cast<size_t>(p));
@@ -812,21 +790,6 @@ __global__ void __launch_bounds__(BLOCK) point_stages_kernel(const Args a, int P
         if constexpr (RB != NONE) {
           const size_t rb = quad_fetch(a.f, 1, v, px, tw);
           lerp_table<RB, CF>(a.rows_b, rb, tw, ps + CS, rf, v * C + CS);
-        }
-      }
-    } else if (live) {
-      // projection quad lerp + dequant, per view and table
-#pragma unroll
-      for (int v = 0; v < V; ++v) {
-        const size_t vp = static_cast<size_t>(v) * P + p;
-        float tw[T];
-#pragma unroll
-        for (int k = 0; k < T; ++k) tw[k] = __ldg(a.w4_a + (static_cast<size_t>(v) * T + k) * P + p);
-        lerp_table<RA, CA>(a.rows_a, vp, tw, ps, rf, v * C);
-        if constexpr (RB != NONE) {
-#pragma unroll
-          for (int k = 0; k < T; ++k) tw[k] = __ldg(a.w4_b + (static_cast<size_t>(v) * T + k) * P + p);
-          lerp_table<RB, CF>(a.rows_b, vp, tw, ps + CS, rf, v * C + CS);
         }
       }
     } else {
@@ -873,7 +836,7 @@ __global__ void __launch_bounds__(BLOCK) point_stages_kernel(const Args a, int P
   }
   {
     float occ = 0.f;
-    geom_front<0>(a, P, p, live, gs, xf, W, acc0, occ);
+    geom_front<0>(a, p, live, gs, xf, W, acc0, occ);
     if (live) {
       ok = a.sig_ok[p] != 0;
       if (OCC) {
@@ -910,10 +873,6 @@ __global__ void __launch_bounds__(BLOCK) point_stages_kernel(const Args a, int P
   constexpr int B4 = boff(4), B6 = boff(6), B8 = boff(8), B11 = boff(11);
   const float sg = act<RELU>(sc[lane * 16] + B[B4]);  // row lane, column 0
   __syncwarp();
-  if (live && !FETCH) {
-#pragma unroll
-    for (int v = 0; v < V; ++v) nv = __fadd_rn(nv, __ldg(a.vmask + static_cast<size_t>(v) * P + p));
-  }
   const float sigma = (nv < 1.f || !ok) ? 0.f : sg;
   const float alpha = 1.f - expf(-sigma);
   if (live) a.alpha_out[p] = alpha;
@@ -1044,46 +1003,40 @@ int point_stages_blocks_per_sm() {
 }
 
 // The instantiation this library holds: the values of PS_ROW_A PS_ROW_B
-// PS_OCC PS_G0 PS_G1 PS_G2 PS_G3 PS_V PS_FETCH, separated by spaces.
+// PS_OCC PS_G0 PS_G1 PS_G2 PS_G3 PS_V, separated by spaces.
 #define PS_STR_(x) #x
 #define PS_STR(x) PS_STR_(x)
 const char* point_stages_key() {
   return PS_STR(PS_ROW_A) " " PS_STR(PS_ROW_B) " " PS_STR(PS_OCC) " " PS_STR(PS_G0) " " PS_STR(
-      PS_G1) " " PS_STR(PS_G2) " " PS_STR(PS_G3) " " PS_STR(PS_V) " " PS_STR(PS_FETCH);
+      PS_G1) " " PS_STR(PS_G2) " " PS_STR(PS_G3) " " PS_STR(PS_V);
 }
 
 // Bytes of the Fetch structure, which the wrapper's ctypes copy must match.
 int point_stages_fetch_bytes() { return static_cast<int>(sizeof(Fetch)); }
 
-// g_rows, g_w, g_scale: arrays of 4 pointers, table g's at index g (null
-// past the library's tables, and the weights and scale of a feature input;
-// a null scale of a geometry table is a unit one). fetch: the host Fetch of
-// the tables entry (PS_FETCH 1), which then passes the tables' rows and no
-// w4_a, w4_b, g_w or vmask; null for the rows entry.
-int point_stages_launch(const void* rows_a, const void* w4_a, const void* scale_a,
-                        const void* rows_b, const void* w4_b, const void* scale_b,
-                        const void* const* g_rows, const void* const* g_w,
-                        const void* const* g_scale, const void* vmask, const void* sig_ok,
-                        const void* wbuf, void* alpha, void* rgb, void* occm, int P,
-                        void* stream, const void* fetch) {
+// rows_a, rows_b: the projection quad tables' flat rows; g_rows, g_scale:
+// arrays of 4 pointers, table g's at index g (null past the library's
+// tables, and the scale of a feature input; a null scale of a geometry
+// table is a unit one); fetch: the host Fetch of the launch.
+int point_stages_launch(const void* rows_a, const void* scale_a, const void* rows_b,
+                        const void* scale_b, const void* const* g_rows,
+                        const void* const* g_scale, const void* sig_ok, const void* wbuf,
+                        void* alpha, void* rgb, void* occm, int P, void* stream,
+                        const void* fetch) {
   const cudaError_t e = configure();
   if (e != cudaSuccess) return static_cast<int>(e);
-  if ((fetch != nullptr) != FETCH) return static_cast<int>(cudaErrorInvalidValue);
   if (P > 0) {
     Args a = {
-        static_cast<const uint8_t*>(rows_a), static_cast<const float*>(w4_a),
-        static_cast<const float*>(scale_a), static_cast<const uint8_t*>(rows_b),
-        static_cast<const float*>(w4_b), static_cast<const float*>(scale_b),
-        {}, {}, {},
-        static_cast<const float*>(vmask), static_cast<const uint8_t*>(sig_ok),
-        static_cast<const uint4*>(wbuf), static_cast<float*>(alpha), static_cast<float*>(rgb),
-        static_cast<float*>(occm)};
+        static_cast<const uint8_t*>(rows_a), static_cast<const float*>(scale_a),
+        static_cast<const uint8_t*>(rows_b), static_cast<const float*>(scale_b),
+        {}, {},
+        static_cast<const uint8_t*>(sig_ok), static_cast<const uint4*>(wbuf),
+        static_cast<float*>(alpha), static_cast<float*>(rgb), static_cast<float*>(occm),
+        *static_cast<const Fetch*>(fetch)};
     for (int g = 0; g < 4; ++g) {
       a.g_rows[g] = static_cast<const uint8_t*>(g_rows[g]);
-      a.g_w[g] = static_cast<const float*>(g_w[g]);
       a.g_scale[g] = static_cast<const float*>(g_scale[g]);
     }
-    if (fetch != nullptr) a.f = *static_cast<const Fetch*>(fetch);
     const int grid = (P + BLOCK - 1) / BLOCK;
     PS_KERNEL<<<grid, BLOCK, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(a, P);
   }

@@ -1,16 +1,18 @@
 """Per-point stages of the progressive renderer in one kernel
 (gpnerf_tpu/ops/pallas_point.py, the TPU megakernel `_point_kernel`).
 
-`fused_point_stages_tabs` takes the raw gathered rows of the projection quad
-tables with their tap weights, the geometry feature — as the raw rows of the
-geometry tables (octet rows with their 8 corner weights, nearest rows with
-their in-bounds weight; `GEOMS` lists the layouts the renderer's switches
-select) or as a (P, F) tensor already queried — the view mask, the
+`fused_point_stages_from_tables` takes the points (world and dhw voxel
+coordinates), the source cameras, each projection quad table as it stands,
+the geometry feature — as the geometry tables themselves (octet tables,
+flat or dense, and nearest tables: `fetchable`; `GEOMS` lists the layouts
+the renderer's switches select) or as a (P, F) tensor queried outside — the
 sample-cull mask and the head weights, and returns the sigma-masked alpha
-(P,) and the alpha-culled rgb (P, 3), the only tensors the composite
-needs. Between them: quad lerp +
-dequant, mean/var over views, geometry lerp, sigma-feat linear, density MLP,
-color MLP (see csrc/point_stages.cu). Its forms:
+(P,) and the alpha-culled rgb (P, 3), the only tensors the composite needs.
+Each thread projects its point, computes every quad row, octet or nearest
+row and tap weight itself and reads the rows straight from the tables, so
+no gathered row, tap weight or view mask is written or read back. Between
+them: quad lerp + dequant, mean/var over views, geometry lerp, sigma-feat
+linear, density MLP, color MLP (see csrc/point_stages.cu). Its forms:
 
   (a) one merged int8 [rgb|feat] table, two geometry tables (fast mode);
       or merged bf16 / float32 rows with a unit scale (`a:bf16`, `a:f32`);
@@ -32,19 +34,12 @@ the geometry tables of layout `<layout>` (`GEOMS`); the others the default
 layout, the u8 level-1 octet table and the int8 folded-coarse nearest
 table.
 
-`fused_point_stages` is the one-table wrapper.
-
-`fused_point_stages_from_tables` is the same kernel fed by the tables
-themselves: the points (world and dhw voxel coordinates), the cameras, each
-projection quad table as it stands and each geometry table the kernel can
-read a row of (`fetchable`: octet tables, flat or dense, and plain nearest
-tables), or the (P, F) feature queried outside. Each thread projects its
-point, computes every quad row, octet or nearest row and tap weight itself
-and reads the rows straight from the tables (`PS_FETCH`), so no gathered
-row, tap weight or view mask is written or read back. Its plain version is
-the composition it replaces: the torch gathers (`gather_from_tables`), then
-`point_stages_tabs_plain`; on CPU tensors the renderer's images are those
-of the gathers and the rows entry, bit for bit. A launch adds P to the
+Its plain version `point_stages_from_tables_plain` is the composition the
+kernel replaces: the torch gathers (`gather_from_tables`), then
+`point_stages_tabs_plain`, the kernel's function on the gathered rows in
+torch ops, general in views, channels, tables and F (`point_stages_plain`
+its one-table form). On CPU tensors the entry runs the plain version; on
+CUDA tensors it launches the kernel or raises, and adds P to the
 profiler-time counter `kernel_fetched_slots` (utils/profiling.py).
 
 Numerics: every dot input is rounded to bf16 and accumulates in float32;
@@ -52,17 +47,12 @@ activations, lerps and masks are float32. The CUDA kernel runs the twelve
 layers on tensor cores (16 x 16 x 16 bf16 WMMA tiles, float32 accumulators),
 so it differs from the plain version only in the order of the float32 sums.
 
-On a CPU tensor the wrapper runs `point_stages_tabs_plain`, the same function in
-torch ops and general in views, channels, tables and F; on a CUDA tensor it
-launches the CUDA kernel or raises. A call's key (`Key`: the projection
-tables' row types, the geometry tables' specs, occ_geom, the view count V)
-is read from its tensors, checked by `check_key` against what
-csrc/point_stages.cu compiles, and its library built from that source at the
-key's first use (ops/cuda_build.py); a failed build or launch raises.
-`FORMS` names the keys of the shipped switch sets, `form_name` every other
-key; `LAUNCHES` counts kernel launches per name, of either entry. The
-tables entry of a key is the same source built with `PS_FETCH=1`: a
-library is (key, fetch).
+A call's key (`Key`: the projection tables' row types, the geometry tables'
+specs, occ_geom, the view count V) is read from its tensors, checked by
+`check_key` against what csrc/point_stages.cu compiles, and its library
+built from that source at the key's first use (ops/cuda_build.py); a failed
+build or launch raises. `FORMS` names the keys of the shipped switch sets,
+`form_name` every other key; `LAUNCHES` counts kernel launches per name.
 """
 
 from __future__ import annotations
@@ -407,45 +397,42 @@ _libs = {}
 BUILD_LOG = {}
 
 
-def _key_values(key, fetch=False):
+def _key_values(key):
     """The macro values of one instantiation, in csrc/point_stages.cu's
     `point_stages_key` order: PS_ROW_A, PS_ROW_B (0: one table), PS_OCC,
     PS_G0 .. PS_G3 (row type * 10000 + taps * 1000 + channels per geometry
-    table, 0 past its tables), PS_V, PS_FETCH (1: the tables entry)."""
+    table, 0 past its tables), PS_V."""
     key = check_key(key)
     rows = key.rows
     geom = [ROW_CODES[kind] * 10000 + taps * 1000 + ch for taps, ch, kind in geom_specs(key.geom)]
     return (ROW_CODES[rows[0]], ROW_CODES[rows[1]] if len(rows) > 1 else 0, int(key.occ),
-            *geom, *[0] * (4 - len(geom)), key.views, int(fetch))
+            *geom, *[0] * (4 - len(geom)), key.views)
 
 
-def _build_args(key, fetch=False):
-    vals = _key_values(key, fetch)
-    names = ("PS_ROW_A", "PS_ROW_B", "PS_OCC", "PS_G0", "PS_G1", "PS_G2", "PS_G3", "PS_V",
-             "PS_FETCH")
+def _build_args(key):
+    vals = _key_values(key)
+    names = ("PS_ROW_A", "PS_ROW_B", "PS_OCC", "PS_G0", "PS_G1", "PS_G2", "PS_G3", "PS_V")
     defines = tuple(f"{n}={v}" for n, v in zip(names, vals))
     code = "_".join(str(v) for v in vals)
     return "point_stages.cu", f"point_stages_{code}", defines
 
 
-def build_command(key, fetch=False):
+def build_command(key):
     """(nvcc argv, library path) of one instantiation (a Key, or a tuple of
-    its fields; `fetch` its tables entry) for the current source
-    (ops/cuda_build.py)."""
-    return cuda_build.build_command(*_build_args(key, fetch))
+    its fields) for the current source (ops/cuda_build.py)."""
+    return cuda_build.build_command(*_build_args(key))
 
 
-def start_build(key, fetch=False):
-    """Start nvcc for `key` (`fetch`: its tables entry) unless its library
-    exists; returns the Popen (or None) to hand to load_library. Lets a
-    caller build keys together."""
-    return cuda_build.start_build(*_build_args(key, fetch))
+def start_build(key):
+    """Start nvcc for `key` unless its library exists; returns the Popen
+    (or None) to hand to load_library. Lets a caller build keys together."""
+    return cuda_build.start_build(*_build_args(key))
 
 
 def bind_library(lib):
     """Declare the C entry points of a loaded point_stages.cu library."""
     vp, arr = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
-    lib.point_stages_launch.argtypes = [vp] * 6 + [arr] * 3 + [vp] * 6 + [ctypes.c_int, vp, vp]
+    lib.point_stages_launch.argtypes = [vp] * 4 + [arr] * 2 + [vp] * 5 + [ctypes.c_int, vp, vp]
     lib.point_stages_launch.restype = ctypes.c_int
     for fn in (lib.point_stages_wbuf_bytes, lib.point_stages_smem_bytes,
                lib.point_stages_blocks_per_sm, lib.point_stages_block,
@@ -455,31 +442,29 @@ def bind_library(lib):
     return lib
 
 
-def load_library(key, proc=None, fetch=False):
-    """Build (unless the hashed library exists) and load one instantiation,
-    the rows entry or (`fetch`) the tables entry of `key`,
-    NotImplementedError for a key the source does not compile (`check_key`).
-    `proc`: an already started `start_build(key, fetch)` to wait on."""
+def load_library(key, proc=None):
+    """Build (unless the hashed library exists) and load the instantiation
+    of `key`, NotImplementedError for a key the source does not compile
+    (`check_key`). `proc`: an already started `start_build(key)` to wait
+    on."""
     key = check_key(key)
-    fetch = bool(fetch)
-    if (key, fetch) in _libs:
-        return _libs[key, fetch]
-    lib = bind_library(cuda_build.load(*_build_args(key, fetch), proc=proc, build_log=BUILD_LOG,
-                                       log_key=(key, fetch) if fetch else key))
-    if tuple(int(v) for v in lib.point_stages_key().split()) != _key_values(key, fetch):
-        raise RuntimeError(f"{build_command(key, fetch)[1]} holds another instantiation than "
-                           f"{key} (fetch {fetch})")
+    if key in _libs:
+        return _libs[key]
+    lib = bind_library(cuda_build.load(*_build_args(key), proc=proc, build_log=BUILD_LOG,
+                                       log_key=key))
+    if tuple(int(v) for v in lib.point_stages_key().split()) != _key_values(key):
+        raise RuntimeError(f"{build_command(key)[1]} holds another instantiation than {key}")
     if lib.point_stages_fetch_bytes() != ctypes.sizeof(_Fetch):
         raise RuntimeError("point_stages.cu's Fetch and the wrapper's _Fetch differ in size")
-    _libs[key, fetch] = lib
+    _libs[key] = lib
     return lib
 
 
-def occupancy(key, fetch=False):
+def occupancy(key):
     """(blocks resident per SM on the current device, dynamic shared-memory
     bytes per block, threads per block) of one instantiation; blocks < 0 is
     the negated CUDA error of a refused shared-memory request."""
-    lib = load_library(key, fetch=fetch)
+    lib = load_library(key)
     return lib.point_stages_blocks_per_sm(), lib.point_stages_smem_bytes(), lib.point_stages_block()
 
 
@@ -506,156 +491,6 @@ def _row_type(rows, nv, P, width, name, packed_width=None):
             f"{width} wide, got {rows.dtype} {tuple(rows.shape)}")
     _check(rows, rows.dtype, (nv * P, width), name)
     return kind
-
-
-def _read_geometry(geom_tabs, feats, P):
-    """The geometry specs of a call, read from its tensors and checked:
-    (((taps, channels, row type), ...), [(rows, weights, scale) per table]);
-    the feature input is one table whose weights and scale are None."""
-    if feats is not None:
-        F = feats.shape[-1]
-        if feats.dtype not in FEAT_ROWS:
-            raise NotImplementedError(f"point-stage kernel: geometry features must be float32 "
-                                      f"or bfloat16, got {feats.dtype}")
-        _check(feats, feats.dtype, (P, F), "geometry features")
-        return ((1, F, FEAT_ROWS[feats.dtype]),), [(feats, None, None)]
-    specs = []
-    for i, (g, w, sc) in enumerate(geom_tabs):
-        taps = w.shape[0] if w.dim() == 2 else 0
-        kind = _DTYPE_ROWS.get(g.dtype)
-        if kind is None or taps < 1 or g.dim() != 2 or g.shape[-1] % taps:
-            raise NotImplementedError(
-                f"point-stage kernel: geometry table {i} must be int8, uint8, bfloat16 or "
-                f"float32 rows (P, taps * channels) with (taps, P) weights, got "
-                f"{g.dtype} {tuple(g.shape)} and {tuple(w.shape)}")
-        ch = g.shape[-1] // taps
-        _check(g, g.dtype, (P, taps * ch), f"geometry table {i} rows")
-        _check(w, torch.float32, (taps, P), f"geometry table {i} weights")
-        _check(sc, torch.float32, (ch,), f"geometry table {i} scale")
-        specs.append((taps, ch, kind))
-    return tuple(specs), list(geom_tabs)
-
-
-def _launch(tabs, feats, vmask, sig_ok, weights, geom_tabs, occ_geom):
-    nv, P = vmask.shape
-    f32, u8 = torch.float32, torch.uint8
-    if len(tabs) == 1:
-        rows = (_row_type(tabs[0][0], nv, P, 4 * C, "merged [rgb|feat] rows"),)
-        _check(tabs[0][2], f32, (C,), "merged scale")
-        tabs = (tabs[0], (None, None, None))
-    elif len(tabs) == 2:
-        rows = (_row_type(tabs[0][0], nv, P, 4 * CS, "source rgb rows"),
-                _row_type(tabs[1][0], nv, P, 4 * CF, "feature rows", packed_width=2 * CF))
-        _check(tabs[0][2], f32, (CS,), "source rgb scale")
-        _check(tabs[1][2], f32, (CF,), "feature scale")
-    else:
-        raise NotImplementedError("point-stage kernel takes 1 or 2 projection tables")
-    for _, w4, _ in tabs:
-        if w4 is not None:
-            _check(w4, f32, (nv, 4, P), "tap weights")
-    if feats is not None and (geom_tabs or occ_geom):
-        raise ValueError("point-stage kernel: a feature input excludes "
-                         "geometry tables and occ_geom")
-    specs, geom = _read_geometry(geom_tabs, feats, P)
-    _check(vmask, f32, (nv, P), "vmask")
-    _check(sig_ok, u8, (P,), "sig_ok")
-    key = check_key((rows, specs, occ_geom, nv))
-    return _run(key, tabs, geom, vmask, sig_ok, weights, P, tabs[0][0].device, occ_geom)
-
-
-def _run(key, tabs, geom, vmask, sig_ok, weights, P, dev, occ_geom, fetch=None, inputs=()):
-    """Launch the library of `key` on P points: tabs = the two projection
-    tables' (rows, w4, scale), geom = the geometry tables' (rows, w, scale),
-    vmask, sig_ok and the packed weights; `fetch`, the tables entry's
-    `_Fetch`, whose tensors `inputs` are. Returns the outputs."""
-    lib = load_library(key, fetch=fetch is not None)
-    f32 = torch.float32
-    flat = weights.flat
-    _check(flat, torch.uint8, (lib.point_stages_wbuf_bytes(),), "packed weights")
-    alpha = torch.empty(P, dtype=f32, device=dev)
-    rgb = torch.empty(P, 3, dtype=f32, device=dev)
-    occm = torch.empty(P, dtype=f32, device=dev) if occ_geom else None
-    geom = list(geom) + [(None, None, None)] * (4 - len(geom))
-    tensors = (*tabs[0], *tabs[1], *(t for g in geom for t in g), vmask, sig_ok, flat,
-               alpha, rgb, occm, *inputs)
-    if any(t is not None and t.device != dev for t in tensors):
-        raise ValueError("point-stage kernel: inputs on different devices")
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    table_ptrs = [(ctypes.c_void_p * 4)(*(ptr(g[j]) for g in geom)) for j in range(3)]
-    err = lib.point_stages_launch(
-        *(ptr(t) for t in (*tabs[0], *tabs[1])), *table_ptrs,
-        *(ptr(t) for t in (vmask, sig_ok, flat, alpha, rgb, occm)), P,
-        torch.cuda.current_stream(dev).cuda_stream, None if fetch is None else ctypes.byref(fetch),
-    )
-    if err != 0:
-        raise RuntimeError(f"point-stage kernel launch failed: CUDA error {err}")
-    LAUNCHES[form_name(key)] += 1
-    return (alpha, rgb, occm) if occ_geom else (alpha, rgb)
-
-
-def _op_counts(V, P, proj_ch, geom_tc, weights: PointWeights):
-    """`op_counts` of V views and P points, projection tables of `proj_ch`
-    channels (4 taps each) and geometry tables of `geom_tc` (taps,
-    channels)."""
-    macs = sum(w.shape[0] * w.shape[1] for w, _ in weights.layers)
-    macs += (V - 1) * sum(w.shape[0] * w.shape[1] for w, _ in weights.layers[5:9])
-    lerp = sum(V * ch * 2 * 4 for ch in proj_ch) + 4 * V * sum(proj_ch)
-    lerp += sum(taps * ch * 2 + ch for taps, ch in geom_tc)
-    return 2 * macs * P, lerp * P
-
-
-def op_counts(tabs, vmask, weights: PointWeights, geom_tabs=()):
-    """(tensor-core FLOPs, float32 operations) of one call: the twelve
-    layers' multiply-adds x 2 (the four per-view layers once per view), and
-    the lerps (two per tap and channel of each table, plus 4 per view and
-    channel for dequant, mean and variance)."""
-    V, P = vmask.shape
-    return _op_counts(V, P, [t[2].shape[0] for t in tabs],
-                      [(g[1].shape[0], g[2].shape[0]) for g in geom_tabs], weights)
-
-
-def cost(tabs, feats, vmask, sig_ok, weights: PointWeights, *, geom_tabs=(), occ_geom=False):
-    """(bytes, FLOPs) of one call (utils/roofline.py): every input read
-    once (sig_ok as uint8, the packed weights), the outputs alpha, rgb
-    [and occm] written once; `op_counts` summed."""
-    P = vmask.shape[1]
-    ins = roofline.nbytes(vmask, weights.flat, feats,
-                          *(t for tab in (*tabs, *geom_tabs) for t in tab)) + P  # + sig_ok
-    outs = 4 * P * (4 + int(occ_geom))  # alpha, rgb [, occm], float32
-    return ins + outs, sum(op_counts(tabs, vmask, weights, geom_tabs))
-
-
-def fused_point_stages_tabs(tabs, feats, vmask, sig_ok, weights: PointWeights, *,
-                            geom_tabs=(), occ_geom=False):
-    """Point stages on the device the inputs live on: the plain torch
-    version for CPU tensors, the CUDA kernel for CUDA tensors. Same
-    arguments and returns as `point_stages_tabs_plain` (sig_ok as uint8/bool).
-    A count (utils/roofline.py) takes the call at its declared `cost`."""
-    dev = tabs[0][0].device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"point stages: unsupported device {dev}")
-    with roofline.note_kernel("point_stages", *cost(tabs, feats, vmask, sig_ok, weights,
-                                                     geom_tabs=geom_tabs, occ_geom=occ_geom)):
-        if dev.type == "cpu":
-            return point_stages_tabs_plain(tabs, feats, vmask, sig_ok, weights,
-                                           geom_tabs=geom_tabs, occ_geom=occ_geom)
-        return _launch(tabs, feats, vmask, sig_ok.to(torch.uint8), weights,
-                       tuple(geom_tabs), occ_geom)
-
-
-def fused_point_stages(rows, w4, pscale, geom_tabs, vmask, sig_ok,
-                       weights: PointWeights):
-    """The one-table form: merged [rgb|feat] rows and geometry tables."""
-    return fused_point_stages_tabs(((rows, w4, pscale),), None, vmask, sig_ok,
-                                   weights, geom_tabs=geom_tabs)
-
-
-# ---------------------------------------------------------------------------
-# The tables entry: the kernel fetches its own rows
-# ---------------------------------------------------------------------------
 
 
 class _Fetch(ctypes.Structure):
@@ -709,10 +544,10 @@ def _geom_size(i, table, out_sh):
 
 
 def geometry_rows(i, table, scale, frac, out_sh):
-    """The rows entry's geometry table i: its rows at the points, the tap
-    weights (Tg, P) and the scale (unit for float tables), for points at
-    `frac` = dhw / out_sh (out_sh a (3,) int tensor), as the renderer
-    gathered them before the kernel fetched them itself."""
+    """Geometry table i's rows at the points, the tap weights (Tg, P) and
+    the scale (unit for float tables), for points at `frac` = dhw / out_sh
+    (out_sh a (3,) int tensor): what the kernel fetches, gathered in torch
+    ops."""
     if isinstance(table, NearestTable):
         size = out_sh // table.div
         if table.interleave > 1:
@@ -727,12 +562,12 @@ def geometry_rows(i, table, scale, frac, out_sh):
 
 def gather_from_tables(quads, pts_c, KE, src_hw, sig_ok, *, geom=(), dhw_c=None, out_sh=None,
                        feats=None, neg_ray=False, occ_geom=False):
-    """The rows entry's inputs of one tables-entry call, gathered in torch
-    ops: ((tabs, feats, vmask, sig_ok), {"geom_tabs", "occ_geom"}). The
-    projection rows in view-major order with their tap weights and the view
-    mask (ops/projection.py project_gather_rows_merged; the feature table of
-    a split pair view by view), each geometry table's rows and weights
-    (`geometry_rows`)."""
+    """The inputs of `point_stages_tabs_plain` for one call of the entry,
+    gathered in torch ops: ((tabs, feats, vmask, sig_ok), {"geom_tabs",
+    "occ_geom"}). The projection rows in view-major order with their tap
+    weights and the view mask (ops/projection.py project_gather_rows_merged;
+    the feature table of a split pair view by view), each geometry table's
+    rows and weights (`geometry_rows`)."""
     Hs, Ws = src_hw
     rows, w4, vmask = project_gather_rows_merged(pts_c, KE, quads[0][0], Hs, Ws, neg_ray=neg_ray)
     tabs = [(rows, w4, quads[0][1])]
@@ -751,7 +586,7 @@ def gather_from_tables(quads, pts_c, KE, src_hw, sig_ok, *, geom=(), dhw_c=None,
 
 def point_stages_from_tables_plain(quads, pts_c, KE, src_hw, sig_ok, weights: PointWeights,
                                    **kw):
-    """The tables entry's function in torch ops: `gather_from_tables`, then
+    """The kernel's function in torch ops: `gather_from_tables`, then
     `point_stages_tabs_plain`."""
     args, kw_t = gather_from_tables(quads, pts_c, KE, src_hw, sig_ok, **kw)
     return point_stages_tabs_plain(*args[:3], args[3], weights, **kw_t)
@@ -787,12 +622,16 @@ def _launch_from_tables(quads, pts_c, KE, src_hw, sig_ok, weights, geom, dhw_c, 
                          "geometry tables and occ_geom")
     _check(KE, f32, (nv, 4, 4), "cameras KE")
     _check(pts_c, f32, (P, 3), "points")
+    specs, gptrs, dims, sizes = [], [], [], []
     if feats is not None:
-        specs, gptrs = _read_geometry((), feats, P)
-        dims = sizes = []
+        if feats.dtype not in FEAT_ROWS:
+            raise NotImplementedError(f"point-stage kernel: geometry features must be float32 "
+                                      f"or bfloat16, got {feats.dtype}")
+        _check(feats, feats.dtype, (P, feats.shape[-1]), "geometry features")
+        specs.append((1, feats.shape[-1], FEAT_ROWS[feats.dtype]))
+        gptrs.append((feats, None))
     else:
         _check(dhw_c, f32, (P, 3), "dhw points")
-        specs, gptrs, dims, sizes = [], [], [], []
         for i, (table, sc) in enumerate(geom):
             if not fetchable(table):
                 raise NotImplementedError(f"point-stage kernel: geometry table {i} is no table "
@@ -807,12 +646,11 @@ def _launch_from_tables(quads, pts_c, KE, src_hw, sig_ok, weights, geom, dhw_c, 
             if sc is not None:
                 _check(sc, f32, (ch,), f"geometry table {i} scale")
             specs.append((taps, ch, kind))
-            gptrs.append((g, None, sc))
+            gptrs.append((g, sc))
             dims.append(dim)
             sizes.append(_geom_size(i, table, out_sh))
-        specs = tuple(specs)
     _check(sig_ok, u8, (P,), "sig_ok")
-    key = check_key((rows, specs, occ_geom, nv))
+    key = check_key((rows, tuple(specs), occ_geom, nv))
     fetch = _Fetch(pts=pts_c.data_ptr(), dhw=None if dhw_c is None else dhw_c.data_ptr(),
                    ke=KE.data_ptr(), neg=int(bool(neg_ray)), src_h=int(src_hw[0]),
                    src_w=int(src_hw[1]))
@@ -824,20 +662,67 @@ def _launch_from_tables(quads, pts_c, KE, src_hw, sig_ok, weights, geom, dhw_c, 
     for g, (dim, size) in enumerate(zip(dims, sizes)):
         fetch.geo_dims[g][:] = [int(v) for v in dim]
         fetch.geo_size[g][:] = [int(v) for v in size]
-    tabs = tuple((table, None, sc) for table, sc in quads)
-    outs = _run(key, tabs, gptrs, None, sig_ok, weights, P, pts_c.device, occ_geom, fetch=fetch,
+    outs = _run(key, quads, gptrs, sig_ok, weights, P, pts_c.device, occ_geom, fetch,
                 inputs=(KE, pts_c, dhw_c))
     count("kernel_fetched_slots", P)
     return outs
 
 
+def _run(key, quads, geom, sig_ok, weights, P, dev, occ_geom, fetch, inputs):
+    """Launch the library of `key` on P points: quads = the two projection
+    quad tables' (table, scale), geom = the geometry tables' (rows, scale)
+    or the feature input's (feats, None), sig_ok, the packed weights and
+    the launch's `_Fetch`, whose point and camera tensors `inputs` are.
+    Returns the outputs."""
+    lib = load_library(key)
+    f32 = torch.float32
+    flat = weights.flat
+    _check(flat, torch.uint8, (lib.point_stages_wbuf_bytes(),), "packed weights")
+    alpha = torch.empty(P, dtype=f32, device=dev)
+    rgb = torch.empty(P, 3, dtype=f32, device=dev)
+    occm = torch.empty(P, dtype=f32, device=dev) if occ_geom else None
+    geom = list(geom) + [(None, None)] * (4 - len(geom))
+    tensors = (*quads[0], *quads[1], *(t for g in geom for t in g), sig_ok, flat, alpha, rgb,
+               occm, *inputs)
+    if any(t is not None and t.device != dev for t in tensors):
+        raise ValueError("point-stage kernel: inputs on different devices")
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    table_ptrs = [(ctypes.c_void_p * 4)(*(ptr(g[j]) for g in geom)) for j in range(2)]
+    err = lib.point_stages_launch(
+        *(ptr(t) for t in (*quads[0], *quads[1])), *table_ptrs,
+        *(ptr(t) for t in (sig_ok, flat, alpha, rgb, occm)), P,
+        torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(fetch),
+    )
+    if err != 0:
+        raise RuntimeError(f"point-stage kernel launch failed: CUDA error {err}")
+    LAUNCHES[form_name(key)] += 1
+    return (alpha, rgb, occm) if occ_geom else (alpha, rgb)
+
+
+def _op_counts(V, P, proj_ch, geom_tc, weights: PointWeights):
+    """(tensor-core FLOPs, float32 operations) of one call of V views and P
+    points, projection tables of `proj_ch` channels (4 taps each) and
+    geometry tables of `geom_tc` (taps, channels): the twelve layers'
+    multiply-adds x 2 (the four per-view layers once per view), and the
+    lerps (two per tap and channel of each table, plus 4 per view and
+    channel for dequant, mean and variance)."""
+    macs = sum(w.shape[0] * w.shape[1] for w, _ in weights.layers)
+    macs += (V - 1) * sum(w.shape[0] * w.shape[1] for w, _ in weights.layers[5:9])
+    lerp = sum(V * ch * 2 * 4 for ch in proj_ch) + 4 * V * sum(proj_ch)
+    lerp += sum(taps * ch * 2 + ch for taps, ch in geom_tc)
+    return 2 * macs * P, lerp * P
+
+
 def cost_from_tables(quads, pts_c, KE, src_hw, sig_ok, weights: PointWeights, *, geom=(),
                      dhw_c=None, out_sh=None, feats=None, neg_ray=False, occ_geom=False):
-    """(bytes, FLOPs) of one tables-entry call (utils/roofline.py): each
-    point's quad row of every view and table and its geometry rows (or
-    feature row) read once, the points (world and dhw), the cameras, the
-    scales, sig_ok (uint8) and the packed weights read once, the outputs
-    written once; the FLOPs of the rows entry (`op_counts`)."""
+    """(bytes, FLOPs) of one call (utils/roofline.py): each point's quad
+    row of every view and table and its geometry rows (or feature row) read
+    once, the points (world and dhw), the cameras, the scales, sig_ok
+    (uint8) and the packed weights read once, the outputs written once;
+    `_op_counts` summed."""
     nv, P = KE.shape[0], pts_c.shape[0]
     proj_row = sum(q[0].shape[-1] * q[0].element_size() for q in quads)
     ins = P * nv * proj_row + roofline.nbytes(pts_c, KE, weights.flat, feats,
@@ -869,7 +754,7 @@ def fused_point_stages_from_tables(quads, pts_c, KE, src_hw, sig_ok, weights: Po
     NearestTable) with dhw_c (P, 3) the points in level-0 voxel units and
     out_sh the frame's level-0 extent (3 ints); or feats (P, F), the feature
     queried outside. sig_ok (P,) bool or uint8. Returns as
-    `fused_point_stages_tabs`. A count (utils/roofline.py) takes the call at
+    `point_stages_tabs_plain`. A count (utils/roofline.py) takes the call at
     its declared `cost_from_tables`."""
     dev = pts_c.device
     if dev.type not in ("cpu", "cuda"):

@@ -18,8 +18,8 @@ metric logger's peak device memory. Here:
   * `count` / `counters` / `reset_counters`: a process-wide registry of
     named sums, recorded only while a profiler records: `renders`,
     `upload_bytes`, `point_slots`, `kernel_fetched_slots` (the P of each
-    launch of the point-stage kernel's tables entry, ops/point_stages.py;
-    host numbers) and `colored_points` (a 0-d device tensor kept by
+    launch of the point-stage kernel, which fetches its own rows,
+    ops/point_stages.py; host numbers) and `colored_points` (a 0-d device tensor kept by
     reference and summed when `counters` is read, so counting adds no
     launch and no sync);
   * `trace`: a `torch.profiler` context that writes a Chrome trace;

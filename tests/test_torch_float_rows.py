@@ -56,6 +56,33 @@ def _table(rs, kind, Ct, V, P):
     return vals, w4, np.ones((Ct,), np.float32), False
 
 
+def _geom_inputs(rs, layout, P, occ):
+    """Seeded geometry tables of one layout (a ps.GEOMS name or the specs)
+    as numpy: (feats, geom_tabs); occ empties table 0's rows of 40% of the
+    points, so the occupancy cull bites."""
+    tables = ps.geom_specs(layout)
+    if tables[0][2] in ("feat", "feat-bf16"):  # bf16 features are cast by the caller
+        return (rs.randn(P, tables[0][1]) * 0.5).astype(np.float32), ()
+    geom = []
+    for i, (taps, ch, kind) in enumerate(tables):
+        if kind in ("u8", "i8"):
+            lo, hi = (0, 256) if kind == "u8" else (-127, 128)
+            g = rs.randint(lo, hi, size=(P, taps * ch)).astype(np.uint8 if kind == "u8" else np.int8)
+            sc = (0.01 + rs.rand(ch) * 0.03).astype(np.float32)
+        else:  # float rows (bf16 ones are cast by the caller), unit scale
+            g = (rs.rand(P, taps * ch) * 0.5).astype(np.float32)
+            sc = np.ones((ch,), np.float32)
+        if occ and i == 0:
+            g[rs.rand(P) > 0.6] = 0
+        if taps > 1:
+            w = rs.rand(taps, P).astype(np.float32)
+            w /= w.sum(0)
+        else:
+            w = (rs.rand(1, P) > 0.05).astype(np.float32)
+        geom.append((g, w, sc))
+    return None, tuple(geom)
+
+
 def _form_inputs(name, P=300, seed=0):
     """Seeded inputs of one FORMS entry, as (port args, port kwargs, JAX
     args, JAX kwargs)."""
@@ -120,9 +147,9 @@ def test_new_form_plain_matches_pallas_interpret(name):
         # a sum of non-negative terms compared with 0 on both sides
         np.testing.assert_array_equal(out[2], out_j[2])
         assert 0.2 < out[2].mean() < 0.9
-    # the CPU wrapper is the plain version and launches nothing
+    # the plain version on the CPU launches nothing and repeats itself
     before = sum(ps.LAUNCHES.values())
-    again = ps.fused_point_stages_tabs(*t_args, **t_kw)
+    again = ps.point_stages_tabs_plain(*t_args, **t_kw)
     assert sum(ps.LAUNCHES.values()) == before
     for o, o_p in zip(again, out):
         np.testing.assert_array_equal(o.numpy(), o_p)

@@ -42,8 +42,7 @@ from gpnerf_tpu_torch.registry import get as port_get
 from gpnerf_tpu_torch.render.base import batch_to_device, prepare_frame
 from gpnerf_tpu_torch.render.demo import GEOMETRY_SWITCHES, Renderer
 from gpnerf_tpu_torch.train.checkpoint import load_eval_model
-from test_torch_float_rows import _table
-from test_torch_gpu import _geom_inputs
+from test_torch_float_rows import _geom_inputs, _table
 from test_torch_point_forms import _heads, _port_weights
 
 CKPT = os.path.join(os.path.dirname(__file__), "..", "artifacts", "bench_ckpt.pth")

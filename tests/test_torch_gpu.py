@@ -6,8 +6,9 @@ and skip without a card; on the GPU machine run them with
 They import only torch and the port (the GPU machine has no flax): the
 point-stage, quad-lerp and row-gather CUDA kernels against their plain
 versions at ragged sizes (for the point stages, sizes that end inside a
-16-row tile and inside a warp; FORMS' keys and keys built from a call's
-key, 1-8 views among them), the wrappers' refusals, 128^2 renders on the card against the
+16-row tile and inside a warp; the kernel's entry on the seeded tables of
+tests/point_tables.py for FORMS' keys and keys built from a call's key,
+1-8 views among them), the wrappers' refusals, 128^2 renders on the card against the
 same render on the CPU, the kernel on a compacted render's points and the
 compacted render against the dense-slot one, the kernel on the windowed
 tap's points and the windowed renders on the card against the CPU, both
@@ -25,7 +26,6 @@ import numpy as np
 import pytest
 import torch
 
-from gpnerf_tpu_torch.models.heads import NeRFHead
 from gpnerf_tpu_torch.ops import point_stages as ps
 
 CKPT = os.path.join(os.path.dirname(__file__), "..", "artifacts", "bench_ckpt.pth")
@@ -37,35 +37,6 @@ def _cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
-
-
-def _inputs(P, seed, dev):
-    rs = np.random.RandomState(seed)
-    V, C, C0, C1 = ps.V, ps.C, ps.C0, ps.C1
-    gw0 = rs.rand(8, P).astype(np.float32)
-    arrays = (
-        rs.randint(-127, 128, size=(V * P, 4 * C)).astype(np.int8),
-        (rs.rand(V, 4, P) * (rs.rand(V, 4, P) > 0.1)).astype(np.float32),
-        (0.02 + rs.rand(C) * 0.05).astype(np.float32),
-        (
-            (rs.randint(0, 256, size=(P, 8 * C0)).astype(np.uint8),
-             gw0 / gw0.sum(0), (0.01 + rs.rand(C0) * 0.03).astype(np.float32)),
-            (rs.randint(-127, 128, size=(P, C1)).astype(np.int8),
-             (rs.rand(1, P) > 0.05).astype(np.float32),
-             (0.01 + rs.rand(C1) * 0.03).astype(np.float32)),
-        ),
-        (rs.rand(V, P) > 0.15).astype(np.float32),
-        rs.rand(P) > 0.2,
-    )
-
-    def to(x):
-        if isinstance(x, tuple):
-            return tuple(to(y) for y in x)
-        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-
-    torch.manual_seed(seed)
-    head = NeRFHead(in_feat_ch=C - 3, n_smpl=8, code_dim=8).to(dev)
-    return to(arrays) + (ps.pack_head_weights(head, fold_nch=C0),)
 
 
 # sizes that end inside a 16-row tensor-core tile and inside a warp
@@ -87,121 +58,76 @@ def _assert_near(d, P):
         assert beyond.mean() <= 0.005
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("P", [1, *RAGGED, 255, 256, 1000, 70001])
-def test_kernel_matches_plain(P):
-    dev = _cuda()
-    args = _inputs(P, P, dev)
-    before = ps.LAUNCHES["a"]
-    a, rgb = ps.fused_point_stages(*args)
-    torch.cuda.synchronize()
-    assert ps.LAUNCHES["a"] == before + 1
-    a_p, rgb_p = ps.point_stages_plain(*args)
-    a, rgb, a_p, rgb_p = (t.cpu().numpy() for t in (a, rgb, a_p, rgb_p))
+def _assert_kernel_near_plain(out, out_p, P):
+    """Kernel vs plain: all points within the bounds of
+    tests/test_pallas_point.py (`_assert_near`), alive-boundary flips on at
+    most 0.1% of the points, and equal occupancy verdicts (a sum of
+    non-negative terms compared with 0: exact)."""
+    assert len(out) == len(out_p)
+    a, rgb, a_p, rgb_p = (t.cpu().numpy() for t in (*out[:2], *out_p[:2]))
     assert np.isfinite(a).all() and np.isfinite(rgb).all()
-    # all points within the bounds of tests/test_pallas_point.py
     _assert_near(np.abs(a - a_p), P)
     agree = (a > 1e-14) == (a_p > 1e-14)
     assert (~agree).sum() <= max(1, 0.001 * P)
     _assert_near(np.abs(rgb - rgb_p)[agree], P)
+    if len(out) == 3:
+        np.testing.assert_array_equal(out[2].cpu().numpy(), out_p[2].cpu().numpy())
+
+
+def _kernel_vs_plain(key, P, dev, **kw):
+    """The entry on the seeded tables of `key` at P points (seed P), one
+    launch of the key's library, held against its plain version on the
+    same tables on the CPU; returns the kernel's outputs. The CPU's
+    projection einsum sums in the kernel's order (fused multiply-adds from
+    the first product) at every P; the card's does so at the main path's
+    sizes but not at every small P (at P = 127 its tap weights move by
+    1.4e-6 and one point's alpha by 7.7e-4)."""
+    from point_tables import seeded_tables, to_device
+
+    key = ps.check_key(key)
+    name = ps.form_name(key)
+    args, t_kw = seeded_tables(key, P, seed=P, **kw)
+    out_p = ps.point_stages_from_tables_plain(*args, **t_kw)
+    args, t_kw = to_device(args, dev), {k: to_device(v, dev) for k, v in t_kw.items()}
+    before = ps.LAUNCHES[name]
+    out = ps.fused_point_stages_from_tables(*args, **t_kw)
+    torch.cuda.synchronize()
+    assert ps.LAUNCHES[name] == before + 1
+    assert len(out) == (3 if key.occ else 2)
+    _assert_kernel_near_plain(out, out_p, P)
+    return out
+
+
+FORM_A = ps.Key(("i8",), "default", False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P", [1, *RAGGED, 255, 256, 1000, 70001])
+def test_kernel_matches_plain(P):
+    _kernel_vs_plain(FORM_A, P, _cuda())
 
 
 @pytest.mark.gpu
 def test_kernel_refuses_other_forms():
+    from point_tables import seeded_tables
+
+    from gpnerf_tpu_torch.ops.grid_sample import FlatOctetTable
+
     dev = _cuda()
-    rows, w4, pscale, geom, vmask, sig_ok, weights = _inputs(300, 0, dev)
+    args, kw = seeded_tables(FORM_A, 300, seed=0, device=dev)
+    ((t0, s0),), rest = args[0], args[1:]
     with pytest.raises(NotImplementedError, match="rows"):
-        ps.fused_point_stages(rows.to(torch.int16), w4, pscale, geom, vmask, sig_ok, weights)
+        ps.fused_point_stages_from_tables(((t0.to(torch.int16), s0),), *rest, **kw)
     # one geometry table alone is a key of its own, whose sigma-feat layer
     # takes 32 inputs: the 96-input weights do not fit it
     with pytest.raises(NotImplementedError, match="packed weights"):
-        ps.fused_point_stages(rows, w4, pscale, geom[:1], vmask, sig_ok, weights)
+        ps.fused_point_stages_from_tables(*args, **{**kw, "geom": kw["geom"][:1]})
     # a table of 16 channels is no key the kernel compiles
-    g0 = (geom[0][0][:, :8 * 16].contiguous(), geom[0][1], geom[0][2][:16].contiguous())
+    (g0, sc0), g1 = kw["geom"]
+    assert isinstance(g0, FlatOctetTable)
+    g16 = (FlatOctetTable(g0.rows[:, :8 * 16].contiguous(), g0.shape), sc0[:16].contiguous())
     with pytest.raises(NotImplementedError, match="geometry tables"):
-        ps.fused_point_stages(rows, w4, pscale, (g0, geom[1]), vmask, sig_ok, weights)
-
-
-def _geom_inputs(rs, layout, P, occ):
-    """Seeded geometry tables of one layout (a ps.GEOMS name or the specs)
-    as numpy: (feats, geom_tabs); occ empties table 0's rows of 40% of the
-    points, so the occupancy cull bites."""
-    tables = ps.geom_specs(layout)
-    if tables[0][2] in ("feat", "feat-bf16"):  # bf16 features are cast on the device
-        return (rs.randn(P, tables[0][1]) * 0.5).astype(np.float32), ()
-    geom = []
-    for i, (taps, ch, kind) in enumerate(tables):
-        if kind in ("u8", "i8"):
-            lo, hi = (0, 256) if kind == "u8" else (-127, 128)
-            g = rs.randint(lo, hi, size=(P, taps * ch)).astype(np.uint8 if kind == "u8" else np.int8)
-            sc = (0.01 + rs.rand(ch) * 0.03).astype(np.float32)
-        else:  # float rows (bf16 ones are cast on the device), unit scale
-            g = (rs.rand(P, taps * ch) * 0.5).astype(np.float32)
-            sc = np.ones((ch,), np.float32)
-        if occ and i == 0:
-            g[rs.rand(P) > 0.6] = 0
-        if taps > 1:
-            w = rs.rand(taps, P).astype(np.float32)
-            w /= w.sum(0)
-        else:
-            w = (rs.rand(1, P) > 0.05).astype(np.float32)
-        geom.append((g, w, sc))
-    return None, tuple(geom)
-
-
-def _form_inputs(form, P, seed, dev):
-    """Seeded inputs of one instantiation (a ps.Key, or a tuple of its
-    fields) at the widths the kernel is written for."""
-    rows, layout, occ, V = ps.make_key(*form)
-    rs = np.random.RandomState(seed)
-    C, CS, CF, C0, C1 = ps.C, ps.CS, ps.CF, ps.C0, ps.C1
-
-    def w4():
-        return (rs.rand(V, 4, P) * (rs.rand(V, 4, P) > 0.1)).astype(np.float32)
-
-    def table(kind, Ct):
-        if kind == "i8":
-            return (rs.randint(-127, 128, size=(V * P, 4 * Ct)).astype(np.int8), w4(),
-                    (0.02 + rs.rand(Ct) * 0.05).astype(np.float32))
-        if kind == "i4":
-            return (rs.randint(0, 256, size=(V * P, 2 * Ct)).astype(np.uint8), w4(),
-                    (0.02 + rs.rand(Ct) * 0.05).astype(np.float32))
-        if kind == "u8":
-            return (rs.randint(0, 256, size=(V * P, 4 * Ct)).astype(np.uint8), w4(),
-                    np.full((Ct,), 1 / 255.0, np.float32))
-        # float rows (bf16 ones are cast on the device), unit scale
-        return ((rs.randn(V * P, 4 * Ct) * 0.5).astype(np.float32), w4(),
-                np.ones((Ct,), np.float32))
-
-    tabs = (table(rows[0], C),) if len(rows) == 1 else (table(rows[0], CS), table(rows[1], CF))
-    kw = {}
-    feats, geom = _geom_inputs(rs, layout, P, occ)
-    if geom:
-        kw["geom_tabs"] = geom
-    vmask = (rs.rand(V, P) > 0.15).astype(np.float32)
-    sig_ok = rs.rand(P) > 0.2
-
-    def to(x):
-        if isinstance(x, tuple):
-            return tuple(to(y) for y in x)
-        return None if x is None else torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-
-    torch.manual_seed(seed)
-    head = NeRFHead(in_feat_ch=C - 3, n_smpl=8, code_dim=8, n_views=V).to(dev)
-    if geom:
-        kw["geom_tabs"] = tuple((g.to(torch.bfloat16) if spec[2] == "bf16" else g, w, sc)
-                                for spec, (g, w, sc) in zip(ps.geom_specs(layout), to(geom)))
-    if occ:
-        kw["occ_geom"] = True
-    t_tabs = tuple((r.to(torch.bfloat16) if kind == "bf16" else r, w, sc)
-                   for kind, (r, w, sc) in zip(rows, to(tabs)))
-    # the 96-wide geometry feature is [level 1 | folded coarse]: the folded
-    # sigma-feat weight; 128 wide, the checkpoint's own
-    fold = C0 if sum(t[1] for t in ps.geom_specs(layout)) == C0 + C1 else None
-    feats = to(feats)
-    if ps.geom_specs(layout)[0][2] == "feat-bf16":
-        feats = feats.to(torch.bfloat16)
-    return (t_tabs, feats, to(vmask), to(sig_ok), ps.pack_head_weights(head, fold_nch=fold)), kw
+        ps.fused_point_stages_from_tables(*args, **{**kw, "geom": (g16, g1)})
 
 
 @pytest.mark.gpu
@@ -217,27 +143,10 @@ def _form_inputs(form, P, seed, dev):
                                   # the (P, F) feature queried in bf16
                                   "a+b@bf16", "b+c@bf16", "b+c+d@bf16", "a+b@128-bf16"])
 def test_form_kernel_matches_plain(name, P):
-    dev = _cuda()
     form = {v: k for k, v in ps.FORMS.items()}[name]
-    args, kw = _form_inputs(form, P, P, dev)
-    before = ps.LAUNCHES[name]
-    out = ps.fused_point_stages_tabs(*args, **kw)
-    torch.cuda.synchronize()
-    assert ps.LAUNCHES[name] == before + 1
-    out_p = ps.point_stages_tabs_plain(*args, **kw)
-    assert len(out) == len(out_p) == (3 if form[2] else 2)
-    a, rgb, a_p, rgb_p = (t.cpu().numpy() for t in (*out[:2], *out_p[:2]))
-    assert np.isfinite(a).all() and np.isfinite(rgb).all()
-    # the tolerances of test_kernel_matches_plain
-    _assert_near(np.abs(a - a_p), P)
-    agree = (a > 1e-14) == (a_p > 1e-14)
-    assert (~agree).sum() <= max(1, 0.001 * P)
-    _assert_near(np.abs(rgb - rgb_p)[agree], P)
-    if form[2]:
-        # a sum of non-negative terms compared with 0: exact
-        np.testing.assert_array_equal(out[2].cpu().numpy(), out_p[2].cpu().numpy())
-        if P > 1000:
-            assert 0.3 < float(out[2].mean()) < 0.9
+    out = _kernel_vs_plain(form, P, _cuda())
+    if form.occ and P > 1000:
+        assert 0.3 < float(out[2].mean()) < 0.9
 
 
 # keys beyond FORMS, each built from the key at its first launch: the view
@@ -269,68 +178,38 @@ KEY_CASES = [
 @pytest.mark.parametrize("P", [1, 33, 257, 70001])
 @pytest.mark.parametrize("key", KEY_CASES, ids=ps.form_name)
 def test_key_kernel_matches_plain(key, P):
-    dev = _cuda()
-    name = ps.form_name(key)
-    args, kw = _form_inputs(key, P, P, dev)
-    before = ps.LAUNCHES[name]
-    out = ps.fused_point_stages_tabs(*args, **kw)
-    torch.cuda.synchronize()
-    assert ps.LAUNCHES[name] == before + 1
-    out_p = ps.point_stages_tabs_plain(*args, **kw)
-    assert len(out) == len(out_p) == (3 if key.occ else 2)
-    a, rgb, a_p, rgb_p = (t.cpu().numpy() for t in (*out[:2], *out_p[:2]))
-    assert np.isfinite(a).all() and np.isfinite(rgb).all()
-    # the tolerances of test_kernel_matches_plain
-    _assert_near(np.abs(a - a_p), P)
-    agree = (a > 1e-14) == (a_p > 1e-14)
-    assert (~agree).sum() <= max(1, 0.001 * P)
-    _assert_near(np.abs(rgb - rgb_p)[agree], P)
-    if key.occ:
-        np.testing.assert_array_equal(out[2].cpu().numpy(), out_p[2].cpu().numpy())
+    _kernel_vs_plain(key, P, _cuda())
 
 
 @pytest.mark.gpu
 def test_kernel_refuses_forms_without_instantiation():
     """Every key the renderer forms builds (test_key_kernel_matches_plain);
-    the wrapper refuses, before it launches, a key the source does not
+    the entry refuses, before it launches, a key the source does not
     compile (occ_geom on a table 0 that is not the 32-channel level-1
     block, more views than a dataset chooses, a fifth geometry table) and
-    inputs that do not fit the key (the packed weights of another F, tap
-    weights of another shape)."""
+    inputs that do not fit the key (the packed weights of another F,
+    cameras of another shape)."""
+    from point_tables import seeded_tables
+
     dev = _cuda()
     before = sum(ps.LAUNCHES.values())
-    args, kw = _form_inputs((("i8",), "default", False), 300, 0, dev)
-    g0, g1 = kw["geom_tabs"]
+    args, kw = seeded_tables(FORM_A, 300, seed=0, device=dev)
+    g0, g1 = kw["geom"]
     with pytest.raises(NotImplementedError, match="occ_geom needs"):
-        ps.fused_point_stages_tabs(*args, geom_tabs=(g1, g0), occ_geom=True)
+        ps.fused_point_stages_from_tables(*args, **{**kw, "geom": (g1, g0), "occ_geom": True})
     with pytest.raises(NotImplementedError, match="geometry tables"):
-        ps.fused_point_stages_tabs(*args, geom_tabs=(g0, g0, g0, g0, g1))
-    tabs, feats, vmask, sig_ok, weights = args
-    nine = tuple((r.repeat(3, 1), w.repeat(3, 1, 1), sc) for r, w, sc in tabs)
+        ps.fused_point_stages_from_tables(*args, **{**kw, "geom": (g0, g0, g0, g0, g1)})
+    quads, pts, KE = args[:3]
+    nine = tuple((t.repeat(3, 1, 1, 1), sc) for t, sc in quads)
     with pytest.raises(NotImplementedError, match="9 views"):
-        ps.fused_point_stages_tabs(nine, feats, vmask.repeat(3, 1), sig_ok, weights, **kw)
-    (tabs, feats, vmask, sig_ok, weights), kw = _form_inputs((("u8", "i8"), "feats96", False),
-                                                             300, 0, dev)
+        ps.fused_point_stages_from_tables(nine, pts, KE.repeat(3, 1, 1), *args[3:], **kw)
+    args, kw = seeded_tables((("u8", "i8"), "feats96", False), 300, seed=0, device=dev)
     with pytest.raises(NotImplementedError, match="packed weights"):
-        ps.fused_point_stages_tabs(tabs, feats[:, :64].contiguous(), vmask, sig_ok, weights)
-    with pytest.raises(NotImplementedError, match="tap weights"):
-        ps.fused_point_stages_tabs(
-            ((tabs[0][0], tabs[0][1][:2].contiguous(), tabs[0][2]), tabs[1]), feats, vmask, sig_ok, weights)
+        ps.fused_point_stages_from_tables(*args, **{**kw, "feats": kw["feats"][:, :64].contiguous()})
+    with pytest.raises(NotImplementedError, match="cameras"):
+        ps.fused_point_stages_from_tables(args[0], args[1], args[2][:, :3].contiguous(), *args[3:],
+                                          **kw)
     assert sum(ps.LAUNCHES.values()) == before
-
-
-def _assert_kernel_near_plain(out, out_p, P):
-    """The tolerances of test_kernel_matches_plain, and equal occupancy
-    verdicts."""
-    assert len(out) == len(out_p)
-    a, rgb, a_p, rgb_p = (t.cpu().numpy() for t in (*out[:2], *out_p[:2]))
-    assert np.isfinite(a).all() and np.isfinite(rgb).all()
-    _assert_near(np.abs(a - a_p), P)
-    agree = (a > 1e-14) == (a_p > 1e-14)
-    assert (~agree).sum() <= max(1, 0.001 * P)
-    _assert_near(np.abs(rgb - rgb_p)[agree], P)
-    if len(out) == 3:
-        np.testing.assert_array_equal(out[2].cpu().numpy(), out_p[2].cpu().numpy())
 
 
 @pytest.mark.gpu
@@ -338,39 +217,29 @@ def _assert_kernel_near_plain(out, out_p, P):
 @pytest.mark.parametrize("case", ["a", "c", "a V2", "c V2", "a neg", "c neg", "a occ", "c occ",
                                   "b"])
 def test_tables_kernel_matches_plain(case, P):
-    """The tables entry (the kernel fetching its own rows) on the seeded
-    tables and points of tests/test_torch_point_fetch.py (points off the
-    images, behind a camera, on pixel and voxel edges, outside out_sh)
-    against its plain version, and against the rows entry's kernel fed by
-    the gathers: the same library key, counted once per launch."""
-    from test_torch_point_fetch import seeded_inputs
-
-    dev = _cuda()
+    """The entry (the kernel fetching its own rows) on the seeded tables
+    and points of tests/point_tables.py (points off the images, behind a
+    camera, on pixel and voxel edges, outside out_sh) of forms (a) and (c)
+    at 3 and 2 views, in both ray conventions, with the occupancy cull, and
+    of a form (b) key, against its plain version on the CPU, counted once
+    per launch."""
     form, *opt = case.split()
-    args, kw = seeded_inputs(form, 2 if "V2" in opt else 3, "neg" in opt, P=P, seed=P,
-                             device=dev, occ_geom="occ" in opt)
-    name = ps.form_name(ps.make_key(*(("i8",) if form != "c" else ("u8", "i8"),
-                                      "feats96" if form == "b" else "default", "occ" in opt,
-                                      2 if "V2" in opt else 3)))
-    before = ps.LAUNCHES[name]
-    out = ps.fused_point_stages_from_tables(*args, **kw)
-    torch.cuda.synchronize()
-    assert ps.LAUNCHES[name] == before + 1
-    _assert_kernel_near_plain(out, ps.point_stages_from_tables_plain(*args, **kw), P)
-    g_args, g_kw = ps.gather_from_tables(*args[:5], **kw)
-    _assert_kernel_near_plain(out, ps.fused_point_stages_tabs(*g_args[:4], args[5], **g_kw), P)
+    rows = ("u8", "i8") if form == "c" else ("i8",)
+    key = ps.Key(rows, "feats96" if form == "b" else "default", "occ" in opt,
+                 2 if "V2" in opt else 3)
+    _kernel_vs_plain(key, P, _cuda(), neg_ray="neg" in opt)
 
 
 @pytest.mark.gpu
 def test_tables_kernel_refuses_what_it_does_not_take():
     """Tables the kernel does not fetch rows of, a quad table of another
     view count and an unknown device are refused before any launch."""
-    from test_torch_point_fetch import seeded_inputs
+    from point_tables import seeded_tables
 
     from gpnerf_tpu_torch.ops.grid_sample import NearestTable
 
     dev = _cuda()
-    args, kw = seeded_inputs("a", 3, False, device=dev)
+    args, kw = seeded_tables(FORM_A, device=dev)
     before = sum(ps.LAUNCHES.values())
     (t0, s0), (t1, s1) = kw["geom"]
     with pytest.raises(NotImplementedError, match="fetches rows of"):
@@ -391,13 +260,12 @@ FRAME_CASES = {"fast": {}, "paper tables": dict(merge_lowres_src=False),
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(FRAME_CASES))
 def test_tables_kernel_matches_plain_on_frame_inputs(case, monkeypatch):
-    """The tables entry on the inputs a 128^2 render of the fast mode, of
-    the paper configs' tables and of the reference semantics (the paper
-    cell's blanket cull over 64 samples, form (c)) hands it, against its
-    plain version and against the rows entry fed by the gathers, with the
-    tolerances of test_kernel_matches_plain; the render fetches every slot
-    in the kernel (`kernel_fetched_slots` = `point_slots` over a traced
-    render)."""
+    """The entry on the inputs a 128^2 render of the fast mode, of the
+    paper configs' tables and of the reference semantics (the paper cell's
+    blanket cull over 64 samples, form (c)) hands it, against its plain
+    version, with the tolerances of test_kernel_matches_plain; the render
+    fetches every slot in the kernel (`kernel_fetched_slots` =
+    `point_slots` over a traced render)."""
     dev = _cuda()
     from gpnerf_tpu_torch.registry import get
     from gpnerf_tpu_torch.render import demo
@@ -419,8 +287,6 @@ def test_tables_kernel_matches_plain_on_frame_inputs(case, monkeypatch):
     P = args[4].shape[0]
     out = ps.fused_point_stages_from_tables(*args, **kw)
     _assert_kernel_near_plain(out, ps.point_stages_from_tables_plain(*args, **kw), P)
-    g_args, g_kw = ps.gather_from_tables(*args[:5], **kw)
-    _assert_kernel_near_plain(out, ps.fused_point_stages_tabs(*g_args[:4], args[5], **g_kw), P)
     profiling.reset_counters()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]):
@@ -589,7 +455,7 @@ def _frame(cfg):
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["fast", "reference K32"])
 def test_kernel_matches_plain_on_compacted_points(mode, monkeypatch):
-    """The point-stage kernel's tables entry on the inputs a compacted 128^2
+    """The point-stage kernel's entry on the inputs a compacted 128^2
     render hands it (P = sig_cap points: the valid slots, then a tail with
     sig_ok off), against its plain version, with the tolerances of
     test_kernel_matches_plain."""
@@ -672,7 +538,7 @@ WINDOW_CASES = {
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(WINDOW_CASES))
 def test_kernel_matches_plain_on_windowed_points(case, monkeypatch):
-    """The point-stage kernel's tables entry on the inputs a windowed 128^2
+    """The point-stage kernel's entry on the inputs a windowed 128^2
     render hands it, against its plain version, with the tolerances of
     test_kernel_matches_plain; the render launches it once, under the
     key of its binned or windowless sibling."""

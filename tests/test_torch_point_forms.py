@@ -22,6 +22,7 @@ from gpnerf_tpu.ops.pallas_point import pack_head_weights as jax_pack
 from gpnerf_tpu_torch.ops import grid_sample as pgs
 from gpnerf_tpu_torch.ops import point_stages as ps
 from gpnerf_tpu_torch.ops import projection as pproj
+from point_tables import seeded_tables
 
 
 def _heads(V, C, F):
@@ -198,12 +199,26 @@ def test_plain_matches_pallas_kernel_interpret(form):
         assert (a[~occm] == 0).all() and (rgb[~occm] == 0).all()
 
 
-def test_wrapper_runs_plain_on_cpu_without_launching(form):
-    _, args, kw, _ = form
+# the forms above -> a key of the kernel's entry in the same form: (b) one
+# int8 table and the (P, 128) feature, (c) split tables, (d) int4 feature
+# rows beside the (P, 96) feature at 2 views, (e) occ_geom on one uint8
+# table at 2 views
+ENTRY_KEYS = {"b": ps.Key(("i8",), "feats128", False), "c": ps.Key(("u8", "i8"), "default", False),
+              "d": ps.Key(("u8", "i4"), "feats96", False, 2),
+              "e": ps.Key(("u8",), "default", True, 2)}
+
+
+@pytest.mark.parametrize("name", sorted(FORMS))
+def test_wrapper_runs_plain_on_cpu_without_launching(name):
+    """The entry on CPU tensors (the seeded tables of tests/point_tables.py)
+    runs its plain version and launches nothing."""
+    args, kw = seeded_tables(ENTRY_KEYS[name], seed=3)
     before = sum(ps.LAUNCHES.values())
-    out = ps.fused_point_stages_tabs(*args, **kw)
+    out = ps.fused_point_stages_from_tables(*args, **kw)
     assert sum(ps.LAUNCHES.values()) == before
-    for o, o_p in zip(out, ps.point_stages_tabs_plain(*args, **kw)):
+    want = ps.point_stages_from_tables_plain(*args, **kw)
+    assert len(out) == len(want) == (3 if name == "e" else 2)
+    for o, o_p in zip(out, want):
         np.testing.assert_array_equal(o.numpy(), o_p.numpy())
 
 
@@ -271,39 +286,44 @@ def test_int4_render_layout_matches_dequantized_int8():
 
 
 def test_launch_refuses_forms_and_widths_without_instantiation():
-    """The CUDA launch path reads the key from the tensors and checks it and
+    """The CUDA launch path reads the key from the tables and checks it and
     the widths before it touches the device, so its refusals show on CPU
     tensors too. Keys beyond FORMS (bf16 feature rows with occ_geom, a
     merged bf16 table with a feature input) are valid keys: their libraries
     are built at first use. Refused: occ_geom without geometry tables, more
     views than a dataset chooses, widths the kernel is not written for."""
-    P = 64
     before = sum(ps.LAUNCHES.values())
-    tabs8, _, vmask, sig_ok, weights, geom = _render_shape_inputs(P)
+    args, kw = seeded_tables(ps.Key(("u8", "i8"), "default", False), P=64)
+    quads, pts, KE, src_hw, sig_ok, weights = args
+    geom = kw["geom"]
+    feats = seeded_tables(ps.Key(("u8", "i8"), "feats96", False), P=64)[1]["feats"]
+
+    def launch(quads=quads, KE=KE, geom=geom, feats=None):
+        return ps._launch_from_tables(quads, pts, KE, src_hw, sig_ok.to(torch.uint8), weights,
+                                      geom, kw["dhw_c"], kw["out_sh"], feats, False, False)
+
     assert ps.check_key((("u8", "bf16"), ps.GEOMS["default"], True, 3)) == (
         ("u8", "bf16"), "default", True, 3)
     assert ps.form_name(ps.check_key((("bf16",), "feats96", False))) == "a:bf16@feats96"
-    _, feats, _, _, _, _ = _render_shape_inputs(P, feats=True)
     with pytest.raises(NotImplementedError, match="occ_geom needs geometry tables"):
         ps.check_key((("i8",), "feats96", True))
-    nine = torch.ones(9, P)
     with pytest.raises(NotImplementedError, match="9 views"):
-        ps._launch(tuple((r.repeat(3, 1), w.repeat(3, 1, 1), s) for r, w, s in tabs8), None,
-                   nine, sig_ok, weights, geom, False)
+        launch(tuple((t.repeat(3, 1, 1, 1), sc) for t, sc in quads), KE.repeat(3, 1, 1))
     with pytest.raises(NotImplementedError, match="geometry tables"):
-        ps._launch(tabs8, None, vmask, sig_ok, weights, geom[:1] * 5, False)
+        launch(geom=geom[:1] * 5)
+    g0, sc0 = geom[0]
+    assert isinstance(g0, pgs.FlatOctetTable)
     with pytest.raises(NotImplementedError, match="geometry tables"):
-        ps._launch(tabs8, None, vmask, sig_ok, weights,
-                   ((geom[0][0][:, :8 * 16].contiguous(), geom[0][1], geom[0][2][:16]),), False)
+        launch(geom=((pgs.FlatOctetTable(g0.rows[:, :8 * 16].contiguous(), g0.shape),
+                      sc0[:16].contiguous()),))
     with pytest.raises(NotImplementedError, match="1 or 2 projection tables"):
-        ps._launch(tabs8 + tabs8[:1], None, vmask, sig_ok, weights, geom, False)
-    with pytest.raises(NotImplementedError, match="feature rows"):
-        ps._launch((tabs8[0], (tabs8[1][0][:, :64].contiguous(),) + tabs8[1][1:]),
-                   None, vmask, sig_ok, weights, geom, False)
-    with pytest.raises(NotImplementedError, match="source rgb rows"):
-        ps._launch(tabs8, None, vmask[:2].contiguous(), sig_ok, weights, geom, False)
+        launch(quads + quads[:1])
+    with pytest.raises(NotImplementedError, match="feature table"):
+        launch((quads[0], (quads[1][0][..., :64].contiguous(), quads[1][1])))
+    with pytest.raises(NotImplementedError, match="source rgb table"):
+        launch(KE=KE[:2].contiguous())
     with pytest.raises(ValueError, match="excludes"):
-        ps._launch(tabs8, feats, vmask, sig_ok, weights, geom, False)
+        launch(feats=feats)
     assert sum(ps.LAUNCHES.values()) == before
 
 

@@ -16,8 +16,6 @@ and occ_geom, and 1-8 source views, against the JAX package.
   sigma_query_cull; the V = 4 op-by-op render; the heads at V = 4."""
 
 import copy
-import importlib.util
-import os
 import random
 
 import jax
@@ -38,7 +36,8 @@ from gpnerf_tpu_torch.registry import get as port_get
 from gpnerf_tpu_torch.render.base import batch_to_device
 from gpnerf_tpu_torch.render.demo import Renderer
 from gpnerf_tpu_torch.train.checkpoint import from_jax_variables, load_eval_model
-from test_torch_float_rows import _table
+from point_tables import cover_keys, reachable_kernel_keys
+from test_torch_float_rows import _geom_inputs, _table
 from test_torch_geom_layouts import (  # noqa: F401 (few_torch_threads: autouse fixture)
     CKPT,
     assert_matches_jax,
@@ -46,7 +45,6 @@ from test_torch_geom_layouts import (  # noqa: F401 (few_torch_threads: autouse 
     jax_variables,
     make_cfg,
 )
-from test_torch_gpu import _geom_inputs
 from test_torch_point_forms import _heads, _port_weights
 
 # keys FORMS does not name -> their names: forms (a) and (c) at 2 and 4
@@ -125,39 +123,25 @@ def test_key_plain_matches_pallas_interpret(name):
         assert 0.2 < out[2].mean() < 0.9
 
 
-def _chip_smoke():
-    """The repository's chip_smoke.py as a module (its top level imports
-    only the standard library)."""
-    path = os.path.join(os.path.dirname(CKPT), "..", "chip_smoke.py")
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def test_switch_space_keys_validate_and_build_apart():
-    """Every Renderer switch set (chip_smoke.py `reachable_kernel_keys`: 14
-    booleans, coarse_nearest 0-2, l1_nearest 0, 1, 2 and 11, bfloat16 or
-    float32) builds with pallas_point on; its keys for uint8 and float
-    source images validate, and the 336 distinct keys (32 of them FORMS')
-    have distinct names and libraries, the rows entry's and the tables
-    entry's apart. chip_smoke.py's cover set with FORMS
-    puts every row type in table positions A and B, every geometry spec in
-    every table position where the space has it, occ_geom on every table-0
-    spec, and forms (a) and (c) at 2, 4 and 8 views. The view count joins
-    the key and the library name; V = 9 is refused."""
-    smoke = _chip_smoke()
-    keys = smoke.reachable_kernel_keys()
+    """Every Renderer switch set (tests/point_tables.py
+    `reachable_kernel_keys`: 14 booleans, coarse_nearest 0-2, l1_nearest 0,
+    1, 2 and 11, bfloat16 or float32) builds with pallas_point on; its keys
+    for uint8 and float source images validate, and the 336 distinct keys
+    (32 of them FORMS') have distinct names and one library each, whose
+    geometry tables are octet (8 taps) or nearest (1 tap) rows, or the (P,
+    F) feature. The cover set (`cover_keys`) with FORMS puts every row type
+    in table positions A and B, every geometry spec in every table position
+    where the space has it, occ_geom on every table-0 spec, and forms (a)
+    and (c) at 2, 4 and 8 views. The view count joins the key and the
+    library name; V = 9 is refused."""
+    keys = reachable_kernel_keys()
     assert len(keys) == 336 and sum(k in ps.FORMS for k in keys) == 32
     assert all(ps.check_key(k) == k for k in keys)
     assert len({ps.form_name(k) for k in keys}) == len(keys)
     assert len({ps.build_command(k)[1] for k in keys}) == len(keys)
-    # each key builds both ways from the one source: the rows entry and the
-    # tables entry (PS_FETCH), whose geometry tables are octet (8 taps) or
-    # nearest (1 tap) rows, or the (P, F) feature
-    assert len({ps.build_command(k, f)[1] for k in keys for f in (False, True)}) == 2 * len(keys)
     assert all(t in (1, 8) for k in keys for t, _, _ in ps.geom_specs(k.geom))
-    cover = list(ps.FORMS) + [ps.check_key(k) for k in smoke.cover_keys()]
+    cover = list(ps.FORMS) + [ps.check_key(k) for k in cover_keys()]
 
     def traits(ks):
         out = set()

@@ -25,6 +25,7 @@ from gpnerf_tpu.ops.pallas_point import fused_point_stages_tabs
 from gpnerf_tpu.ops.pallas_point import pack_head_weights as jax_pack
 from gpnerf_tpu_torch.models.heads import NeRFHead
 from gpnerf_tpu_torch.ops import point_stages as ps
+from point_tables import seeded_tables
 
 P, V, C, C1, CC = 700, 3, 35, 32, 64
 
@@ -262,10 +263,13 @@ def test_kernel_tile_walk_matches_dense(form_a):
     assert off == biases.numel()
 
 
-def test_wrapper_runs_plain_on_cpu_without_launching(form_a):
+def test_wrapper_runs_plain_on_cpu_without_launching():
+    """The entry on CPU tensors (form (a) on the seeded tables of
+    tests/point_tables.py) runs its plain version and launches nothing."""
+    args, kw = seeded_tables(ps.Key(("i8",), "default", False))
     before = sum(ps.LAUNCHES.values())
-    a, rgb = ps.fused_point_stages(*form_a["args"])
-    a_p, rgb_p = ps.point_stages_plain(*form_a["args"])
+    a, rgb = ps.fused_point_stages_from_tables(*args, **kw)
+    a_p, rgb_p = ps.point_stages_from_tables_plain(*args, **kw)
     assert sum(ps.LAUNCHES.values()) == before
     np.testing.assert_array_equal(a.numpy(), a_p.numpy())
     np.testing.assert_array_equal(rgb.numpy(), rgb_p.numpy())
@@ -274,10 +278,10 @@ def test_wrapper_runs_plain_on_cpu_without_launching(form_a):
 def test_wrapper_has_no_fallback():
     """Non-CPU, non-CUDA tensors raise; the CUDA path launches or raises
     (no try/except around the build or the launch)."""
-    for fn in (ps.fused_point_stages, ps.fused_point_stages_tabs, ps._launch,
+    for fn in (ps.fused_point_stages_from_tables, ps._launch_from_tables, ps._run,
                ps.load_library, ps.start_build):
         src = inspect.getsource(fn)
         assert "except" not in src and "try:" not in src
-    meta = torch.empty(3 * 4, 140, dtype=torch.int8, device="meta")
+    meta = torch.empty(64, 3, device="meta")
     with pytest.raises(ValueError):
-        ps.fused_point_stages(meta, None, None, (), None, None, None)
+        ps.fused_point_stages_from_tables((), meta, None, (48, 64), None, None)

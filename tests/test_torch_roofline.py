@@ -7,11 +7,13 @@ of XLA's cost_analysis() in tools/roofline.py and bench.py) on the CPU:
     table's size; `index_put_` and `scatter_add_` count the touched rows;
     ops off the counted device are host ops and cost nothing;
   * the kernels' declared costs: each plain version under `counting` adds
-    exactly its declared cost and none of its own ops (point stages form
-    (a), both quad lerps, the row gather), and those costs equal the
-    formulas `chip_smoke.py` held before they moved into the ops modules
-    (kept here as the oracle); the CPU's widened stand-in for the card's
-    bf16 product counts as that product;
+    exactly its declared cost and none of its own ops (the point-stage
+    entry on the seeded tables of tests/point_tables.py, both quad lerps,
+    the row gather), and those costs equal the formulas `chip_smoke.py`
+    held before they moved into the ops modules (kept here as the oracle;
+    the point stages' bytes are those of the rows the kernel fetches); the
+    CPU's widened stand-in for the card's bf16 product counts as that
+    product;
   * FLOPs against JAX: the port's encoder at 128^2, float32, with the
     checkpoint's weights counts within 2% of XLA's cost_analysis() of the
     JAX encoder on the CPU (measured 0.9%: XLA also counts elementwise
@@ -59,6 +61,7 @@ sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 import chip_smoke  # noqa: E402  (torch and the port only; the card only inside main)
 import roofline_torch  # noqa: E402
+from point_tables import seeded_tables  # noqa: E402
 
 CKPT = os.path.join(ROOT, "artifacts", "bench_ckpt.pth")
 
@@ -150,16 +153,24 @@ def test_ops_off_the_counted_device_are_host_ops():
 # --- the kernels' declared costs, against chip_smoke.py's former formulas
 
 
-def _old_point_stage_bytes(call, outs):
-    """chip_smoke.py's point_stage_cost before the cost moved into
-    ops/point_stages.py: each input read once, each output written once."""
-    tabs, feats, vmask, sig_ok, weights, kw = call
-    tensors = [vmask, sig_ok.to(torch.uint8), weights.flat, *outs]
-    for t in (*tabs, *kw.get("geom_tabs", ())):
-        tensors += list(t)
-    if feats is not None:
-        tensors.append(feats)
-    return sum(t.numel() * t.element_size() for t in tensors)
+def _fetched_bytes(args, kw, outs):
+    """The point-stage entry's bytes: each point's quad row in every view
+    of every projection table and its geometry rows (or feature row) read
+    once, the points, the cameras, the scales, sig_ok (as uint8) and the
+    packed weights read once, the outputs written once."""
+    quads, pts, KE, _, _, weights = args
+    P, V = pts.shape[0], KE.shape[0]
+    per_point = sum(V * q.shape[-1] * q.element_size() for q, _ in quads) + 1
+    once = [pts, KE, weights.flat, *(sc for _, sc in quads), *outs]
+    if kw.get("feats") is not None:
+        once.append(kw["feats"])
+    else:
+        once.append(kw["dhw_c"])
+        for table, sc in kw["geom"]:
+            rows = table if isinstance(table, torch.Tensor) else table.rows
+            per_point += rows.shape[-1] * rows.element_size()
+            once += [] if sc is None else [sc]
+    return P * per_point + sum(t.numel() * t.element_size() for t in once)
 
 
 def _old_point_stage_ops(call):
@@ -179,30 +190,19 @@ def _old_lerp_cost(rows, w4, scale, out):
     return sum(t.numel() * t.element_size() for t in (rows, w4, scale, out)), 9 * out.numel()
 
 
-@pytest.fixture(scope="module")
-def head_weights():
-    r = port_get("render", "demo_render")(_cfg(port_cfg, 64), device="cpu")
-    load_eval_model(CKPT, r)
-    return chip_smoke.head_weights_of(r)
-
-
 @pytest.mark.parametrize("form", ["a", "a+e", "c", "a+b"])
-def test_point_stages_plain_counts_its_declared_cost(form, head_weights):
+def test_point_stages_plain_counts_its_declared_cost(form):
     key = next(k for k, n in ps.FORMS.items() if n == form)
-    P = 203
-    tabs, feats, vmask, sig_ok, kw = chip_smoke.random_point_inputs(key, P, "cpu")
-    weights = head_weights[sum(t[1] for t in ps.geom_specs(key.geom))]
-    call = (tabs, feats, vmask, sig_ok, weights, kw)
+    args, kw = seeded_tables(key, 203)
     with torch.no_grad(), counting("cpu") as c:
-        outs = ps.fused_point_stages_tabs(tabs, feats, vmask, sig_ok, weights, **kw)
-    nb, fl = ps.cost(tabs, feats, vmask, sig_ok, weights, **kw)
+        outs = ps.fused_point_stages_from_tables(*args, **kw)
+    nb, fl = ps.cost_from_tables(*args, **kw)
     assert dict(c.kernels) == {"point_stages": 1}
     assert dict(c.by_op) == {"kernel:point_stages": nb}
-    assert c.bytes == nb == _old_point_stage_bytes(call, outs)
-    assert c.flops == fl == sum(_old_point_stage_ops(call))
-    assert ps.op_counts(tabs, vmask, weights, kw.get("geom_tabs", ())) == _old_point_stage_ops(call)
-    # chip_smoke.py's bound reads the moved cost
-    assert chip_smoke.point_stage_cost(call)[0] == nb
+    assert c.bytes == nb == _fetched_bytes(args, kw, outs)
+    # the FLOPs of the rows the kernel fetches, by the former formula
+    (tabs, feats, vmask, sig_ok), g_kw = ps.gather_from_tables(*args[:5], **kw)
+    assert c.flops == fl == sum(_old_point_stage_ops((tabs, feats, vmask, sig_ok, args[5], g_kw)))
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])

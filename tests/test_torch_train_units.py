@@ -405,9 +405,11 @@ def test_fresh_init_statistics_match_flax(frame):
 
 
 def test_port_imports_no_jax():
-    """No file of gpnerf_tpu_torch/, tools/train_torch.py or chip_smoke.py
-    imports jax, flax or gpnerf_tpu."""
-    files = [os.path.join(ROOT, "tools", "train_torch.py"), os.path.join(ROOT, "chip_smoke.py")]
+    """No file of gpnerf_tpu_torch/, tools/train_torch.py, chip_smoke.py or
+    the tables it shares with the tests (tests/point_tables.py) imports
+    jax, flax or gpnerf_tpu."""
+    files = [os.path.join(ROOT, "tools", "train_torch.py"), os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "tests", "point_tables.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "gpnerf_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     bad = []

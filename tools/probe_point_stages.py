@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the point-stage kernel (gpnerf_tpu_torch/csrc/point_stages.cu)
 spends its time on the card, for forms (a) and (c) at the main-path sizes
-(P = 319,488 and 3,670,016) on seeded random inputs:
+(P = 319,488 and 3,670,016) on the seeded tables of tests/point_tables.py:
 
   1. CUDA-event times of the kernel and of three probes built from the same
      source: the weight staging only, the front end only (lerps, mean/var,
@@ -12,9 +12,7 @@ spends its time on the card, for forms (a) and (c) at the main-path sizes
      warps of one block in the middle of the grid;
   3. on the inputs of bench frame 0 at 512^2 (the fast mode for form (a),
      the reference semantics for form (c), the trained checkpoint): the
-     tables entry the renderer launches (the kernel fetching its own rows)
-     and its probes built with PS_FETCH=1, beside the rows entry and the
-     torch gathers it needs first.
+     kernel and its probes, as the renderer launches them.
 
     python3 tools/probe_point_stages.py
 
@@ -71,7 +69,6 @@ def main():
     import torch
 
     import chip_smoke as cs
-    from gpnerf_tpu_torch.models.heads import NeRFHead
     from gpnerf_tpu_torch.ops import cuda_build
     from gpnerf_tpu_torch.ops import point_stages as ps
 
@@ -90,36 +87,33 @@ def main():
         with open(os.path.join(cuda_build.BUILD_DIR, fname), "w") as f:
             f.write(text)
         for name, (form, _) in FORMS.items():
-            for fetch in (False, True):
-                defines = ps._build_args(form, fetch)[2]
-                args = (os.path.join("..", "_build", fname),
-                        f"probe_{vname.replace(' ', '_')}_{name}{'_fetch' * fetch}", defines)
-                builds[vname, name, fetch] = (args, cuda_build.start_build(*args))
+            args = (os.path.join("..", "_build", fname), f"probe_{vname.replace(' ', '_')}_{name}",
+                    ps._build_args(form)[2])
+            builds[vname, name] = (args, cuda_build.start_build(*args))
     vp = ctypes.c_void_p
     libs = {}
     for key, (args, proc) in builds.items():
         libs[key] = ps.bind_library(cuda_build.load(*args, proc=proc))
     dev = torch.device("cuda")
-    torch.manual_seed(0)
-    weights = ps.pack_head_weights(NeRFHead(in_feat_ch=32, n_smpl=8, code_dim=8).to(dev), fold_nch=32)
+    pt = cs.point_tables()
     saved = dict(ps._libs)
     try:
         for name, (form, P) in FORMS.items():
             form = ps.check_key(form)
-            tabs, feats, vmask, sig_ok, kw = cs.random_point_inputs(form, P, dev)
+            args, kw = pt.seeded_tables(form, P, device=dev)
 
             def call():
-                return ps.fused_point_stages_tabs(tabs, feats, vmask, sig_ok, weights, **kw)
+                return ps.fused_point_stages_from_tables(*args, **kw)
 
             times = {}
             for vname in [v for v in variants if v != "clock64 marks"] * 2:  # two rounds, in turn
-                ps._libs[form, False] = libs[vname, name, False]
+                ps._libs[form] = libs[vname, name]
                 times.setdefault(vname, []).append(cs.cuda_ms(call, 10 if P < 10**6 else 4))
             print(f"# probe on {card}: form ({name}) P={P}, ms (two rounds): "
                   + "; ".join(f"{k} {v[0]:.4f} {v[1]:.4f}" for k, v in times.items()), flush=True)
-            lib = libs["clock64 marks", name, False]
+            lib = libs["clock64 marks", name]
             lib.probe_clock.argtypes, lib.probe_clock.restype = [vp], ctypes.c_int
-            ps._libs[form, False] = lib
+            ps._libs[form] = lib
             call()
             torch.cuda.synchronize()
             buf = (ctypes.c_longlong * (32 * 8))()
@@ -130,9 +124,9 @@ def main():
                 t = buf[w * 8: w * 8 + 6]
                 print(f"# clock64 on {card}: form ({name}) block {BLOCK_PROBED} warp {w}: {t[5] - t[0]} cycles; "
                       + ", ".join(f"{lab} {t[i + 1] - t[i]}" for i, lab in enumerate(labels)), flush=True)
-            del tabs, feats, vmask, sig_ok, kw
+            del args, kw
             torch.cuda.empty_cache()
-            ps._libs[form, False] = libs["kernel", name, False]
+            ps._libs[form] = libs["kernel", name]
             frame_probe(name, form, card, libs, variants)
             torch.cuda.empty_cache()
     finally:
@@ -142,8 +136,8 @@ def main():
 
 
 def frame_probe(name, form, card, libs, variants):
-    """Part 3 for one form: the tables entry and its probes, the rows entry
-    and the gathers, timed in turn over two rounds on frame 0's inputs."""
+    """Part 3 for one form: the kernel and its probes, timed in turn over
+    two rounds on frame 0's inputs."""
     import torch
 
     import chip_smoke as cs
@@ -164,19 +158,15 @@ def frame_probe(name, form, card, libs, variants):
         demo.fused_point_stages_from_tables = real
     args, kw = captured[0]
     args = (*args[:4], args[4].to(torch.uint8), *args[5:])
-    (tabs, feats, vmask, sig_ok), kw_rows = ps.gather_from_tables(*args[:5], **kw)
-    P, reps = vmask.shape[1], 10 if vmask.shape[1] < 10**6 else 4
+    P = args[1].shape[0]
+    reps = 10 if P < 10**6 else 4
     times = {}
     for _ in range(2):
         for vname in [v for v in variants if v != "clock64 marks"]:
-            ps._libs[form, True] = libs[vname, name, True]
-            times.setdefault(f"tables entry, {vname}", []).append(
+            ps._libs[form] = libs[vname, name]
+            times.setdefault(vname, []).append(
                 cs.cuda_ms(lambda: ps.fused_point_stages_from_tables(*args, **kw), reps))
-        ps._libs[form, True] = libs["kernel", name, True]
-        times.setdefault("rows entry", []).append(cs.cuda_ms(
-            lambda: ps.fused_point_stages_tabs(tabs, feats, vmask, sig_ok, args[5], **kw_rows), reps))
-        times.setdefault("gathers", []).append(
-            cs.cuda_ms(lambda: ps.gather_from_tables(*args[:5], **kw), reps))
+        ps._libs[form] = libs["kernel", name]
     print(f"# probe on {card}: form ({name}) on bench frame 0's inputs, P={P}, ms (two rounds): "
           + "; ".join(f"{k} {v[0]:.4f} {v[1]:.4f}" for k, v in times.items()), flush=True)
 
